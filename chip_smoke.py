@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/H100 port (``src/repro_torch``).
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout on a machine with one CUDA card. It
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
+3. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes and times kernel, plain version and a library
+   yardstick (CUDA events);
+4. serves 8 requests of full-width qwen2.5-3b (random weights from
+   ``--seed``) through ``ContinuousEngine`` under ``kernel_impls="auto"``,
+   checks the kernels' launch counts and every request's length, and holds
+   one float32 prefill under ``auto`` against ``reference``;
+5. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   line.
+
+Any failed check raises, so the exit code is not 0. Without CUDA it exits
+with code 2 before printing any result. It imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor / fp32 CUDA cores
+
+# tests/test_kernels.py tolerances: (atol, rtol)
+TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
+# float32 prefill logits, auto (kernels) vs reference, full width: both sides
+# sum in another order (FMA flash kernel vs materialised softmax, block
+# reduction vs torch's mean), compounded over 36 residual layers; expected
+# about 1e-5 on logits of order 1, the limit is 100x that, and a wrong mask
+# or head map moves logits by order 0.1.
+SLICE_TOL = (1e-3, 1e-3)
+
+
+def cuda_ms(fn, iters: int = 50, reps: int = 5) -> tuple:
+    """Mean time of one call of ``fn`` in ms, as (device, eager).
+
+    device: ``iters`` calls captured in one CUDA graph, replayed ``reps``
+    times between CUDA events, so host launch overhead is out of the number.
+    eager: ``iters`` back-to-back calls from Python between CUDA events; for
+    a small kernel this is the host's launch rate, not the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device = start.elapsed_time(end) / (reps * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return device, start.elapsed_time(end) / iters
+
+
+def time_three(kernel, plain, library) -> dict:
+    """Device and eager times of the kernel, its plain version and the
+    library yardstick (None where there is none)."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        out[key], out["eager_" + key] = cuda_ms(fn) if fn is not None else (None, None)
+    return out
+
+
+def _fmt(v) -> str:
+    return "n/a" if v is None else f"{v:.5f}"
+
+
+def report(name: str, t: dict) -> None:
+    fmt = _fmt
+    print(f"time {name} {t['shape']}: device (CUDA graph) kernel {fmt(t['ms'])} ms, "
+          f"plain {fmt(t['plain_ms'])} ms, library {fmt(t['library_ms'])} ms; eager "
+          f"kernel {fmt(t['eager_ms'])} ms, plain {fmt(t['eager_plain_ms'])} ms, library "
+          f"{fmt(t['eager_library_ms'])} ms; bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    bad = err > atol + rtol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond atol={atol} "
+                             f"rtol={rtol}; max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def rmsnorm_bound_ms(rows: int, d: int, dtype: torch.dtype) -> float:
+    elt = torch.empty((), dtype=dtype).element_size()
+    bytes_ = 2 * rows * d * elt + d * 4            # x read, y written, w read
+    ops = 4 * rows * d                             # square-add, scale, weight
+    return 1e3 * max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[torch.float32])
+
+
+def flash_bound(b, h, kv, s, d, dtype, causal=True, window=None):
+    """(bound ms, 'bytes' | 'operations') for attention over this run's mask."""
+    q = np.arange(s)[:, None]
+    k = np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= k <= q
+    if window is not None:
+        mask &= k > q - window
+    pairs = int(mask.sum())
+    flops = 4 * b * h * d * pairs                  # QK^T and PV, 2 flops a MAC
+    elt = torch.empty((), dtype=dtype).element_size()
+    bytes_ = (2 * b * h * s * d + 2 * b * kv * s * d) * elt
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_phase(gen: torch.Generator):
+    from repro_torch.kernels.ops import flash_attention_op, rmsnorm_op
+    from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+
+    dev = "cuda"
+    results = {"rmsnorm": {"err": 0.0}, "flash_attention": {"err": 0.0}}
+
+    # --- rmsnorm: rows of the decode wave (4), a prefill (512), odd counts
+    d = 2048
+    w = torch.randn(d, device=dev, generator=gen)
+    for rows in (1, 4, 512, 777):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
+            err = check_close(f"rmsnorm rows={rows} {dtype}", rmsnorm_op(x, w),
+                              rmsnorm_ref(x, w), TOL[dtype])
+            torch.cuda.synchronize()
+            print(f"check rmsnorm rows={rows} d={d} {dtype}: max abs err {err:.3e}")
+            results["rmsnorm"]["err"] = max(results["rmsnorm"]["err"], err)
+    has_rms = hasattr(torch.nn.functional, "rms_norm")
+    for rows in (4, 512):  # decode wave, prefill
+        x = torch.randn(rows, d, device=dev, generator=gen).to(torch.bfloat16)
+        w_lib = w.to(torch.bfloat16)
+        t = time_three(lambda: rmsnorm_op(x, w), lambda: rmsnorm_ref(x, w),
+                       (lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
+                       if has_rms else None)
+        t.update(bound_ms=rmsnorm_bound_ms(rows, d, torch.bfloat16), bound_by="bytes",
+                 shape=f"x ({rows}, {d}) bf16, w fp32")
+        report("rmsnorm", t)
+        if rows == 4:  # the decode wave carries most of the launches
+            results["rmsnorm"].update(t)
+
+    # --- flash attention: (B,S,H,D) projections read as (B,H,S,D) views
+    def qkv(b, h, kv, s, dd, dtype):
+        q = torch.randn(b, s, h, dd, device=dev, generator=gen).to(dtype).transpose(1, 2)
+        k = torch.randn(b, s, kv, dd, device=dev, generator=gen).to(dtype).transpose(1, 2)
+        v = torch.randn(b, s, kv, dd, device=dev, generator=gen).to(dtype).transpose(1, 2)
+        return q, k, v
+
+    cases = [(1, 16, 2, s, 128, True, None, dt) for s in (512, 1000)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(1, 16, 2, 1000, 128, True, 256, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 4, 1, 100, 16, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(1, 4, 4, 128, 64, False, None, torch.float32)]
+    for b, h, kv, s, dd, causal, window, dtype in cases:
+        q, k, v = qkv(b, h, kv, s, dd, dtype)
+        name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
+                f"window={window} {dtype}")
+        out = flash_attention_op(q, k, v, causal=causal, window=window)
+        err = check_close(name, out, flash_attention_ref(q, k, v, causal=causal, window=window),
+                          TOL[dtype])
+        torch.cuda.synchronize()
+        print(f"check {name}: max abs err {err:.3e}")
+        results["flash_attention"]["err"] = max(results["flash_attention"]["err"], err)
+    # timing at the main path's prefill shape
+    b, h, kv, s, dd = 1, 16, 2, 512, 128
+    q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
+    k_rep = k.repeat_interleave(h // kv, dim=1)
+    v_rep = v.repeat_interleave(h // kv, dim=1)
+    bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16)
+    t = time_three(lambda: flash_attention_op(q, k, v, causal=True),
+                   lambda: flash_attention_ref(q, k, v, causal=True),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k_rep, v_rep, is_causal=True))
+    t.update(bound_ms=bound, bound_by=by,
+             shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
+    report("flash_attention", t)
+    results["flash_attention"].update(t)
+    return results
+
+
+def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
+    """Where a decode step's time goes: device-busy time (sum of CUDA kernel
+    times seen by ``torch.profiler``) against the host wall time of the same
+    steps, with the profiler on, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(engine.n_slots):
+        engine.add(gen_request(id=1000 + i, prompt=prompts[i], max_new=steps + 2))
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    engine.run()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("profile: the profiler saw no CUDA kernel; device time not measured")
+        return {"profile": "not measured"}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"profile_decode_wall_ms_per_step": wall_ms / steps,
+           "profile_decode_device_ms_per_step": busy_ms / steps,
+           "profile_decode_idle_share": 1.0 - busy_ms / wall_ms,
+           "profile_decode_kernels_per_step": len(kernels) / steps}
+    print(f"profile: {steps} decode steps ({engine.n_slots} slots, profiler on): wall "
+          f"{out['profile_decode_wall_ms_per_step']:.2f} ms/step, device busy "
+          f"{out['profile_decode_device_ms_per_step']:.2f} ms/step, idle share "
+          f"{out['profile_decode_idle_share']:.3f}, "
+          f"{out['profile_decode_kernels_per_step']:.0f} kernels/step")
+    for name, ms in top:
+        print(f"profile: {ms / steps:.3f} ms/step  {name[:100]}")
+    return out
+
+
+def slice_phase(seed: int):
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    n_req, prompt_len, new_tok, n_slots, max_seq = 8, 512, 64, 4, 640
+    cfg = with_kernel_impls(get_config("qwen2.5-3b"), "auto")
+    print(f"slice: {cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"dtype={cfg.dtype} kernel_impls={dict(cfg.kernel_impls)}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, "cuda")
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    print(f"slice: {n_params} parameters, init + bf16 copy {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n_req, prompt_len)).tolist()
+
+    # warm-up (cuBLAS handles, allocator): one short request, not counted
+    engine.add(GenRequest(id=-1, prompt=prompts[0][:16], max_new=2))
+    engine.run()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, prefill0 = engine.n_decode_steps, engine.prefill_tokens
+    add_ms, step_ms, admit_step_ms = [], [], []
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        t = time.perf_counter()
+        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
+        if i < n_slots:  # admitted at once: prefill + graft + first token
+            add_ms.append(1e3 * (time.perf_counter() - t))
+    while engine.batcher.active():
+        before = engine.prefill_tokens
+        t = time.perf_counter()
+        engine.step()  # ends in a host copy of the picked tokens
+        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
+            1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t_start
+    counts = launch_counts()
+    done = engine.run()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = engine.n_decode_steps - steps0
+    n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
+    per_pass = 2 * cfg.n_layers + 1
+    expect = {"rmsnorm": per_pass * (n_prefills + n_steps),
+              "flash_attention": cfg.n_layers * n_prefills}
+    print(f"slice: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
+          f"expected {expect}")
+    if n_prefills != n_req:
+        raise AssertionError(f"{n_prefills} prefills, expected {n_req}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != expected {expect}")
+    if sorted(r.id for r in done) != list(range(n_req)):
+        raise AssertionError(f"finished ids {sorted(r.id for r in done)}")
+    for r in done:
+        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"request {r.id}: {len(r.generated)} tokens "
+                                 f"{r.generated[:8]}...")
+    n_tok = n_req * new_tok
+    serving = {
+        "tokens_per_s": n_tok / wall,
+        "wall_s": wall,
+        "prefill_ms": statistics.median(add_ms),
+        "decode_ms_per_step": statistics.median(step_ms),
+        "admit_step_ms": admit_step_ms,
+        "peak_memory_bytes": peak,
+        "decode_steps": n_steps,
+    }
+    print(f"slice: served {n_req} requests x {new_tok} tokens in {wall:.3f} s = "
+          f"{serving['tokens_per_s']:.1f} tok/s; prefill ({prompt_len} tokens, batch 1) median "
+          f"{serving['prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
+          f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
+          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+    serving.update(profile_decode(engine, prompts, GenRequest))
+    del engine, done
+
+    # float32 prefill under auto vs reference, same weights (f32 params)
+    tok = torch.as_tensor([prompts[0]], dtype=torch.int64, device="cuda")
+    logits = {}
+    for pol in ("auto", "reference"):
+        c32 = with_kernel_impls(dataclasses.replace(cfg, dtype="float32"), pol)
+        logits[pol], _ = M.prefill(M.cast_params(params, c32), {"tokens": tok}, c32)
+    torch.cuda.synchronize()
+    v = cfg.vocab_size
+    err = check_close("f32 prefill logits auto vs reference", logits["auto"][:, :v],
+                      logits["reference"][:, :v], SLICE_TOL)
+    same = bool(torch.equal(logits["auto"][:, :v].argmax(-1), logits["reference"][:, :v].argmax(-1)))
+    print(f"slice: f32 prefill logits auto vs reference max abs err {err:.3e} "
+          f"(limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax {same}, "
+          f"logit scale {logits['reference'][:, :v].abs().max().item():.3f}")
+    serving["f32_logits_max_abs_err"] = err
+    return counts, serving
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script runs on "
+              "the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    for name in build.SIGNATURES:
+        build.library(name)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(build.SIGNATURES)} "
+          f"(built now: {sorted(logs)})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    kern = kernel_phase(gen)
+    counts, serving = slice_phase(args.seed)
+
+    sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm.py:25"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:79")}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "launches": counts[name],
+         "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
+         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
+         "shape": kern[name]["shape"]}
+        for name in ("rmsnorm", "flash_attention")]}
+    print(json.dumps({"serving": serving, "card": smi}))
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Registry of the architectures this slice of the port serves."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (
+    ModelConfig,
+    kernel_impl,
+    supported_kernel_sites,
+    torch_dtype,
+    with_kernel_impls,
+)
+
+_MODULES = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+}
+
+# architectures of ``repro`` that a later slice of the port brings
+_LATER = {
+    "stablelm-12b": "the platform-executor slice (dense)",
+    "qwen1.5-4b": "the platform-executor slice (dense)",
+    "hubert-xlarge": "the forward/loss_fn slice (encoder-only, gelu)",
+    "internvl2-26b": "the forward/loss_fn slice (vision frontend)",
+    "mixtral-8x22b": "the MoE/MLA + moe_gmm slice",
+    "deepseek-v2-lite-16b": "the MoE/MLA + moe_gmm slice",
+    "mamba2-2.7b": "the SSM/hybrid + ssd slice",
+    "zamba2-2.7b": "the SSM/hybrid + ssd slice",
+}
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    if arch_id in _LATER:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: it comes with "
+            f"{_LATER[arch_id]}; ported: {sorted(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(_MODULES[arch_id])
+    return mod.SMOKE if smoke else mod.FULL
+
+
+__all__ = [
+    "ModelConfig",
+    "get_config",
+    "kernel_impl",
+    "supported_kernel_sites",
+    "torch_dtype",
+    "with_kernel_impls",
+]

@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels, their plain PyTorch versions and the ops the
+models dispatch to. Exports resolve lazily (PEP 562); no kernel is built at
+import: the first launch on a CUDA tensor builds them.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+_EXPORTS = {
+    "flash_attention_op": "repro_torch.kernels.ops",
+    "flash_attention_ref": "repro_torch.kernels.ref",
+    "launch_counts": "repro_torch.kernels.ops",
+    "reset_launch_counts": "repro_torch.kernels.ops",
+    "rmsnorm_op": "repro_torch.kernels.ops",
+    "rmsnorm_ref": "repro_torch.kernels.ref",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str) -> Any:
+    try:
+        module = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None
+    return getattr(importlib.import_module(module), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

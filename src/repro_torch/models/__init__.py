@@ -1,0 +1,19 @@
+from repro_torch.models.model import (
+    cache_spec,
+    cast_params,
+    decode_step,
+    init_cache,
+    init_params,
+    prefill,
+)
+from repro_torch.models.weights import params_from_numpy
+
+__all__ = [
+    "cache_spec",
+    "cast_params",
+    "decode_step",
+    "init_cache",
+    "init_params",
+    "params_from_numpy",
+    "prefill",
+]

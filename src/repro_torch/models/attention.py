@@ -1,0 +1,196 @@
+"""GQA attention (optional QKV bias and sliding window) — the port of the
+GQA half of ``repro.models.attention``.
+
+Full-sequence paths dispatch to the flash-attention kernel under
+``kernel_impls['attention'] == 'kernel'``, else run the einsum reference.
+Decode attention is the plain einsum over the cache, as in ``repro``. MLA
+waits for the MoE/MLA slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, kernel_impl
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.use_mla:
+        raise NotImplementedError("MLA attention comes with the MoE/MLA slice")
+    if cfg.attn_impl != "einsum" or cfg.shard_activations:
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r}, shard_activations="
+            f"{cfg.shard_activations}: only the einsum path is ported; the "
+            f"chunked and sharded paths come with the elastic-serving slice")
+
+
+# --- masks ------------------------------------------------------------------
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """(..., Sq, Sk) boolean allow-mask from broadcastable position vectors."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = m & (k <= q)
+    if window is not None:
+        m = m & (k > q - window)
+    return m
+
+
+# --- GQA full-sequence ------------------------------------------------------
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    dt = x.dtype
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Flash-kernel twin of the einsum core. q: (B,S,H,Dh), k/v: (B,S,KV,Dh)
+    post-RoPE; the kernel maps query heads to kv heads itself (GQA) and reads
+    these layouts through their strides. Returns (B,S,H*Dh)."""
+    from repro_torch.kernels.ops import flash_attention_op
+    b, s, h, d = q.shape
+    out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             causal=cfg.is_autoregressive, window=cfg.sliding_window)
+    return out.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _einsum_mha(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
+    """Reference GQA core, scores materialised. Returns (B,S,H*Dh)."""
+    b, s = q.shape[0], q.shape[1]
+    dt = q.dtype
+    g = cfg.n_heads // cfg.n_kv_heads
+    qh = q.reshape(b, s, cfg.n_kv_heads, g, cfg.head_dim)
+    scale = cfg.head_dim ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k).float() * scale
+    mask = _attn_mask(positions, positions, causal=cfg.is_autoregressive,
+                      window=cfg.sliding_window)
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence attention. x: (B,S,D)."""
+    _check_supported(cfg)
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kernel_impl(cfg, "attention") == "kernel":
+        out = _flash_mha(q, k, v, cfg)
+    else:
+        out = _einsum_mha(q, k, v, positions, cfg)
+    return out @ p["wo"].to(x.dtype)
+
+
+def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-seq attention that also returns (k, v) for the cache. x: (B,S,D).
+    With a sliding window only the last ``sliding_window`` positions of K/V
+    are returned (the ring the decode path addresses)."""
+    _check_supported(cfg)
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kernel_impl(cfg, "attention") == "kernel":
+        out = _flash_mha(q, k, v, cfg)
+    else:
+        out = _einsum_mha(q, k, v, positions, cfg)
+    out = out @ p["wo"].to(x.dtype)
+    if cfg.sliding_window:
+        k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
+    return out, k, v
+
+
+# --- GQA decode (KV cache) ---------------------------------------------------
+def init_kv_cache_shape(cfg: ModelConfig, batch: int, seq_len: int):
+    """Per-layer cache shape (no allocation): (B, S_cache, KV, Dh)."""
+    s_cache = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    return (batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """cache[i, slot[i]] = new[i] in place for every row whose slot is in
+    bounds; a row out of bounds is dropped, as JAX's ``mode="drop"`` does
+    (negative slots wrap first, as in JAX), instead of raising. The dropped
+    row writes its own old value back at a clamped index, so no host sync is
+    needed."""
+    b, s_cache = cache.shape[0], cache.shape[1]
+    slot = torch.where(slot < 0, slot + s_cache, slot)
+    ok = (slot >= 0) & (slot < s_cache)
+    idx = slot.clamp(0, s_cache - 1)
+    rows = torch.arange(b, device=cache.device)
+    old = cache[rows, idx]
+    cache[rows, idx] = torch.where(ok[:, None, None], new.to(cache.dtype), old)
+
+
+def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pos: Union[int, np.ndarray, torch.Tensor], cfg: ModelConfig):
+    """One-token decode. x: (B,1,D); caches: (B,Sc,KV,Dh); pos: a scalar
+    current position, or a (B,) vector giving each row its own position.
+    Returns (out, k_cache, v_cache). The caches are updated in place (saves
+    a copy of every layer's cache per token); for SWA they are rings of
+    width ``sliding_window``."""
+    _check_supported(cfg)
+    b = x.shape[0]
+    dt = x.dtype
+    dev = x.device
+    per_row = isinstance(pos, (np.ndarray, torch.Tensor)) and np.ndim(pos) > 0
+    if per_row:
+        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        positions = pos_t[:, None]
+    else:
+        pos_i = int(pos)
+        pos_t = torch.tensor(pos_i, dtype=torch.int64, device=dev)
+        positions = torch.full((b, 1), pos_i, dtype=torch.int64, device=dev)
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    s_cache = k_cache.shape[1]
+    if per_row:
+        slot = pos_t % s_cache if cfg.sliding_window else pos_t  # floor-mod
+        _write_rows(k_cache, k[:, 0], slot)
+        _write_rows(v_cache, v[:, 0], slot)
+    else:
+        slot = pos_i % s_cache if cfg.sliding_window else pos_i
+        slot = min(max(slot, 0), s_cache - 1)  # dynamic_update_slice clamps
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    # positions held in each cache slot, per batch row when pos is a vector
+    idx = torch.arange(s_cache, device=dev)
+    row_pos = pos_t[:, None] if per_row else pos_t
+    if cfg.sliding_window:
+        # ring: slot i holds position p with p % Sc == i and p <= pos; slots
+        # for positions < 0 were never written -> masked out
+        k_pos = row_pos - torch.remainder(torch.remainder(row_pos, s_cache) - idx, s_cache)
+    else:
+        k_pos = idx.expand(b, s_cache) if per_row else idx
+    valid = ((k_pos <= row_pos) & (k_pos >= 0)).expand(b, s_cache)
+    g = cfg.n_heads // cfg.n_kv_heads
+    qh = q.reshape(b, 1, cfg.n_kv_heads, g, cfg.head_dim)
+    scale = cfg.head_dim ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k_cache.to(dt)).float() * scale
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.to(dt))
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(dt), k_cache, v_cache

@@ -1,0 +1,190 @@
+"""Top-level model API: init / prefill / decode / cache — the port of the
+serving half of ``repro.models.model``. ``forward`` and ``loss_fn`` come
+with a later slice.
+
+Batch conventions follow ``repro``: prefill takes ``{"tokens": (B,S)}`` and
+returns (last-position logits (B,Vpad) fp32, cache); decode takes a (B,1)
+token, the cache and a scalar or (B,) position.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.attention import init_kv_cache_shape
+from repro_torch.models.layers import embed_tokens, logits_from_hidden
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One parameter leaf: its shape and how ``repro`` initialises it."""
+    shape: Tuple[int, ...]
+    init: str           # normal (truncated at +-2 scale) | zeros | ones (norm weight)
+    scale: float = 0.0
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``repro.models.model.init_params``: same keys,
+    shapes (stacked layer axis first) and scales."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"frontend={cfg.frontend!r} comes with the forward/loss_fn slice")
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def normal(shape, scale):
+        return ParamSpec(tuple(shape), "normal", scale)
+
+    stack: Dict[str, Any] = {}
+    for seg in transformer.segments_for(cfg):
+        transformer.require_dense(seg)
+        n = seg.n
+        attn = {
+            "wq": normal((n, d, h * dh), d ** -0.5),
+            "wk": normal((n, d, kv * dh), d ** -0.5),
+            "wv": normal((n, d, kv * dh), d ** -0.5),
+            "wo": normal((n, h * dh, d), (h * dh) ** -0.5),
+        }
+        if cfg.qkv_bias:
+            attn["bq"] = ParamSpec((n, h * dh), "zeros")
+            attn["bk"] = ParamSpec((n, kv * dh), "zeros")
+            attn["bv"] = ParamSpec((n, kv * dh), "zeros")
+        mlp = {
+            "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
+            "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
+            "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
+        }
+        stack[seg.name] = {
+            "ln1": {"w": ParamSpec((n, d), "ones")},
+            "attn": attn,
+            "ln2": {"w": ParamSpec((n, d), "ones")},
+            "mlp": mlp,
+        }
+    specs: Dict[str, Any] = {
+        "embed": {"tokens": normal((cfg.vocab_padded, d), 0.02)},
+        "stack": stack,
+        "final_norm": {"w": ParamSpec((d,), "ones")},
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = normal((d, cfg.vocab_padded), d ** -0.5)
+    return specs
+
+
+def _map_specs(fn, specs, *trees):
+    if isinstance(specs, ParamSpec):
+        return fn(specs, *trees)
+    return {k: _map_specs(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
+
+
+# erf(-sqrt 2), erf(sqrt 2): uniform draws between them map through erfinv
+# to a standard normal truncated at +-2
+_ERF_LO, _ERF_HI = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random parameters with ``repro``'s tree, shapes and scales (truncated
+    normal at +-2 scale, zero biases, unit norms), drawn from ``generator``
+    on ``device``. Not ``repro``'s random stream: for parity, load JAX's
+    parameters with :func:`repro_torch.models.weights.params_from_numpy`."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on {dev}: "
+                         f"make the generator with torch.Generator(device={dev.type!r})")
+    pd = cfg.param_torch_dtype
+
+    def make(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=pd, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=pd, device=dev)
+        t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+        t.uniform_(_ERF_LO, _ERF_HI, generator=generator)
+        t.erfinv_().mul_(math.sqrt(2.0) * spec.scale)
+        t.clamp_(-2.0 * spec.scale, 2.0 * spec.scale)
+        return t.to(pd)
+    return _map_specs(make, param_specs(cfg))
+
+
+def cast_params(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """Compute-dtype copy of every matrix and bias, made once at load. Every
+    use casts to the compute dtype first (as ``p["wq"].astype(dt)`` does in
+    ``repro``), so this changes no number; the casts at use are then no-ops.
+    Norm weights stay at ``param_dtype``: the rmsnorm kernel reads them in
+    fp32. Leaves already in the compute dtype are kept, not copied."""
+    dt = cfg.compute_dtype
+    return _map_specs(lambda spec, t: t if spec.init == "ones" else t.to(dt),
+                      param_specs(cfg), params)
+
+
+def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["tokens"].T
+    return params["lm_head"]
+
+
+def prefill(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Forward + cache. Returns (last-position logits (B,Vpad) fp32, cache)."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens, cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x, cache = transformer.stack_prefill(params["stack"], x, positions, cfg)
+    x = transformer._norm(x, params["final_norm"], cfg)
+    logits = logits_from_hidden(_head_weight(params, cfg), x[:, -1:], cfg)
+    return logits[:, 0], cache
+
+
+def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig):
+    """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
+    Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
+    x = embed_tokens(params["embed"], token, cfg)
+    x, cache = transformer.stack_decode(params["stack"], x, cache, pos, cfg)
+    x = transformer._norm(x, params["final_norm"], cfg)
+    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
+    return logits[:, 0], cache
+
+
+# --- cache construction ---------------------------------------------------------
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+    """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage)."""
+    out: Dict[str, Any] = {}
+    for seg in transformer.segments_for(cfg):
+        transformer.require_dense(seg)
+        shape = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
+        out[seg.name] = {
+            "k": torch.empty(shape, dtype=cfg.compute_dtype, device="meta"),
+            "v": torch.empty(shape, dtype=cfg.compute_dtype, device="meta"),
+        }
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """Zero-filled decode cache on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_spec(cfg, batch, seq_len))
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of nested dicts of the same structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
