@@ -15,7 +15,13 @@ Run from the root of a checkout on a machine with one CUDA card. It
    ``--seed``) through ``ContinuousEngine`` under ``kernel_impls="auto"``,
    checks the kernels' launch counts and every request's length, and holds
    one float32 prefill under ``auto`` against ``reference``;
-5. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+5. serves 8 requests that share a 488-token tenant prefix through
+   ``PagedContinuousEngine(attn="kernel")`` on the same weights (prefix
+   fork with copy-on-write, drain and parked resume), checks the launch
+   counts of all three kernels, the sharing counters and the block pool,
+   and holds float32 paged decode through the kernel against the gather
+   path for 8 teacher-forced waves;
+6. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
@@ -142,6 +148,101 @@ def flash_bound(b, h, kv, s, d, dtype, causal=True, window=None):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def paged_bound(lens, h, kv, d, bs, dtype):
+    """(bound ms, 'bytes' | 'operations') for paged decode attention over
+    these lengths: the K/V positions the rows need, q, out, the table
+    entries and lengths read."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    n = int(sum(lens))
+    blocks = sum(-(-int(n_) // bs) for n_ in lens)
+    bytes_ = 2 * n * kv * d * elt + 2 * len(lens) * h * d * elt + 4 * (blocks + len(lens))
+    flops = 4 * h * d * n                          # q.k and p.v, 2 flops a MAC
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype):
+    """Pools, q, block tables that are a random permutation avoiding the
+    null block 0, and the given lengths, on the card."""
+    dev = "cuda"
+    nb = b * maxb + 1
+    k_pool = torch.randn(nb, bs, kv, d, device=dev, generator=gen).to(dtype)
+    v_pool = torch.randn(nb, bs, kv, d, device=dev, generator=gen).to(dtype)
+    q = torch.randn(b, h, d, device=dev, generator=gen).to(dtype)
+    perm = torch.randperm(nb - 1, device=dev, generator=gen)[:b * maxb] + 1
+    tables = perm.reshape(b, maxb).to(torch.int32)
+    return q, k_pool, v_pool, tables, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def paged_kernel_phase(gen: torch.Generator) -> dict:
+    from repro_torch.kernels.ops import paged_attention_op
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    res = {"err": 0.0}
+    main = (8, 16, 2, 128, 16, 40, [1, 15, 16, 17, 255, 256, 511, 640])
+    cases = [main + (dt,) for dt in (torch.float32, torch.bfloat16)]
+    cases += [c + (dt,) for c in ((4, 4, 1, 16, 16, 4, [1, 16, 17, 64]),
+                                  (2, 4, 4, 32, 8, 3, [5, 24]),
+                                  (3, 8, 2, 64, 16, 2, [2, 31, 32]),
+                                  (2, 6, 3, 32, 4, 5, [3, 13]))
+              for dt in (torch.float32, torch.bfloat16)]
+    for b, h, kv, d, bs, maxb, lens, dtype in cases:
+        q, k_pool, v_pool, tables, ln = paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype)
+        name = f"paged (b={b},h={h},kv={kv},d={d},bs={bs},maxb={maxb}) lens={lens} {dtype}"
+        err = check_close(name, paged_attention_op(q, k_pool, v_pool, tables, ln),
+                          paged_attention_ref(q, k_pool, v_pool, tables, ln), TOL[dtype])
+        torch.cuda.synchronize()
+        print(f"check {name}: max abs err {err:.3e}")
+        res["err"] = max(res["err"], err)
+    # inactive slots: all-null tables, length 1 -> finite; length 0 -> zeros
+    q, k_pool, v_pool, tables, _ = paged_case(gen, 4, 16, 2, 128, 16, 4, [1] * 4,
+                                              torch.bfloat16)
+    null = paged_attention_op(q, k_pool, v_pool, torch.zeros_like(tables),
+                              torch.ones(4, dtype=torch.int32, device="cuda"))
+    zero_lens = torch.tensor([0, 5, 0, 64], dtype=torch.int32, device="cuda")
+    out = paged_attention_op(q, k_pool, v_pool, tables, zero_lens)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(null).all()):
+        raise AssertionError("paged: null rows are not finite")
+    if not (bool((out[0] == 0).all()) and bool((out[2] == 0).all())):
+        raise AssertionError("paged: rows of length 0 are not zeros")
+    check_close("paged rows next to the empty ones", out[1::2],
+                paged_attention_ref(q[1::2], k_pool, v_pool, tables[1::2], zero_lens[1::2]),
+                TOL[torch.bfloat16])
+    print("check paged null rows (table all null block, length 1): finite; "
+          "rows of length 0: zeros")
+
+    # timing at the main path's decode wave (8 slots), bf16
+    b, h, kv, d, bs, maxb, lens = main
+    q, k_pool, v_pool, tables, ln = paged_case(gen, b, h, kv, d, bs, maxb, lens,
+                                               torch.bfloat16)
+    # library yardstick: SDPA over K/V gathered to dense and repeated per
+    # group beforehand (the gather is not timed), with the length mask
+    s = maxb * bs
+    k_dense = k_pool[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
+    v_dense = v_pool[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
+    k_dense = k_dense.repeat_interleave(h // kv, dim=1)
+    v_dense = v_dense.repeat_interleave(h // kv, dim=1)
+    mask = (torch.arange(s, device="cuda")[None, :] < ln[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k_dense, v_dense,
+                                                                attn_mask=mask)
+    check_close("paged library yardstick (SDPA) vs plain", library()[:, :, 0],
+                paged_attention_ref(q, k_pool, v_pool, tables, ln), TOL[torch.bfloat16])
+    bound, by = paged_bound(lens, h, kv, d, bs, torch.bfloat16)
+    t = time_three(lambda: paged_attention_op(q, k_pool, v_pool, tables, ln),
+                   lambda: paged_attention_ref(q, k_pool, v_pool, tables, ln), library)
+    t.update(bound_ms=bound, bound_by=by,
+             shape=f"q ({b},{h},{d}) kv {kv} bs {bs} maxb {maxb} lens {lens} bf16; library: "
+                   f"SDPA over K/V gathered to dense (untimed) and repeated per group, "
+                   f"length mask")
+    report("paged_attention", t)
+    res.update(t)
+    return res
+
+
 def kernel_phase(gen: torch.Generator):
     from repro_torch.kernels.ops import flash_attention_op, rmsnorm_op
     from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
@@ -209,19 +310,28 @@ def kernel_phase(gen: torch.Generator):
              shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
     report("flash_attention", t)
     results["flash_attention"].update(t)
+    results["paged_attention"] = paged_kernel_phase(gen)
     return results
 
 
 def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
-    """Where a decode step's time goes: device-busy time (sum of CUDA kernel
-    times seen by ``torch.profiler``) against the host wall time of the same
-    steps, with the profiler on, and the kernels that take the most."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a decode step's time goes, on ``n_slots`` fresh requests (see
+    :func:`profile_steps`)."""
     for i in range(engine.n_slots):
         engine.add(gen_request(id=1000 + i, prompt=prompts[i], max_new=steps + 2))
     engine.step()
+    out = profile_steps(engine, steps)
+    engine.run()
+    return out
+
+
+def profile_steps(engine, steps: int) -> dict:
+    """Device-busy time (sum of CUDA kernel times seen by ``torch.profiler``)
+    against the host wall time of the engine's next ``steps`` steps, with
+    the profiler on, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -229,7 +339,6 @@ def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
             engine.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    engine.run()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler saw no CUDA kernel; device time not measured")
@@ -305,7 +414,7 @@ def slice_phase(seed: int):
     n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_steps),
-              "flash_attention": cfg.n_layers * n_prefills}
+              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0}
     print(f"slice: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
           f"expected {expect}")
     if n_prefills != n_req:
@@ -351,7 +460,170 @@ def slice_phase(seed: int):
           f"(limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax {same}, "
           f"logit scale {logits['reference'][:, :v].abs().max().item():.3f}")
     serving["f32_logits_max_abs_err"] = err
+    return counts, serving, cfg, params
+
+
+def paged_phase(cfg, params, seed: int):
+    """Full-width paged serving through the paged-attention kernel: one
+    registered tenant prefix forked into 8 requests (its tail block is
+    shared, so each fork copies it on its first write), a drain after a few
+    waves and a parked resume of every drained request."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import PagedContinuousEngine
+
+    n_req, prompt_len, prefix_len, new_tok = 8, 512, 488, 32
+    n_slots, max_seq, block_size, drain_after = 8, 640, 16, 4
+    engine = PagedContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq,
+                                   block_size=block_size, attn="kernel", device="cuda")
+    v = cfg.vocab_size
+    rng = np.random.default_rng(seed + 1)
+    prefix = rng.integers(0, v, size=prefix_len).tolist()
+    prompts = [prefix + rng.integers(0, v, size=prompt_len - prefix_len).tolist()
+               for _ in range(n_req)]
+    print(f"paged: {n_req} requests x ({prompt_len}-token prompt sharing a {prefix_len}-token "
+          f"prefix, {new_tok} new tokens), {n_slots} slots, block_size {block_size}, "
+          f"{engine.n_blocks} blocks of {engine.kv.block_bytes} bytes, attn=kernel")
+
+    # warm-up: one short request outside the prefix, not counted
+    engine.add(GenRequest(id=-1, prompt=prompts[0][-16:], max_new=2))
+    engine.run()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, prefill0 = engine.n_decode_steps, engine.prefill_tokens
+    t_start = time.perf_counter()
+    if not engine.register_prefix(prefix):
+        raise AssertionError("paged: register_prefix failed")
+    torch.cuda.synchronize()
+    prefix_ms = 1e3 * (time.perf_counter() - t_start)
+    admit_ms, step_ms = [], []
+    for i, p in enumerate(prompts):  # fork + one batch-1 wave per suffix token + first token
+        t = time.perf_counter()
+        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
+        admit_ms.append(1e3 * (time.perf_counter() - t))
+    for _ in range(drain_after):
+        t = time.perf_counter()
+        engine.step()  # ends in a host copy of the picked tokens
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    drained = engine.drain()
+    if len(drained) != n_req or engine.batcher.active():
+        raise AssertionError(f"paged: drained {len(drained)} of {n_req}")
+    for r in drained:
+        engine.add(r)  # parked resume: the pinned blocks are re-referenced
+    print("paged profile (the next waves after the resume, contexts of about 520 tokens):")
+    prof = profile_steps(engine, 4)  # not counted in the step times
+    while engine.batcher.active():
+        t = time.perf_counter()
+        engine.step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t_start
+    counts = launch_counts()
+    done = engine.run()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_waves = engine.n_decode_steps - steps0
+    n_extend = engine.prefill_tokens - prefill0 - prefix_len
+    n_prefills = 1  # the prefix: every request forks it
+    per_pass = 2 * cfg.n_layers + 1
+    expect = {"rmsnorm": per_pass * (n_prefills + n_waves + n_extend),
+              "flash_attention": cfg.n_layers * n_prefills,
+              "paged_attention": cfg.n_layers * (n_waves + n_extend)}
+    st = engine.kv_stats()
+    print(f"paged: {n_prefills} prefill, {n_extend} extend waves, {n_waves} decode waves, "
+          f"launches {counts}, expected {expect}")
+    print(f"paged: kv_stats share_hits={st['share_hits']} shared_tokens={st['shared_tokens']} "
+          f"cow_copies={st['cow_copies']} resume_hits={st['resume_hits']} "
+          f"resumed_tokens={st['resumed_tokens']} mem_preempts={st['mem_preempts']} "
+          f"blocks_in_use={st['blocks_in_use']} blocks_high_water={st['blocks_high_water']}")
+    if n_extend != n_req * (prompt_len - prefix_len):
+        raise AssertionError(f"paged: {n_extend} extend tokens, expected "
+                             f"{n_req * (prompt_len - prefix_len)}")
+    if counts != expect:
+        raise AssertionError(f"paged: launch counts {counts} != expected {expect}")
+    if st["share_hits"] != n_req or st["cow_copies"] < n_req or st["resume_hits"] < 1:
+        raise AssertionError(f"paged: share_hits {st['share_hits']}, cow_copies "
+                             f"{st['cow_copies']}, resume_hits {st['resume_hits']}")
+    if sorted(r.id for r in done) != list(range(n_req)):
+        raise AssertionError(f"paged: finished ids {sorted(r.id for r in done)}")
+    for r in done:
+        if len(r.generated) != new_tok or not all(0 <= t < v for t in r.generated):
+            raise AssertionError(f"paged: request {r.id}: {len(r.generated)} tokens "
+                                 f"{r.generated[:8]}...")
+    engine.kv.check()
+    prefix_blocks = -(-prefix_len // block_size)
+    left = set(engine.kv.alloc.tables)
+    if left != {engine.kv.NULL_SEQ, ("prefix", 0)} or st["blocks_in_use"] != 1 + prefix_blocks:
+        raise AssertionError(f"paged: sequences left {left}, {st['blocks_in_use']} blocks "
+                             f"in use; expected the null block and the prefix's "
+                             f"{prefix_blocks}")
+    n_tok = n_req * new_tok
+    serving = {
+        "paged_tokens_per_s": n_tok / wall,
+        "paged_wall_s": wall,
+        "paged_prefix_prefill_ms": prefix_ms,
+        "paged_admit_ms": statistics.median(admit_ms),
+        "paged_decode_ms_per_step": statistics.median(step_ms),
+        "paged_peak_memory_bytes": peak,
+        "paged_decode_waves": n_waves,
+        "paged_extend_waves": n_extend,
+    }
+    print(f"paged: served {n_req} requests x {new_tok} tokens in {wall:.3f} s = "
+          f"{serving['paged_tokens_per_s']:.1f} tok/s; prefix prefill ({prefix_len} tokens) "
+          f"{prefix_ms:.2f} ms; admission (fork + {prompt_len - prefix_len} batch-1 waves) "
+          f"median {serving['paged_admit_ms']:.2f} ms; decode wave ({n_slots} slots) median "
+          f"{serving['paged_decode_ms_per_step']:.2f} ms; peak memory {peak} bytes")
+    serving.update({"paged_" + k: x for k, x in prof.items()})
+    del engine, done
+    serving["paged_f32_logits_max_abs_err"] = paged_parity(cfg, params, seed)
     return counts, serving
+
+
+def paged_parity(cfg, params, seed: int, waves: int = 8) -> float:
+    """Float32 paged decode of one request through the kernel
+    (``paged_decode_step``) against the gather path (a dense copy gathered
+    from the same pool, ``decode_step``), teacher-forced with the gather
+    path's tokens, on two pools that start equal."""
+    from repro_torch.configs import with_kernel_impls
+    from repro_torch.models import model as M
+    from repro_torch.serving.kvcache import PagedKVCache
+
+    c32 = with_kernel_impls(dataclasses.replace(cfg, dtype="float32"), "auto")
+    p32 = M.cast_params(params, c32)
+    prompt = np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, size=100).tolist()
+    max_blocks, bs = 40, 16
+    kv = PagedKVCache(c32, n_blocks=10, block_size=bs, device="cuda")
+    logits, pre = M.prefill(p32, {"tokens": torch.tensor([prompt], device="cuda")}, c32)
+    kv.create("s")
+    kv.write_prefill("s", pre["dense"]["k"][:, 0], pre["dense"]["v"][:, 0])
+    k_pool, v_pool = kv.k_pool.clone(), kv.v_pool.clone()   # the kernel path's pools
+    v = cfg.vocab_size
+    tok = logits[:, :v].argmax(-1)[:, None]
+    worst = 0.0
+    for w in range(waves):
+        p = kv.length("s")
+        bid, off = kv.append("s")
+        tables = torch.as_tensor(kv.table_array(["s"], max_blocks), device="cuda").long()
+        pos = torch.tensor([p], device="cuda")
+        lk, _, _ = M.paged_decode_step(p32, tok, k_pool, v_pool, tables, pos, [bid], [off], c32)
+        gk, gv = kv.gather_dense(tables, max_blocks * bs)
+        lg, cache = M.decode_step(p32, tok, {"dense": {"k": gk, "v": gv}}, pos, c32)
+        kv.write_tokens([bid], [off], cache["dense"]["k"][:, :, p], cache["dense"]["v"][:, :, p])
+        torch.cuda.synchronize()
+        err = check_close(f"paged f32 wave {w} kernel vs gather logits", lk[:, :v], lg[:, :v],
+                          SLICE_TOL)
+        same = bool(torch.equal(lk[:, :v].argmax(-1), lg[:, :v].argmax(-1)))
+        if not same:
+            raise AssertionError(f"paged f32 wave {w}: argmax differs")
+        print(f"paged f32 wave {w} (pos {p}): kernel vs gather logits max abs err {err:.3e} "
+              f"(limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax {same}")
+        worst = max(worst, err)
+        tok = lg[:, :v].argmax(-1)[:, None]
+    err = check_close("paged f32 pools kernel vs gather", k_pool, kv.k_pool, SLICE_TOL)
+    err = max(err, check_close("paged f32 pools kernel vs gather", v_pool, kv.v_pool, SLICE_TOL))
+    print(f"paged f32: pools after {waves} waves, kernel vs gather max abs err {err:.3e}")
+    return worst
 
 
 def main(argv=None) -> int:
@@ -386,12 +658,20 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kern = kernel_phase(gen)
-    counts, serving = slice_phase(args.seed)
+    counts, serving, cfg, params = slice_phase(args.seed)
+    paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
+    serving.update(paged_serving)
+    # each kernel's launches on the path that first carried it: rmsnorm and
+    # flash on the dense path, paged attention on the paged path
+    print(f"launches: dense path {counts}, paged path {paged_counts}")
+    counts = dict(counts, paged_attention=paged_counts["paged_attention"])
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:25"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:79")}
+                                   "src/repro/kernels/flash_attention.py:79"),
+               "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:67")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
@@ -399,7 +679,7 @@ def main(argv=None) -> int:
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
          "shape": kern[name]["shape"]}
-        for name in ("rmsnorm", "flash_attention")]}
+        for name in ("rmsnorm", "flash_attention", "paged_attention")]}
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

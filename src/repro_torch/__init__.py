@@ -13,9 +13,13 @@ from typing import Any
 
 # public name -> defining submodule (resolved on first attribute access)
 _EXPORTS = {
+    "BlockAllocator": "repro_torch.serving.kvcache",
     "ContinuousEngine": "repro_torch.serving.engine",
     "GenRequest": "repro_torch.serving.batching",
     "ModelConfig": "repro_torch.configs.base",
+    "OutOfBlocks": "repro_torch.serving.kvcache",
+    "PagedContinuousEngine": "repro_torch.serving.engine",
+    "PagedKVCache": "repro_torch.serving.kvcache",
     "ServingEngine": "repro_torch.serving.engine",
     "SlotBatcher": "repro_torch.serving.batching",
     "cast_params": "repro_torch.models.model",
@@ -23,6 +27,8 @@ _EXPORTS = {
     "get_config": "repro_torch.configs",
     "init_cache": "repro_torch.models.model",
     "init_params": "repro_torch.models.model",
+    "paged_compatible": "repro_torch.serving.kvcache",
+    "paged_decode_step": "repro_torch.models.model",
     "params_from_numpy": "repro_torch.models.weights",
     "prefill": "repro_torch.models.model",
     "resolve_device": "repro_torch.device",

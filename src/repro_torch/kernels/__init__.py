@@ -11,6 +11,8 @@ _EXPORTS = {
     "flash_attention_op": "repro_torch.kernels.ops",
     "flash_attention_ref": "repro_torch.kernels.ref",
     "launch_counts": "repro_torch.kernels.ops",
+    "paged_attention_op": "repro_torch.kernels.ops",
+    "paged_attention_ref": "repro_torch.kernels.ref",
     "reset_launch_counts": "repro_torch.kernels.ops",
     "rmsnorm_op": "repro_torch.kernels.ops",
     "rmsnorm_ref": "repro_torch.kernels.ref",

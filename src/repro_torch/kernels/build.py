@@ -39,6 +39,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
         + [_L] * 12 + [_I, _I, _F, _I, _P],
     },
+    "paged_attention": {
+        "paged_attention_launch": [_P] * 6 + [_I] * 6 + [_L] * 11 + [_F, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -42,3 +42,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        block_tables: torch.Tensor, context_lens: torch.Tensor, *,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Decode-time attention over a block-paged KV pool.
+
+    q: (B,H,D), one query token per sequence, H % KV == 0; k_pool/v_pool:
+    (NB,BS,KV,D); block_tables: (B,MAXB) integer (padding entries may point
+    at any block, they are masked); context_lens: (B,) integer, the valid
+    positions per sequence including the token that produced q. Returns
+    (B,H,D) in q's dtype. A row with length 0 gets the uniform average of
+    its masked positions (the kernel gives zeros there).
+    """
+    b, h, d = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    maxb = block_tables.shape[1]
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    tables = block_tables.to(device=k_pool.device, dtype=torch.int64)
+    lens = context_lens.to(device=q.device, dtype=torch.int64)
+    k = k_pool[tables].reshape(b, maxb * bs, kv, d)
+    v = v_pool[tables].reshape(b, maxb * bs, kv, d)
+    qg = q.reshape(b, kv, g, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    valid = torch.arange(maxb * bs, device=q.device)[None, :] < lens[:, None]  # (B,S)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
+    return out.reshape(b, h, d).to(q.dtype)

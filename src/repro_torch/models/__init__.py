@@ -4,6 +4,7 @@ from repro_torch.models.model import (
     decode_step,
     init_cache,
     init_params,
+    paged_decode_step,
     prefill,
 )
 from repro_torch.models.weights import params_from_numpy
@@ -14,6 +15,7 @@ __all__ = [
     "decode_step",
     "init_cache",
     "init_params",
+    "paged_decode_step",
     "params_from_numpy",
     "prefill",
 ]

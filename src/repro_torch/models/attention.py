@@ -3,8 +3,9 @@ GQA half of ``repro.models.attention``.
 
 Full-sequence paths dispatch to the flash-attention kernel under
 ``kernel_impls['attention'] == 'kernel'``, else run the einsum reference.
-Decode attention is the plain einsum over the cache, as in ``repro``. MLA
-waits for the MoE/MLA slice.
+Dense-cache decode attention is the plain einsum over the cache, as in
+``repro``; paged decode (:func:`paged_gqa_decode`) always goes through the
+paged-attention kernel, as in ``repro``. MLA waits for the MoE/MLA slice.
 """
 from __future__ import annotations
 
@@ -194,3 +195,30 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.to(dt))
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(dt), k_cache, v_cache
+
+
+def paged_gqa_decode(p, x: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     tables: torch.Tensor, pos: torch.Tensor, bids: torch.Tensor,
+                     offs: torch.Tensor, cfg: ModelConfig):
+    """One-token decode against a block-paged KV pool (single layer), through
+    the paged-attention kernel. x: (B,1,D); k_pool/v_pool: (NB,BS,KV,Dh)
+    physical blocks; tables: (B,MAXB) per-row block tables; pos: (B,)
+    position of the incoming token; bids/offs: (B,) physical slot (block id,
+    in-block offset) where this token's K/V lands, reserved by the block
+    allocator, so the kernel sees ``pos + 1`` valid positions. Index tensors
+    lie on x's device. Returns (out, k_pool, v_pool); the pools are updated
+    in place (saves a copy of both pools per layer and token). Inactive rows
+    all write to the same null slot: which of them lands there is undefined,
+    and that slot is always masked."""
+    from repro_torch.kernels.ops import paged_attention_op
+    _check_supported(cfg)
+    b = x.shape[0]
+    dt = x.dtype
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    k_pool[bids, offs] = k[:, 0].to(k_pool.dtype)
+    v_pool[bids, offs] = v[:, 0].to(v_pool.dtype)
+    out = paged_attention_op(q[:, 0], k_pool, v_pool, tables, pos + 1)  # (B,H,Dh)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(dt)
+    return out @ p["wo"].to(dt), k_pool, v_pool

@@ -9,7 +9,6 @@ token, the cache and a scalar or (B,) position.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -17,7 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.attention import init_kv_cache_shape
+from repro_torch.models.attention import init_kv_cache_shape, paged_gqa_decode
 from repro_torch.models.layers import embed_tokens, logits_from_hidden
 
 
@@ -81,17 +80,18 @@ def _map_specs(fn, specs, *trees):
     return {k: _map_specs(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
 
 
-# erf(-sqrt 2), erf(sqrt 2): uniform draws between them map through erfinv
-# to a standard normal truncated at +-2
-_ERF_LO, _ERF_HI = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Random parameters with ``repro``'s tree, shapes and scales (truncated
     normal at +-2 scale, zero biases, unit norms), drawn from ``generator``
     on ``device``. Not ``repro``'s random stream: for parity, load JAX's
-    parameters with :func:`repro_torch.models.weights.params_from_numpy`."""
+    parameters with :func:`repro_torch.models.weights.params_from_numpy`.
+
+    The truncated normal is drawn by rejection (``normal_``, then redraws of
+    the entries outside +-2), not through ``erfinv_``: on the CPU ``erfinv_``
+    runs in MKL, whose float32 bits change with the code path MKL picks at
+    run time, so the same seed could give other weights in another process
+    state. This way the values depend on the generator alone."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}: "
@@ -104,10 +104,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=pd, device=dev)
         t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
-        t.uniform_(_ERF_LO, _ERF_HI, generator=generator)
-        t.erfinv_().mul_(math.sqrt(2.0) * spec.scale)
-        t.clamp_(-2.0 * spec.scale, 2.0 * spec.scale)
-        return t.to(pd)
+        t.normal_(generator=generator)
+        out = t.abs() > 2.0
+        while bool(out.any()):
+            t[out] = torch.empty(int(out.sum()), device=dev).normal_(generator=generator)
+            out = t.abs() > 2.0
+        return t.mul_(spec.scale).to(pd)
     return _map_specs(make, param_specs(cfg))
 
 
@@ -148,6 +150,38 @@ def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig):
     x = transformer._norm(x, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
     return logits[:, 0], cache
+
+
+def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
+                      v_pools: torch.Tensor, tables, pos, bids, offs, cfg: ModelConfig):
+    """One decode step against block-paged KV pools, through the
+    paged-attention kernel (the ``attn="kernel"`` path of
+    :class:`repro_torch.serving.engine.PagedContinuousEngine`). Only defined
+    for single-segment GQA models (``serving.kvcache.paged_compatible``).
+
+    token: (B,1); k_pools/v_pools: (L,NB,BS,KV,Dh); tables: (B,MAXB); pos:
+    (B,) incoming-token positions; bids/offs: (B,) physical write slots
+    (numpy or tensors). Returns (logits (B,Vpad) fp32, k_pools, v_pools),
+    the pools updated in place. The index tensors cross to the device once
+    per step, before the layer loop, and nothing in the loop waits for the
+    device."""
+    segs = transformer.segments_for(cfg)
+    if len(segs) != 1 or segs[0].kind != "dense":
+        raise ValueError(f"paged decode needs one dense segment; {cfg.arch_id} has "
+                         f"{[s.kind for s in segs]}")
+    dev = k_pools.device
+    tables = torch.as_tensor(tables, device=dev).to(torch.int32)
+    pos, bids, offs = (torch.as_tensor(t, device=dev).long() for t in (pos, bids, offs))
+    x = embed_tokens(params["embed"], token, cfg)
+    stack = params["stack"][segs[0].name]
+    for i in range(segs[0].n):
+        lp = transformer._layer(stack, i)
+        a, _, _ = paged_gqa_decode(lp["attn"], transformer._norm(x, lp["ln1"], cfg),
+                                   k_pools[i], v_pools[i], tables, pos, bids, offs, cfg)
+        x = transformer._ffn_decode(lp, x + a, cfg)
+    x = transformer._norm(x, params["final_norm"], cfg)
+    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
+    return logits[:, 0], k_pools, v_pools
 
 
 # --- cache construction ---------------------------------------------------------

@@ -87,6 +87,14 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     return x, cache
 
 
+def _ffn_decode(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Residual feed-forward half of a decode layer (dense segment)."""
+    if "mlp" not in p:
+        raise NotImplementedError(
+            f"MoE feed-forward comes with {_LATER_SEGMENTS['moe']}")
+    return x + apply_mlp(p["mlp"], _norm(x, p["ln2"], cfg), cfg)
+
+
 def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     """One-token decode. x: (B,1,D); pos: scalar or (B,) per-row positions.
     Returns (hidden, cache); the cache is updated in place (saves a copy of
@@ -98,6 +106,5 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
             lp = _layer(params[seg.name], i)
             a, _, _ = attn_mod.gqa_decode(lp["attn"], _norm(x, lp["ln1"], cfg),
                                           c["k"][i], c["v"][i], pos, cfg)
-            x = x + a
-            x = x + apply_mlp(lp["mlp"], _norm(x, lp["ln2"], cfg), cfg)
+            x = _ffn_decode(lp, x + a, cfg)
     return x, cache

@@ -60,6 +60,65 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, kv, s, d, causal, window
         q, k, v, causal=causal, window=window).float(), **tol)
 
 
+def _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype, seed=0):
+    """Pool + distinct non-null block tables (block 0 plays the null block)
+    + ragged lengths, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    nb = b * maxb + 1
+    k_pool = torch.randn(nb, bs, kv, d, device=cuda, generator=g).to(dtype)
+    v_pool = torch.randn(nb, bs, kv, d, device=cuda, generator=g).to(dtype)
+    q = torch.randn(b, h, d, device=cuda, generator=g).to(dtype)
+    perm = torch.randperm(nb - 1, device=cuda, generator=g)[:b * maxb] + 1
+    tables = perm.reshape(b, maxb).to(torch.int32)
+    return q, k_pool, v_pool, tables, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,d,bs,maxb,lens", [
+    (4, 4, 1, 16, 16, 4, [1, 16, 17, 64]),    # qwen-smoke GQA; block edges
+    (2, 4, 4, 32, 8, 3, [5, 24]),             # MHA; full table
+    (3, 8, 2, 64, 16, 2, [2, 31, 32]),        # GQA group 4
+    (2, 6, 3, 32, 4, 5, [3, 13]),             # odd heads, tiny blocks
+    (2, 4, 2, 80, 48, 2, [50, 96]),           # head_dim 80; blocks of more than 32 slots
+    (8, 16, 2, 128, 16, 40, [1, 15, 16, 17, 255, 256, 511, 640]),  # full-width decode wave
+])
+def test_paged_kernel_matches_plain_on_card(cuda, b, h, kv, d, bs, maxb, lens, dtype):
+    q, k_pool, v_pool, tables, lens = _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype)
+    before = ops.launch_counts()["paged_attention"]
+    out = ops.paged_attention_op(q, k_pool, v_pool, tables, lens)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), ref.paged_attention_ref(
+        q, k_pool, v_pool, tables, lens).float(), **tol)
+    # int64 tables and lengths from the host give the same result
+    again = ops.paged_attention_op(q, k_pool, v_pool, tables.long().cpu().numpy(),
+                                   lens.long().cpu().numpy())
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+def test_paged_kernel_null_rows_finite_and_empty_rows_zero(cuda):
+    """Rows whose table is all null block with length 1 (inactive slots)
+    stay finite; a row of length 0 gives zeros, as the Pallas kernel does
+    (the plain version averages uniformly there, so no comparison)."""
+    q, k_pool, v_pool, tables, _ = _paged_case(cuda, 3, 4, 2, 16, 8, 2, [1, 1, 1],
+                                               torch.float32)
+    null = ops.paged_attention_op(q, k_pool, v_pool, torch.zeros_like(tables),
+                                  torch.ones(3, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(null).all())
+    torch.testing.assert_close(null, ref.paged_attention_ref(
+        q, k_pool, v_pool, torch.zeros_like(tables), torch.ones(3, device=cuda)),
+        **F32_TOL)
+    lens = torch.tensor([0, 9, 0], dtype=torch.int32, device=cuda)
+    out = ops.paged_attention_op(q, k_pool, v_pool, tables, lens)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all()) and bool((out[2] == 0).all())
+    torch.testing.assert_close(out[1:2], ref.paged_attention_ref(
+        q[1:2], k_pool, v_pool, tables[1:2], lens[1:2]), **F32_TOL)
+
+
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     x = torch.randn(4, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -67,3 +126,19 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention_op(q, q, q)
+    q, k_pool, v_pool, tables, lens = _paged_case(cuda, 2, 4, 2, 16, 8, 2, [3, 9],
+                                                  torch.float32)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.paged_attention_op(q.half(), k_pool.half(), v_pool.half(), tables, lens)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.paged_attention_op(q, k_pool.bfloat16(), v_pool, tables, lens)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.paged_attention_op(q, k_pool.cpu(), v_pool.cpu(), tables, lens)
+    with pytest.raises(TypeError, match="integers"):
+        ops.paged_attention_op(q, k_pool, v_pool, tables.float(), lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        q48 = torch.randn(2, 4, 48, device=cuda)
+        pool48 = torch.randn(5, 8, 2, 48, device=cuda)
+        ops.paged_attention_op(q48, pool48, pool48, tables, lens)
+    with pytest.raises(ValueError, match="multiple of"):
+        ops.paged_attention_op(q[:, :3], k_pool, v_pool, tables, lens)

@@ -4,6 +4,10 @@ numpy inputs through both, within 5e-5/5e-4. Under ``auto`` the JAX side
 runs its Pallas kernels in interpret mode and the port its plain versions.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from repro_torch.models.weights import params_from_numpy
 pytestmark = pytest.mark.slow
 
 ARCHS = ["qwen2.5-3b", "internlm2-1.8b"]
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _layer0(tree):
@@ -105,6 +110,33 @@ def test_init_params_has_repro_tree_and_scales(arch):
     tp2 = tmodel.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tmodel.tree_leaves(tp),
                                                  tmodel.tree_leaves(tp2)))
+
+
+_INIT_DIGEST = (
+    "import dataclasses, hashlib, torch\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.models import model\n"
+    "cfg = dataclasses.replace(get_config('qwen2.5-3b', smoke=True), dtype='float32')\n"
+    "tp = model.init_params(cfg, torch.Generator().manual_seed(0), device='cpu')\n"
+    "h = hashlib.sha256()\n"
+    "for t in model.tree_leaves(tp):\n"
+    "    h.update(t.numpy().tobytes())\n"
+    "print(h.hexdigest())\n")
+
+
+def test_init_params_bits_do_not_depend_on_mkl_or_threads():
+    """The same seed gives the same bits whatever code path MKL picks and
+    however many threads run: the draw never goes through MKL (``erfinv_``
+    did, and MKL's SSE4.2, AVX2 and AVX-512 paths round differently)."""
+    digests = set()
+    for env in ({}, {"MKL_ENABLE_INSTRUCTIONS": "SSE4_2", "OMP_NUM_THREADS": "3"},
+                {"MKL_ENABLE_INSTRUCTIONS": "AVX2", "OMP_NUM_THREADS": "1"}):
+        r = subprocess.run([sys.executable, "-c", _INIT_DIGEST], capture_output=True,
+                           text=True, timeout=120,
+                           env={**os.environ, "PYTHONPATH": str(SRC), **env})
+        assert r.returncode == 0, r.stderr
+        digests.add(r.stdout.strip())
+    assert len(digests) == 1, digests
 
 
 def test_cast_params_keeps_norms_and_copies_matrices_once():

@@ -23,7 +23,8 @@ from repro.serving.engine import ContinuousEngine as JaxContinuousEngine
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.models import model as tmodel
 from repro_torch.serving.batching import GenRequest
-from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+from repro_torch.serving.engine import ContinuousEngine, PagedContinuousEngine, ServingEngine
+from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.slot_state import SlotBatchState, graft_slot
 
 pytestmark = pytest.mark.slow
@@ -185,6 +186,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
     tree = tmodel.tree_map(lambda t: t.numpy(), tp)
     calls = [
         lambda: ContinuousEngine(tc, tp),
+        lambda: PagedContinuousEngine(tc, tp),
+        lambda: PagedContinuousEngine(tc, tp, attn="kernel"),
+        lambda: PagedKVCache(tc, n_blocks=4, block_size=4),
         lambda: ServingEngine(tc, tp),
         lambda: tmodel.init_params(tc, torch.Generator()),
         lambda: params_from_numpy(tree, tc),
@@ -196,6 +200,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
             call()
     # asked for the CPU, each one works
     ContinuousEngine(tc, tp, device="cpu")
+    PagedContinuousEngine(tc, tp, device="cpu")
+    PagedKVCache(tc, n_blocks=4, block_size=4, device="cpu")
     params_from_numpy(tree, tc, device="cpu")
 
 
