@@ -6,8 +6,8 @@
 Run from the root of a checkout on a machine with one CUDA card. It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
+2. builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times kernel, plain version and a library
    yardstick (CUDA events);
@@ -21,7 +21,13 @@ Run from the root of a checkout on a machine with one CUDA card. It
    counts of all three kernels, the sharing counters and the block pool,
    and holds float32 paged decode through the kernel against the gather
    path for 8 teacher-forced waves;
-6. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+6. frees those weights and serves 8 requests of full-width mixtral-8x22b
+   cut to 4 of its 56 layers (bf16 weights from ``--seed``) through
+   ``ContinuousEngine`` under ``kernel_impls="auto"``, checks the launch
+   counts of the grouped-matmul, flash and rmsnorm kernels and every
+   request's length, and holds one float32 1-layer prefill under ``auto``
+   against ``reference``;
+7. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -55,47 +62,56 @@ TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
 SLICE_TOL = (1e-3, 1e-3)
 
 
-def cuda_ms(fn, iters: int = 50, reps: int = 5) -> tuple:
+def cuda_ms(fn, iters: int = 50, reps: int = 5, graph: bool = True) -> tuple:
     """Mean time of one call of ``fn`` in ms, as (device, eager).
 
     device: ``iters`` calls captured in one CUDA graph, replayed ``reps``
     times between CUDA events, so host launch overhead is out of the number.
     eager: ``iters`` back-to-back calls from Python between CUDA events; for
-    a small kernel this is the host's launch rate, not the kernel."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
+    a small kernel this is the host's launch rate, not the kernel. With
+    ``graph=False`` (a function that waits for the device inside, so no
+    graph can hold it) both numbers are the eager one."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
+    device = None
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            for _ in range(iters):
+                fn()
+        cuda_graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            cuda_graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        device = start.elapsed_time(end) / (reps * iters)
+    else:
+        fn()  # warm up
     torch.cuda.synchronize()
-    device = start.elapsed_time(end) / (reps * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return device, start.elapsed_time(end) / iters
+    eager = start.elapsed_time(end) / iters
+    return (eager if device is None else device), eager
 
 
-def time_three(kernel, plain, library) -> dict:
+def time_three(kernel, plain, library, plain_graph: bool = True) -> dict:
     """Device and eager times of the kernel, its plain version and the
     library yardstick (None where there is none)."""
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
-        out[key], out["eager_" + key] = cuda_ms(fn) if fn is not None else (None, None)
+        graph = plain_graph or key != "plain_ms"
+        out[key], out["eager_" + key] = cuda_ms(fn, graph=graph) if fn is not None else (None, None)
     return out
 
 
@@ -159,6 +175,96 @@ def paged_bound(lens, h, kv, d, bs, dtype):
     flops = 4 * h * d * n                          # q.k and p.v, 2 flops a MAC
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_ / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gmm_bound(lhs, rhs, te):
+    """(bound ms, 'bytes' | 'operations') for one grouped matmul on these
+    inputs: lhs, the rhs experts the tiles use and out moved once, te read;
+    2*T*D*F operations."""
+    t, d = lhs.shape
+    f = rhs.shape[2]
+    elt = lhs.element_size()
+    used = int(torch.unique(te).numel())
+    bytes_ = t * d * elt + used * d * f * elt + t * f * elt + te.numel() * 4
+    flops = 2 * t * d * f
+    t_ops, t_bytes = flops / PEAK_FLOPS[lhs.dtype], bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def moe_kernel_phase(gen: torch.Generator) -> dict:
+    """moe_gmm against its plain version at the main path's decode-wave and
+    prefill shapes (full-width mixtral, bf16) and at small float32 cases,
+    then timed at both main shapes beside torch.bmm over the capacity buffer."""
+    from repro_torch.kernels.ops import moe_gmm_op, pad_group_sizes
+    from repro_torch.kernels.ref import moe_gmm_ref, moe_gmm_tiles_ref
+
+    dev = "cuda"
+    res = {"err": 0.0}
+
+    def case(t, d, f, e, bt, dtype, scale=1.0):
+        lhs = torch.randn(t, d, device=dev, generator=gen).to(dtype)
+        rhs = (torch.randn(e, d, f, device=dev, generator=gen) * scale).to(dtype)
+        te = torch.arange(e, device=dev, dtype=torch.int32).repeat_interleave(t // bt // e)
+        return lhs, rhs, te
+
+    # (T, D, F, E, block_t, dtype, label): the capacity buffers of the main
+    # path (cap 8 at the 4-slot decode wave, cap 160 at a 512-token prefill;
+    # block_t = gcd(cap, 128)), w_gate/w_up and w_down shapes, then small
+    # float32 cases
+    d_model, d_ff, e_full = 6144, 16384, 8
+    cases = [(64, d_model, d_ff, e_full, 8, torch.bfloat16, "decode w_gate/w_up"),
+             (64, d_ff, d_model, e_full, 8, torch.bfloat16, "decode w_down"),
+             (1280, d_model, d_ff, e_full, 32, torch.bfloat16, "prefill w_gate/w_up"),
+             (1280, d_ff, d_model, e_full, 32, torch.bfloat16, "prefill w_down"),
+             (256, 64, 96, 4, 32, torch.float32, "F not a multiple of the tile"),
+             (64, 64, 96, 8, 8, torch.float32, "block_t 8"),
+             (128, 32, 200, 2, 64, torch.float32, "E 2"),
+             (39, 40, 52, 3, 13, torch.float32, "block_t 13, odd D and F")]
+    for t, d, f, e, bt, dtype, label in cases:
+        lhs, rhs, te = case(t, d, f, e, bt, dtype, scale=d ** -0.5)
+        name = f"moe_gmm {label} lhs ({t},{d}) rhs ({e},{d},{f}) block_t {bt} {dtype}"
+        err = check_close(name, moe_gmm_op(lhs, rhs, te, block_t=bt),
+                          moe_gmm_tiles_ref(lhs, rhs, te, bt), TOL[dtype])
+        torch.cuda.synchronize()
+        print(f"check {name}: max abs err {err:.3e}")
+        res["err"] = max(res["err"], err)
+    # ragged groups padded by pad_group_sizes (an empty group, zero rows)
+    sizes = torch.tensor([5, 0, 17, 8], dtype=torch.int32, device=dev)
+    padded, offs = pad_group_sizes(sizes, 8)
+    t = int(offs[-1])
+    lhs = torch.zeros(t, 64, device=dev)
+    for n, o in zip(sizes.tolist(), offs[:-1].tolist()):
+        lhs[o:o + n] = torch.randn(n, 64, device=dev, generator=gen)
+    rhs = torch.randn(4, 64, 96, device=dev, generator=gen)
+    te = (torch.searchsorted(offs, torch.arange(t // 8, device=dev, dtype=torch.int32) * 8,
+                             right=True) - 1).clamp(0, 3)
+    err = check_close("moe_gmm ragged groups", moe_gmm_op(lhs, rhs, te, block_t=8),
+                      moe_gmm_ref(lhs, rhs, padded), TOL[torch.float32])
+    torch.cuda.synchronize()
+    print(f"check moe_gmm ragged groups {sizes.tolist()} padded to {padded.tolist()}, "
+          f"block_t 8, float32: max abs err {err:.3e}")
+    res["err"] = max(res["err"], err)
+
+    # timing at the main path's shapes, bf16 (w_gate/w_up; w_down moves as many bytes)
+    for t, bt, label in ((64, 8, "decode"), (1280, 32, "prefill")):
+        lhs, rhs, te = case(t, d_model, d_ff, e_full, bt, torch.bfloat16, scale=d_model ** -0.5)
+        buf = lhs.view(e_full, t // e_full, d_model)
+        check_close(f"moe_gmm {label} library yardstick (torch.bmm) vs plain",
+                    torch.bmm(buf, rhs).reshape(t, d_ff), moe_gmm_tiles_ref(lhs, rhs, te, bt),
+                    TOL[torch.bfloat16])
+        bound, by = gmm_bound(lhs, rhs, te)
+        tm = time_three(lambda: moe_gmm_op(lhs, rhs, te, block_t=bt),
+                        lambda: moe_gmm_tiles_ref(lhs, rhs, te, bt),
+                        lambda: torch.bmm(buf, rhs), plain_graph=False)
+        tm.update(bound_ms=bound, bound_by=by,
+                  shape=f"{label}: lhs ({t},{d_model}) rhs ({e_full},{d_model},{d_ff}) "
+                        f"block_t {bt} bf16; plain timed eager (it waits for the device); "
+                        f"library: torch.bmm over the (E, C, D) capacity buffer")
+        report(f"moe_gmm {label}", tm)
+        res[label] = tm
+        del lhs, rhs, buf
+    res.update(res["decode"])  # the decode wave carries most of the launches
+    return res
 
 
 def paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype):
@@ -414,7 +520,8 @@ def slice_phase(seed: int):
     n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_steps),
-              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0}
+              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
+              "moe_gmm": 0}
     print(f"slice: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
           f"expected {expect}")
     if n_prefills != n_req:
@@ -529,7 +636,7 @@ def paged_phase(cfg, params, seed: int):
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_waves + n_extend),
               "flash_attention": cfg.n_layers * n_prefills,
-              "paged_attention": cfg.n_layers * (n_waves + n_extend)}
+              "paged_attention": cfg.n_layers * (n_waves + n_extend), "moe_gmm": 0}
     st = engine.kv_stats()
     print(f"paged: {n_prefills} prefill, {n_extend} extend waves, {n_waves} decode waves, "
           f"launches {counts}, expected {expect}")
@@ -626,6 +733,136 @@ def paged_parity(cfg, params, seed: int, waves: int = 8) -> float:
     return worst
 
 
+def moe_phase(seed: int):
+    """Full-width mixtral-8x22b, 4 of its 56 layers (the only cut), bf16
+    weights, served through ContinuousEngine under ``kernel_impls="auto"``:
+    attention, the MoE grouped matmul and every norm on the kernels."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    n_req, prompt_len, new_tok, n_slots, max_seq = 8, 512, 32, 4, 640
+    cfg = with_kernel_impls(dataclasses.replace(get_config("mixtral-8x22b"), n_layers=4,
+                                                param_dtype="bfloat16"), "auto")
+    print(f"moe: {cfg.arch_id} layers={cfg.n_layers} of 56 d={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} experts={cfg.n_experts} top_k={cfg.top_k} "
+          f"moe_d_ff={cfg.moe_d_ff} window={cfg.sliding_window} vocab={cfg.vocab_size} "
+          f"moe_impl={cfg.moe_impl} dtype={cfg.dtype}/{cfg.param_dtype} "
+          f"kernel_impls={dict(cfg.kernel_impls)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, "cuda")
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"moe: {n_params} parameters ({M.nbytes(params)} bytes), init "
+          f"{time.perf_counter() - t0:.2f} s, peak memory during init {init_peak} bytes")
+    rng = np.random.default_rng(seed + 3)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n_req, prompt_len)).tolist()
+
+    engine.add(GenRequest(id=-1, prompt=prompts[0][:16], max_new=2))  # warm-up, not counted
+    engine.run()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, prefill0 = engine.n_decode_steps, engine.prefill_tokens
+    add_ms, step_ms, admit_step_ms = [], [], []
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        t = time.perf_counter()
+        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
+        if i < n_slots:  # admitted at once: prefill + graft + first token
+            add_ms.append(1e3 * (time.perf_counter() - t))
+    while engine.batcher.active():
+        before = engine.prefill_tokens
+        t = time.perf_counter()
+        engine.step()  # ends in a host copy of the picked tokens
+        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
+            1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t_start
+    counts = launch_counts()
+    done = engine.run()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = engine.n_decode_steps - steps0
+    n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
+    passes = n_prefills + n_steps
+    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * passes,
+              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
+              "moe_gmm": 3 * cfg.n_layers * passes}
+    print(f"moe: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
+          f"expected {expect}")
+    if n_prefills != n_req:
+        raise AssertionError(f"moe: {n_prefills} prefills, expected {n_req}")
+    if counts != expect:
+        raise AssertionError(f"moe: launch counts {counts} != expected {expect}")
+    if sorted(r.id for r in done) != list(range(n_req)):
+        raise AssertionError(f"moe: finished ids {sorted(r.id for r in done)}")
+    for r in done:
+        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"moe: request {r.id}: {len(r.generated)} tokens "
+                                 f"{r.generated[:8]}...")
+    serving = {
+        "moe_tokens_per_s": n_req * new_tok / wall,
+        "moe_wall_s": wall,
+        "moe_prefill_ms": statistics.median(add_ms),
+        "moe_decode_ms_per_step": statistics.median(step_ms),
+        "moe_admit_step_ms": admit_step_ms,
+        "moe_peak_memory_bytes": peak,
+        "moe_init_peak_memory_bytes": init_peak,
+        "moe_decode_steps": n_steps,
+    }
+    print(f"moe: served {n_req} requests x {new_tok} tokens in {wall:.3f} s = "
+          f"{serving['moe_tokens_per_s']:.2f} tok/s; prefill ({prompt_len} tokens, batch 1) "
+          f"median {serving['moe_prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
+          f"{serving['moe_decode_ms_per_step']:.2f} ms; steps with an admission "
+          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+    serving.update({"moe_" + k: x for k, x in profile_decode(engine, prompts, GenRequest).items()})
+    del engine, done, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving["moe_f32_logits_max_abs_err"] = moe_parity(seed, prompts[0])
+    return counts, serving
+
+
+def moe_parity(seed: int, prompt) -> float:
+    """One layer of full-width mixtral at float32: prefill logits under
+    ``auto`` (flash, rmsnorm and the moe_gmm capacity twin) against
+    ``reference`` (einsum attention, the scatter einsum) on the same weights."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+
+    base = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=1, dtype="float32",
+                               param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(base, torch.Generator(device="cuda").manual_seed(seed + 4), "cuda")
+    tok = torch.as_tensor([prompt], dtype=torch.int64, device="cuda")
+    logits = {}
+    for pol in ("auto", "reference"):
+        c32 = with_kernel_impls(base, pol)
+        logits[pol], _ = M.prefill(params, {"tokens": tok}, c32)
+    torch.cuda.synchronize()
+    v = base.vocab_size
+    err = check_close("moe f32 prefill logits auto vs reference", logits["auto"][:, :v],
+                      logits["reference"][:, :v], SLICE_TOL)
+    same = bool(torch.equal(logits["auto"][:, :v].argmax(-1),
+                            logits["reference"][:, :v].argmax(-1)))
+    if not same:
+        raise AssertionError("moe f32 prefill: argmax differs")
+    print(f"moe: f32 1-layer prefill ({tok.shape[1]} tokens) logits auto vs reference max abs "
+          f"err {err:.3e} (limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax {same}, "
+          f"logit scale {logits['reference'][:, :v].abs().max().item():.3f}, peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    del params, logits
+    torch.cuda.empty_cache()
+    return err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -658,20 +895,30 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kern = kernel_phase(gen)
+    kern["moe_gmm"] = moe_kernel_phase(gen)
     counts, serving, cfg, params = slice_phase(args.seed)
     paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
     serving.update(paged_serving)
+    del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts, moe_serving = moe_phase(args.seed)
+    serving.update(moe_serving)
     # each kernel's launches on the path that first carried it: rmsnorm and
-    # flash on the dense path, paged attention on the paged path
-    print(f"launches: dense path {counts}, paged path {paged_counts}")
-    counts = dict(counts, paged_attention=paged_counts["paged_attention"])
+    # flash on the dense path, paged attention on the paged path, the grouped
+    # matmul on the MoE path
+    print(f"launches: dense path {counts}, paged path {paged_counts}, moe path {moe_counts}")
+    counts = dict(counts, paged_attention=paged_counts["paged_attention"],
+                  moe_gmm=moe_counts["moe_gmm"])
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:25"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79"),
                "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:67")}
+                                   "src/repro/kernels/paged_attention.py:67"),
+               "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                           "src/repro/kernels/moe_gmm.py:34")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
@@ -679,7 +926,7 @@ def main(argv=None) -> int:
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
          "shape": kern[name]["shape"]}
-        for name in ("rmsnorm", "flash_attention", "paged_attention")]}
+        for name in ("rmsnorm", "flash_attention", "paged_attention", "moe_gmm")]}
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

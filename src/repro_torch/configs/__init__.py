@@ -13,6 +13,7 @@ from repro_torch.configs.base import (
 
 _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
 }
 
@@ -22,8 +23,7 @@ _LATER = {
     "qwen1.5-4b": "the platform-executor slice (dense)",
     "hubert-xlarge": "the forward/loss_fn slice (encoder-only, gelu)",
     "internvl2-26b": "the forward/loss_fn slice (vision frontend)",
-    "mixtral-8x22b": "the MoE/MLA + moe_gmm slice",
-    "deepseek-v2-lite-16b": "the MoE/MLA + moe_gmm slice",
+    "deepseek-v2-lite-16b": "the MLA slice",
     "mamba2-2.7b": "the SSM/hybrid + ssd slice",
     "zamba2-2.7b": "the SSM/hybrid + ssd slice",
 }

@@ -11,11 +11,17 @@ _EXPORTS = {
     "flash_attention_op": "repro_torch.kernels.ops",
     "flash_attention_ref": "repro_torch.kernels.ref",
     "launch_counts": "repro_torch.kernels.ops",
+    "moe_gmm_capacity": "repro_torch.kernels.ops",
+    "moe_gmm_op": "repro_torch.kernels.ops",
+    "moe_gmm_ref": "repro_torch.kernels.ref",
+    "moe_gmm_tiles_ref": "repro_torch.kernels.ref",
+    "pad_group_sizes": "repro_torch.kernels.ops",
     "paged_attention_op": "repro_torch.kernels.ops",
     "paged_attention_ref": "repro_torch.kernels.ref",
     "reset_launch_counts": "repro_torch.kernels.ops",
     "rmsnorm_op": "repro_torch.kernels.ops",
     "rmsnorm_ref": "repro_torch.kernels.ref",
+    "tile_experts_for_capacity": "repro_torch.kernels.ops",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -42,6 +42,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_attention": {
         "paged_attention_launch": [_P] * 6 + [_I] * 6 + [_L] * 11 + [_F, _I, _P],
     },
+    "moe_gmm": {
+        "moe_gmm_launch": [_P] * 4 + [_I] * 6 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

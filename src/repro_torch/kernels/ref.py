@@ -72,3 +72,37 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _rows_times_experts(lhs: torch.Tensor, rhs: torch.Tensor,
+                        row_expert: torch.Tensor) -> torch.Tensor:
+    """Row t of ``lhs`` times ``rhs[row_expert[t]]`` in fp32, in lhs's
+    dtype: one product per expert over its rows (no (T, D, F) gather)."""
+    out = torch.zeros((lhs.shape[0], rhs.shape[2]), dtype=torch.float32,
+                      device=lhs.device)
+    for e in range(rhs.shape[0]):
+        rows = (row_expert == e).nonzero().squeeze(1)
+        out[rows] = lhs[rows].float() @ rhs[e].float()
+    return out.to(lhs.dtype)
+
+
+def moe_gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul. lhs: (T,D) rows sorted by group; rhs: (E,D,F);
+    group_sizes: (E,) integer summing to <= T; tail rows belong to the last
+    group. Returns (T,F) in lhs's dtype where row t uses rhs[g(t)], fp32 math."""
+    t = lhs.shape[0]
+    ends = torch.cumsum(group_sizes.to(device=lhs.device, dtype=torch.int64), 0)
+    row_group = torch.searchsorted(ends, torch.arange(t, device=lhs.device), right=True)
+    return _rows_times_experts(lhs, rhs, row_group.clamp(max=rhs.shape[0] - 1))
+
+
+def moe_gmm_tiles_ref(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.Tensor,
+                      block_t: int) -> torch.Tensor:
+    """The ``moe_gmm`` kernel's own signature. lhs: (T,D) with T % block_t
+    == 0; rhs: (E,D,F); tile_expert: (T/block_t,) integer. Row tile i
+    (rows ``i*block_t`` to ``(i+1)*block_t``) times ``rhs[tile_expert[i]]``
+    in fp32, returned in lhs's dtype. Expert ids are clamped to [0, E-1],
+    as the kernel (and a clamped TPU index map) does."""
+    row_expert = tile_expert.to(device=lhs.device, dtype=torch.int64).repeat_interleave(block_t)
+    return _rows_times_experts(lhs, rhs, row_expert.clamp(0, rhs.shape[0] - 1))

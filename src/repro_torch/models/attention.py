@@ -5,7 +5,7 @@ Full-sequence paths dispatch to the flash-attention kernel under
 ``kernel_impls['attention'] == 'kernel'``, else run the einsum reference.
 Dense-cache decode attention is the plain einsum over the cache, as in
 ``repro``; paged decode (:func:`paged_gqa_decode`) always goes through the
-paged-attention kernel, as in ``repro``. MLA waits for the MoE/MLA slice.
+paged-attention kernel, as in ``repro``. MLA waits for the MLA slice.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.use_mla:
-        raise NotImplementedError("MLA attention comes with the MoE/MLA slice")
+        raise NotImplementedError("MLA attention comes with the MLA slice")
     if cfg.attn_impl != "einsum" or cfg.shard_activations:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}, shard_activations="

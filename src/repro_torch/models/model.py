@@ -26,6 +26,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str           # normal (truncated at +-2 scale) | zeros | ones (norm weight)
     scale: float = 0.0
+    cast: bool = True   # False: every use reads it in fp32 (the MoE router)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -41,7 +42,7 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
     stack: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
-        transformer.require_dense(seg)
+        transformer.require_ported(seg, cfg)
         n = seg.n
         attn = {
             "wq": normal((n, d, h * dh), d ** -0.5),
@@ -53,17 +54,19 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             attn["bq"] = ParamSpec((n, h * dh), "zeros")
             attn["bk"] = ParamSpec((n, kv * dh), "zeros")
             attn["bv"] = ParamSpec((n, kv * dh), "zeros")
-        mlp = {
-            "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
-            "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
-            "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
-        }
         stack[seg.name] = {
             "ln1": {"w": ParamSpec((n, d), "ones")},
             "attn": attn,
             "ln2": {"w": ParamSpec((n, d), "ones")},
-            "mlp": mlp,
         }
+        if seg.kind == "moe":
+            stack[seg.name]["moe"] = _moe_specs(cfg, n)
+        else:
+            stack[seg.name]["mlp"] = {
+                "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
+                "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
+                "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
+            }
     specs: Dict[str, Any] = {
         "embed": {"tokens": normal((cfg.vocab_padded, d), 0.02)},
         "stack": stack,
@@ -72,6 +75,26 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = normal((d, cfg.vocab_padded), d ** -0.5)
     return specs
+
+
+def _moe_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    """``repro.models.moe.init_moe``'s leaves for ``n`` stacked layers."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s_in, s_out = d ** -0.5, f ** -0.5
+    p: Dict[str, Any] = {
+        "router": ParamSpec((n, d, e), "normal", s_in, cast=False),
+        "w_gate": ParamSpec((n, e, d, f), "normal", s_in),
+        "w_up": ParamSpec((n, e, d, f), "normal", s_in),
+        "w_down": ParamSpec((n, e, f, d), "normal", s_out),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {
+            "w_gate": ParamSpec((n, d, fs), "normal", s_in),
+            "w_up": ParamSpec((n, d, fs), "normal", s_in),
+            "w_down": ParamSpec((n, fs, d), "normal", fs ** -0.5),
+        }
+    return p
 
 
 def _map_specs(fn, specs, *trees):
@@ -117,11 +140,12 @@ def cast_params(params, cfg: ModelConfig) -> Dict[str, Any]:
     """Compute-dtype copy of every matrix and bias, made once at load. Every
     use casts to the compute dtype first (as ``p["wq"].astype(dt)`` does in
     ``repro``), so this changes no number; the casts at use are then no-ops.
-    Norm weights stay at ``param_dtype``: the rmsnorm kernel reads them in
-    fp32. Leaves already in the compute dtype are kept, not copied."""
+    Norm weights stay at ``param_dtype`` (the rmsnorm kernel reads them in
+    fp32), and so does the MoE router (``route`` reads it in fp32). Leaves
+    already in the compute dtype are kept, not copied."""
     dt = cfg.compute_dtype
-    return _map_specs(lambda spec, t: t if spec.init == "ones" else t.to(dt),
-                      param_specs(cfg), params)
+    return _map_specs(lambda spec, t: t if spec.init == "ones" or not spec.cast
+                      else t.to(dt), param_specs(cfg), params)
 
 
 def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
@@ -178,7 +202,7 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
         lp = transformer._layer(stack, i)
         a, _, _ = paged_gqa_decode(lp["attn"], transformer._norm(x, lp["ln1"], cfg),
                                    k_pools[i], v_pools[i], tables, pos, bids, offs, cfg)
-        x = transformer._ffn_decode(lp, x + a, cfg)
+        x = transformer._ffn(lp, x + a, cfg)
     x = transformer._norm(x, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
     return logits[:, 0], k_pools, v_pools
@@ -189,7 +213,7 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage)."""
     out: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
-        transformer.require_dense(seg)
+        transformer.require_ported(seg, cfg)
         shape = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
         out[seg.name] = {
             "k": torch.empty(shape, dtype=cfg.compute_dtype, device="meta"),

@@ -1,0 +1,236 @@
+"""Mixture-of-Experts FFN — the port of ``repro.models.moe``.
+
+Three reference dispatch paths, as in ``repro``:
+
+- ``dense``   : every expert computes every token, masked combine (the oracle).
+- ``scatter`` : capacity-bounded scatter/gather dispatch (Switch-style), with
+                ``repro``'s capacity, slot and drop bookkeeping.
+- ``ragged``  : sort by expert, one product per expert over its rows (torch
+                has no ``ragged_dot``), exact active FLOPs.
+
+and their two twins on the ``moe_gmm`` kernel, picked by
+``kernel_impls['moe']``: the capacity twin of ``scatter`` and the dropless
+twin of ``ragged``/``dense``. The kernel twins take no host sync: every
+index they build stays on the device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, kernel_impl
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.shard_activations or cfg.moe_dispatch_constraints:
+        raise NotImplementedError(
+            f"shard_activations={cfg.shard_activations}, moe_dispatch_constraints="
+            f"{cfg.moe_dispatch_constraints}: the sharded MoE dispatch comes with "
+            f"the elastic-serving slice")
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """One-hot by comparison: no bounds check, so no host sync on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """Returns (weights (T,k), expert_idx (T,k), aux) for flattened tokens.
+
+    Top-k by a stable descending sort, so equal probabilities pick the lower
+    expert first, as ``jax.lax.top_k`` does."""
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    e = cfg.n_experts
+    f_e = _one_hot(idx[:, 0], e, torch.float32).mean(dim=0)  # top-1 assignment fraction
+    p_e = probs.mean(dim=0)
+    aux = {"lb_loss": e * (f_e * p_e).sum(), "router_probs_mean": p_e}
+    return weights, idx, aux
+
+
+def _expert_ffn(w_gate, w_up, w_down, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., C, D) with expert-major weights (..., D, F)/(..., F, D)."""
+    dt = x.dtype
+    g = F.silu(torch.einsum("...cd,...df->...cf", x, w_gate.to(dt)))
+    u = torch.einsum("...cd,...df->...cf", x, w_up.to(dt))
+    return torch.einsum("...cf,...fd->...cd", g * u, w_down.to(dt))
+
+
+def _shared_ffn(p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    g = F.silu(x @ p["w_gate"].to(dt))
+    u = x @ p["w_up"].to(dt)
+    return (g * u) @ p["w_down"].to(dt)
+
+
+# --- reference impls -----------------------------------------------------------
+def _moe_dense(p, x, weights, idx, cfg: ModelConfig):
+    t, d = x.shape
+    e = cfg.n_experts
+    # (E, T, D): every expert computes every token — oracle only.
+    h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], x.expand(e, t, d))
+    combine = torch.zeros((t, e), dtype=x.dtype, device=x.device)
+    for k in range(cfg.top_k):
+        combine = combine + _one_hot(idx[:, k], e, x.dtype) * weights[:, k:k + 1].to(x.dtype)
+    return torch.einsum("te,etd->td", combine, h)
+
+
+def _capacity(t: int, cfg: ModelConfig) -> int:
+    cap = int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor + 0.999)
+    return max(8, min(t, (cap + 7) // 8 * 8))
+
+
+def _capacity_dispatch(x, idx, cfg: ModelConfig, cap: int):
+    """``repro``'s capacity bookkeeping: each (token, pick) takes the next
+    row of its expert in (T*k) order; picks past ``cap`` go to the dump row
+    ``e*cap``. Returns (buf (E, cap, D), slot (T*k,), keep (T*k,))."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    flat_e = idx.reshape(-1)                          # (T*k,) assignment -> expert
+    onehot = _one_hot(flat_e, e, torch.int32)
+    pos = torch.cumsum(onehot, dim=0) - onehot        # position within expert
+    pos = (pos * onehot).sum(dim=-1)                  # (T*k,)
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos, torch.full_like(flat_e, e * cap))
+    x_rep = x.repeat_interleave(k, dim=0)             # (T*k, D)
+    # only the dump row takes more than one addend
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device).index_add_(
+        0, slot, x_rep)
+    return buf[:-1].reshape(e, cap, d), slot, keep
+
+
+def _capacity_combine(h, slot, keep, weights, t: int, cap: int, cfg: ModelConfig):
+    e, d = cfg.n_experts, h.shape[-1]
+    y_rep = h.reshape(e * cap, d)[slot.clamp(max=e * cap - 1)]
+    y_rep = torch.where(keep[:, None], y_rep, torch.zeros((), dtype=h.dtype, device=h.device))
+    y_rep = y_rep * weights.reshape(-1, 1).to(h.dtype)
+    return y_rep.reshape(t, cfg.top_k, d).sum(dim=1)
+
+
+def _moe_scatter(p, x, weights, idx, cfg: ModelConfig):
+    t = x.shape[0]
+    cap = _capacity(t, cfg)
+    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf3)
+    return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
+
+
+def _ragged_dot(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.ragged_dot``'s plain twin: rows ``[off_e, off_e + n_e)`` times
+    ``w[e]``, one product per group (reference path: reads the sizes on the host)."""
+    out = torch.zeros((xs.shape[0], w.shape[2]), dtype=xs.dtype, device=xs.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        out[start:start + n] = xs[start:start + n] @ w[e]
+        start += n
+    return out
+
+
+def _sort_by_expert(x, idx, cfg: ModelConfig):
+    """(flat_e, order, inv, xs, group_sizes): the (T*k) picks sorted by
+    expert (stable), its inverse, the rows in that order and the group sizes."""
+    e, k = cfg.n_experts, cfg.top_k
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    inv = torch.argsort(order, stable=True)
+    xs = x.repeat_interleave(k, dim=0)[order]
+    group_sizes = _one_hot(flat_e, e, torch.int32).sum(dim=0, dtype=torch.int32)
+    return flat_e, order, inv, xs, group_sizes
+
+
+def _moe_ragged(p, x, weights, idx, cfg: ModelConfig):
+    t, d = x.shape
+    dt = x.dtype
+    _, _, inv, xs, group_sizes = _sort_by_expert(x, idx, cfg)
+    g = F.silu(_ragged_dot(xs, p["w_gate"].to(dt), group_sizes))
+    u = _ragged_dot(xs, p["w_up"].to(dt), group_sizes)
+    ys = _ragged_dot(g * u, p["w_down"].to(dt), group_sizes)
+    y_rep = ys[inv] * weights.reshape(-1, 1).to(dt)
+    return y_rep.reshape(t, cfg.top_k, d).sum(dim=1)
+
+
+# --- kernel twins -------------------------------------------------------------------
+def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig):
+    """Kernel twin of ``_moe_scatter``: the same capacity, slot and keep math
+    (so the drop set matches token for token), with the (E, C, D) expert FFN
+    computed by three ``moe_gmm`` launches."""
+    from repro_torch.kernels.ops import moe_gmm_capacity
+    t = x.shape[0]
+    cap = _capacity(t, cfg)
+    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    bt = math.gcd(cap, 128)   # cap need not divide 128 when clamped to t
+    dt = x.dtype
+    g = F.silu(moe_gmm_capacity(buf3, p["w_gate"].to(dt), block_t=bt))
+    u = moe_gmm_capacity(buf3, p["w_up"].to(dt), block_t=bt)
+    h = moe_gmm_capacity(g * u, p["w_down"].to(dt), block_t=bt)
+    return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
+
+
+def _moe_gmm_dropless(p, x, weights, idx, cfg: ModelConfig):
+    """Kernel twin of ``_moe_ragged``: dropless sort-by-expert dispatch with
+    each expert's rows padded up to a ``block_t`` multiple (zero rows) so
+    every tile belongs to one expert, at the static worst-case length, so the
+    host never waits for the group sizes."""
+    from repro_torch.kernels.ops import moe_gmm_op, pad_group_sizes
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tk = t * k
+    bt = 128 if tk >= 128 else 8
+    # static worst-case padded length (every group rounds up by < bt)
+    t_pad = (tk + bt - 1) // bt * bt + e * bt
+    flat_e, order, inv, xs, group_sizes = _sort_by_expert(x, idx, cfg)
+    _, padded_offs = pad_group_sizes(group_sizes, bt)
+    raw_offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=x.device),
+                          torch.cumsum(group_sizes, 0, dtype=torch.int32)])
+    shift = padded_offs[:-1] - raw_offs[:-1]
+    dest = torch.arange(tk, device=x.device) + shift[flat_e[order]]
+    buf = torch.zeros((t_pad, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xs
+    tile_starts = torch.arange(t_pad // bt, dtype=torch.int32, device=x.device) * bt
+    te = (torch.searchsorted(padded_offs, tile_starts, right=True) - 1).clamp(0, e - 1)
+    dt = x.dtype
+    g = F.silu(moe_gmm_op(buf, p["w_gate"].to(dt), te, block_t=bt))
+    u = moe_gmm_op(buf, p["w_up"].to(dt), te, block_t=bt)
+    ys = moe_gmm_op(g * u, p["w_down"].to(dt), te, block_t=bt)[dest]
+    y_rep = ys[inv] * weights.reshape(-1, 1).to(dt)
+    return y_rep.reshape(t, k, d).sum(dim=1)
+
+
+def _moe_gmm_impl(p, x, weights, idx, cfg: ModelConfig):
+    """Kernel-path dispatch: mirror the reference impl's drop semantics so
+    temperature-0 tokens stay identical — capacity drops for ``scatter``,
+    dropless for ``ragged``/``dense``."""
+    if cfg.moe_impl == "scatter":
+        return _moe_gmm_capacity(p, x, weights, idx, cfg)
+    return _moe_gmm_dropless(p, x, weights, idx, cfg)
+
+
+_IMPLS = {"dense": _moe_dense, "scatter": _moe_scatter, "ragged": _moe_ragged,
+          "gmm": _moe_gmm_impl}
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
+              impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B,S,D) -> (y, aux). The per-config ``kernel_impls['moe']`` policy
+    swaps in the ``moe_gmm`` kernel path unless ``impl`` overrides it."""
+    _check_supported(cfg)
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    weights, idx, aux = route(p["router"], xt, cfg)
+    if impl is None and kernel_impl(cfg, "moe") == "kernel":
+        impl = "gmm"
+    name = impl or cfg.moe_impl
+    if name not in _IMPLS:
+        raise ValueError(f"apply_moe: unknown impl {name!r}; allowed impls: "
+                         f"{tuple(sorted(_IMPLS))}")
+    y = _IMPLS[name](p, xt, weights, idx, cfg)
+    if cfg.n_shared_experts:
+        y = y + _shared_ffn(p["shared"], xt)
+    return y.reshape(b, s, d), aux

@@ -1,9 +1,9 @@
 """Stack composition — the port of ``repro.models.transformer``.
 
 A trunk is an ordered list of segments of stacked layers. ``repro`` walks the
-stacked layer axis with ``lax.scan``; here a Python loop walks it. This slice
-ports the dense segment; the moe, ssm and hybrid_group segments raise and
-name the slice that brings them.
+stacked layer axis with ``lax.scan``; here a Python loop walks it. The dense
+and moe segments (GQA attention) are ported; MLA attention and the ssm and
+hybrid_group segments raise and name the slice that brings them.
 """
 from __future__ import annotations
 
@@ -14,10 +14,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, rms_norm
 
 _LATER_SEGMENTS = {
-    "moe": "the MoE/MLA + moe_gmm slice",
+    "mla": "the MLA slice",  # MLA attention, in a dense or a moe segment
     "ssm": "the SSM/hybrid + ssd slice",
     "hybrid_group": "the SSM/hybrid + ssd slice",
 }
@@ -49,8 +50,13 @@ def segments_for(cfg: ModelConfig) -> List[Segment]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def require_dense(seg: Segment) -> None:
-    if seg.kind != "dense":
+def require_ported(seg: Segment, cfg: ModelConfig) -> None:
+    """Raise for a segment the port does not run yet: ssm and hybrid
+    groups, and any segment with MLA attention."""
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"MLA attention is not ported yet: it comes with {_LATER_SEGMENTS['mla']}")
+    if seg.kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"segment kind {seg.kind!r} is not ported yet: it comes with "
             f"{_LATER_SEGMENTS.get(seg.kind, 'a later slice')}")
@@ -73,26 +79,26 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     axis first, as in ``repro``."""
     cache: Dict[str, Any] = {}
     for seg in segments_for(cfg):
-        require_dense(seg)
+        require_ported(seg, cfg)
         ks, vs = [], []
         for i in range(seg.n):
             lp = _layer(params[seg.name], i)
             h, k, v = attn_mod.gqa_prefill(lp["attn"], _norm(x, lp["ln1"], cfg),
                                            positions, cfg)
-            x = x + h
-            x = x + apply_mlp(lp["mlp"], _norm(x, lp["ln2"], cfg), cfg)
+            x = _ffn(lp, x + h, cfg)
             ks.append(k)
             vs.append(v)
         cache[seg.name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return x, cache
 
 
-def _ffn_decode(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Residual feed-forward half of a decode layer (dense segment)."""
-    if "mlp" not in p:
-        raise NotImplementedError(
-            f"MoE feed-forward comes with {_LATER_SEGMENTS['moe']}")
-    return x + apply_mlp(p["mlp"], _norm(x, p["ln2"], cfg), cfg)
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Residual feed-forward half of a layer: the MLP of a dense layer, the
+    MoE of a moe layer (prefill runs it too, as ``repro``'s bodies do)."""
+    if "mlp" in p:
+        return x + apply_mlp(p["mlp"], _norm(x, p["ln2"], cfg), cfg)
+    h, _ = moe_mod.apply_moe(p["moe"], _norm(x, p["ln2"], cfg), cfg)
+    return x + h
 
 
 def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
@@ -100,11 +106,11 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     Returns (hidden, cache); the cache is updated in place (saves a copy of
     the whole cache per token) and the same tree is returned."""
     for seg in segments_for(cfg):
-        require_dense(seg)
+        require_ported(seg, cfg)
         c = cache[seg.name]
         for i in range(seg.n):
             lp = _layer(params[seg.name], i)
             a, _, _ = attn_mod.gqa_decode(lp["attn"], _norm(x, lp["ln1"], cfg),
                                           c["k"][i], c["v"][i], pos, cfg)
-            x = _ffn_decode(lp, x + a, cfg)
+            x = _ffn(lp, x + a, cfg)
     return x, cache

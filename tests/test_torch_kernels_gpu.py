@@ -142,3 +142,80 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         ops.paged_attention_op(q48, pool48, pool48, tables, lens)
     with pytest.raises(ValueError, match="multiple of"):
         ops.paged_attention_op(q[:, :3], k_pool, v_pool, tables, lens)
+
+
+def _gmm_case(cuda, t, d, f, e, block_t, dtype, seed=0, tile_expert=None):
+    """lhs, rhs and an expert-sorted tile map (every expert gets at least one
+    tile where there are enough tiles), on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lhs = torch.randn(t, d, device=cuda, generator=g).to(dtype)
+    rhs = torch.randn(e, d, f, device=cuda, generator=g).to(dtype)
+    if tile_expert is None:
+        n = t // block_t
+        tile_expert = torch.sort(torch.randint(0, e, (n,), device=cuda, generator=g))[0]
+        tile_expert[:min(n, e)] = torch.arange(min(n, e), device=cuda)
+        tile_expert = torch.sort(tile_expert)[0]
+    return lhs, rhs, torch.as_tensor(tile_expert, device=cuda).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f,e,block_t", [
+    (256, 64, 96, 4, 32),       # tests/test_kernels.py grids: F not a multiple of the tile
+    (512, 128, 128, 8, 64),
+    (128, 32, 200, 2, 64),      # E = 2, F padding case of the TPU kernel
+    (64, 64, 96, 8, 8),         # block_t 8: the decode wave's capacity buffer, smoke width
+    (1280, 256, 384, 8, 128),   # block_t 128 (dropless tiles)
+    (39, 40, 52, 3, 13),        # block_t not a multiple of 8; D, F not multiples of 16 bytes
+])
+def test_moe_gmm_kernel_matches_plain_on_card(cuda, t, d, f, e, block_t, dtype):
+    lhs, rhs, te = _gmm_case(cuda, t, d, f, e, block_t, dtype)
+    before = ops.launch_counts()["moe_gmm"]
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=block_t)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gmm"] == before + 1
+    assert out.dtype == dtype and out.shape == (t, f)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, block_t).float(),
+                               **tol)
+
+
+def test_moe_gmm_kernel_ragged_groups_and_capacity_helper(cuda):
+    """Ragged group sizes padded by pad_group_sizes (zero rows, an empty
+    group), the dropless layout; and moe_gmm_capacity over an (E, C, D)
+    buffer against a batched product."""
+    sizes = torch.tensor([5, 0, 17, 8], dtype=torch.int32, device=cuda)
+    bt = 8
+    padded, offs = ops.pad_group_sizes(sizes, bt)
+    t = int(offs[-1])
+    g = torch.Generator(device=cuda).manual_seed(1)
+    lhs = torch.zeros(t, 64, device=cuda)
+    for n, o in zip(sizes.tolist(), offs[:-1].tolist()):
+        lhs[o:o + n] = torch.randn(n, 64, device=cuda, generator=g)
+    rhs = torch.randn(4, 64, 96, device=cuda, generator=g)
+    te = (torch.searchsorted(offs, torch.arange(t // bt, device=cuda, dtype=torch.int32) * bt,
+                             right=True) - 1).clamp(0, 3)
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=bt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.moe_gmm_ref(lhs, rhs, padded), **F32_TOL)
+    buf = torch.randn(4, 24, 64, device=cuda, generator=g)
+    got = ops.moe_gmm_capacity(buf, rhs, block_t=128)   # block_t clamps to C = 24
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, torch.bmm(buf, rhs), **F32_TOL)
+
+
+def test_moe_gmm_kernel_raises_on_what_it_does_not_take(cuda):
+    lhs, rhs, te = _gmm_case(cuda, 64, 32, 48, 2, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiple of block_t"):
+        ops.moe_gmm_op(lhs[:60], rhs, te, block_t=16)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.moe_gmm_op(lhs, rhs.bfloat16(), te, block_t=16)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.moe_gmm_op(lhs.half(), rhs.half(), te, block_t=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_gmm_op(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2), te, block_t=16)
+    with pytest.raises(ValueError, match="tile_expert"):
+        ops.moe_gmm_op(lhs, rhs, te[:2], block_t=16)
+    with pytest.raises(TypeError, match="integers"):
+        ops.moe_gmm_op(lhs, rhs, te.float(), block_t=16)
+    with pytest.raises(ValueError, match="rhs on"):
+        ops.moe_gmm_op(lhs, rhs.cpu(), te, block_t=16)

@@ -29,6 +29,12 @@ from repro_torch.models.weights import params_from_numpy
 pytestmark = pytest.mark.slow
 
 ARCHS = ["qwen2.5-3b", "internlm2-1.8b"]
+ALL_ARCHS = ARCHS + ["mixtral-8x22b"]
+# kernel sites under ``auto``: every arch runs rmsnorm and flash attention,
+# MoE archs the grouped matmul too
+AUTO_SITES = {"qwen2.5-3b": ("attention", "rmsnorm"),
+              "internlm2-1.8b": ("attention", "rmsnorm"),
+              "mixtral-8x22b": ("attention", "moe", "rmsnorm")}
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -41,7 +47,7 @@ def _x(*shape, seed=0):
 
 
 # --- configs ------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_equals_repro_field_by_field(arch, smoke):
     jc, tc = jax_get_config(arch, smoke=smoke), torch_get_config(arch, smoke=smoke)
@@ -49,11 +55,11 @@ def test_config_equals_repro_field_by_field(arch, smoke):
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert tc.vocab_padded == jc.vocab_padded
     jcfg, tcfg = configs(arch, "auto")
-    assert tcfg.kernel_impls == jcfg.kernel_impls == (("attention", "kernel"),
-                                                      ("rmsnorm", "kernel"))
+    assert tcfg.kernel_impls == jcfg.kernel_impls == tuple(
+        (site, "kernel") for site in AUTO_SITES[arch])
 
 
-@pytest.mark.parametrize("arch,slice_name", [("mixtral-8x22b", "MoE"),
+@pytest.mark.parametrize("arch,slice_name", [("deepseek-v2-lite-16b", "MLA"),
                                              ("mamba2-2.7b", "SSM"),
                                              ("zamba2-2.7b", "SSM")])
 def test_unported_arch_names_its_slice(arch, slice_name):
@@ -68,7 +74,7 @@ def _flat(tree, prefix=()):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_params_from_numpy_keeps_every_leaf_and_key(arch):
     jc, tc = configs(arch)
     jp, tp = params(jc, tc)
@@ -90,7 +96,7 @@ def test_params_from_numpy_rejects_wrong_tree():
         params_from_numpy(tree, tc, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_has_repro_tree_and_scales(arch):
     jc, tc = configs(arch)
     jflat = _flat(jmodel.init_params(jax.random.PRNGKey(0), jc))
@@ -149,6 +155,12 @@ def test_cast_params_keeps_norms_and_copies_matrices_once():
     assert cast["stack"]["dense"]["attn"]["bq"].dtype == torch.bfloat16
     again = tmodel.cast_params(cast, tc)
     assert again["stack"]["dense"]["attn"]["wq"] is cast["stack"]["dense"]["attn"]["wq"]
+    # the MoE router stays at param_dtype: route reads it in fp32, as repro does
+    _, mc = configs("mixtral-8x22b", dtype="bfloat16")
+    mp = tmodel.init_params(mc, torch.Generator().manual_seed(0), device="cpu")
+    mcast = tmodel.cast_params(mp, mc)
+    assert mcast["stack"]["moe"]["moe"]["router"] is mp["stack"]["moe"]["moe"]["router"]
+    assert mcast["stack"]["moe"]["moe"]["w_gate"].dtype == torch.bfloat16
 
 
 # --- layers -------------------------------------------------------------------
