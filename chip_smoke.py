@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with one CUDA card. It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times kernel, plain version and a library
@@ -27,7 +27,14 @@ Run from the root of a checkout on a machine with one CUDA card. It
    counts of the grouped-matmul, flash and rmsnorm kernels and every
    request's length, and holds one float32 1-layer prefill under ``auto``
    against ``reference``;
-7. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+7. frees those weights and serves 8 requests each of full-width,
+   full-depth mamba2-2.7b and zamba2-2.7b (fp32 weights from ``--seed``
+   plus the bf16 copy) through ``ContinuousEngine`` under
+   ``kernel_impls="auto"``, with a drain after 4 steps and a resume,
+   checks the exact launch counts of ssd, rmsnorm and flash and every
+   request's length, and holds a float32 prefill and decode step of one
+   mamba2 layer (one zamba2 group) under ``auto`` against ``reference``;
+8. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
@@ -54,6 +61,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor / fp3
 
 # tests/test_kernels.py tolerances: (atol, rtol)
 TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
+# tests/test_kernels.py's ssd tolerance at float32: kernel and plain version
+# sum Q*N products of order 10 in another order (both compute in fp32 from
+# the same inputs, bf16 ones included)
+SSD_TOL = (2e-3, 1e-3)
 # float32 prefill logits, auto (kernels) vs reference, full width: both sides
 # sum in another order (FMA flash kernel vs materialised softmax, block
 # reduction vs torch's mean), compounded over 36 residual layers; expected
@@ -267,6 +278,92 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
     return res
 
 
+def ssd_bound(x, dt, a, bm, cm, chunk):
+    """(bound ms, 'bytes' | 'operations') for one SSD scan on these inputs:
+    x, dt, a, B, C read once, y and the final state (fp32) written once; the
+    products over each chunk's causal pairs (scores C.B^T and scores.xdt),
+    the entering state's term and the state update."""
+    b, s, h, p = x.shape
+    n = bm.shape[3]
+    elt = x.element_size()
+    bytes_ = ((x.numel() + bm.numel() + cm.numel()) * elt + (dt.numel() + a.numel()) * 4
+              + (b * s * h * p + b * h * p * n) * 4)
+    pairs = chunk * (chunk + 1) // 2
+    flops = (s // chunk) * b * h * (2 * pairs * n + 2 * pairs * p + 4 * chunk * p * n)
+    t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_kernel_phase(gen: torch.Generator) -> dict:
+    """ssd against its plain version (ssd_chunk_ref) at mamba2's and zamba2's
+    512-token prefill shapes (bf16 x/B/C, fp32 dt) and at small float32
+    cases (tests/test_kernels.py's shapes, chunk invariance, S of one chunk),
+    against the sequential recurrence on the small cases, then timed at both
+    prefill shapes. No single PyTorch call computes the SSD scan, so there
+    is no library yardstick."""
+    from repro_torch.kernels.ops import ssd_op
+    from repro_torch.kernels.ref import ssd_chunk_ref, ssd_ref
+
+    dev = "cuda"
+    res = {"err": 0.0}
+
+    def case(b, s, h, p, g, n, dtype):
+        """tests/test_kernels.py's construction: x, B, C standard normal,
+        dt = softplus(N(0,1)), a = -exp(0.3 N(0,1))."""
+        x = torch.randn(b, s, h, p, device=dev, generator=gen).to(dtype)
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=dev, generator=gen))
+        a = -torch.exp(torch.randn(h, device=dev, generator=gen) * 0.3)
+        bm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dtype)
+        cm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dtype)
+        return x, dt, a, bm, cm
+
+    def check(label, inputs, chunk, oracle=False):
+        name = (f"ssd {label} x {tuple(inputs[0].shape)} B {tuple(inputs[3].shape)} "
+                f"chunk {chunk} {inputs[0].dtype}")
+        y, fin = ssd_op(*inputs, chunk=chunk)
+        want = ssd_chunk_ref(*inputs, chunk)
+        err = max(check_close(name + " y", y, want[0], SSD_TOL),
+                  check_close(name + " final state", fin, want[1], SSD_TOL))
+        if oracle:  # the sequential recurrence, a different order of sums
+            seq = ssd_ref(*inputs)
+            err = max(err, check_close(name + " y vs ssd_ref", y, seq[0], SSD_TOL),
+                      check_close(name + " state vs ssd_ref", fin, seq[1], SSD_TOL))
+        torch.cuda.synchronize()
+        print(f"check {name}: max abs err {err:.3e} (limit atol={SSD_TOL[0]} "
+              f"rtol={SSD_TOL[1]}){' incl. ssd_ref' if oracle else ''}")
+        res["err"] = max(res["err"], err)
+        return y
+
+    mamba2 = (1, 512, 80, 64, 1, 128)   # x (1, 512, 80, 64), B/C (1, 512, 1, 128)
+    zamba2 = (1, 512, 80, 64, 1, 64)
+    for label, shape in (("mamba2 prefill", mamba2), ("zamba2 prefill", zamba2)):
+        check(label, case(*shape, torch.bfloat16), 256)
+    for b, s, h, p, g, n, chunk in ((2, 64, 4, 16, 2, 8, 16), (1, 128, 8, 64, 1, 32, 32),
+                                    (2, 96, 2, 8, 2, 16, 32), (1, 256, 4, 64, 1, 64, 128)):
+        check("small", case(b, s, h, p, g, n, torch.float32), chunk, oracle=True)
+    check("S of one chunk", case(1, 256, 4, 64, 1, 128, torch.float32), 256, oracle=True)
+    inputs = case(1, 128, 2, 16, 1, 8, torch.float32)
+    ys = [check("chunk invariance", inputs, c, oracle=True) for c in (16, 32, 64, 128)]
+    for y in ys[1:]:
+        err = check_close("ssd chunk invariance", y, ys[0], (1e-4, 1e-3))
+        res["err"] = max(res["err"], err)
+    print(f"check ssd chunk invariance over 16/32/64/128: y within atol=1e-4 rtol=1e-3")
+
+    for label, shape in (("zamba2", zamba2), ("mamba2", mamba2)):  # the kernels line: mamba2
+        inputs = case(*shape, torch.bfloat16)
+        bound, by = ssd_bound(*inputs, 256)
+        t = time_three(lambda: ssd_op(*inputs, chunk=256),
+                       lambda: ssd_chunk_ref(*inputs, 256), None)
+        t.update(bound_ms=bound, bound_by=by,
+                 shape=f"{label} prefill: x {tuple(inputs[0].shape)} bf16, dt fp32, B/C "
+                       f"{tuple(inputs[3].shape)} bf16, chunk 256; library: none (no PyTorch "
+                       f"call computes the SSD scan)")
+        report(f"ssd {label}", t)
+        res[label] = t
+    res.update(res["mamba2"])
+    return res
+
+
 def paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype):
     """Pools, q, block tables that are a random permutation avoiding the
     null block 0, and the given lengths, on the card."""
@@ -356,17 +453,20 @@ def kernel_phase(gen: torch.Generator):
     dev = "cuda"
     results = {"rmsnorm": {"err": 0.0}, "flash_attention": {"err": 0.0}}
 
-    # --- rmsnorm: rows of the decode wave (4), a prefill (512), odd counts
+    # --- rmsnorm: rows of the decode wave (4), a prefill (512), odd counts;
+    # d 2048 (qwen), 2560 (mamba2/zamba2 d_model), 5120 (their gated norm)
     d = 2048
     w = torch.randn(d, device=dev, generator=gen)
-    for rows in (1, 4, 512, 777):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(rows, d, device=dev, generator=gen).to(dtype)
-            err = check_close(f"rmsnorm rows={rows} {dtype}", rmsnorm_op(x, w),
-                              rmsnorm_ref(x, w), TOL[dtype])
-            torch.cuda.synchronize()
-            print(f"check rmsnorm rows={rows} d={d} {dtype}: max abs err {err:.3e}")
-            results["rmsnorm"]["err"] = max(results["rmsnorm"]["err"], err)
+    for dd, rows_list in ((2048, (1, 4, 512, 777)), (2560, (4, 512)), (5120, (4, 512))):
+        wd = w if dd == d else torch.randn(dd, device=dev, generator=gen)
+        for rows in rows_list:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(rows, dd, device=dev, generator=gen).to(dtype)
+                err = check_close(f"rmsnorm rows={rows} d={dd} {dtype}", rmsnorm_op(x, wd),
+                                  rmsnorm_ref(x, wd), TOL[dtype])
+                torch.cuda.synchronize()
+                print(f"check rmsnorm rows={rows} d={dd} {dtype}: max abs err {err:.3e}")
+                results["rmsnorm"]["err"] = max(results["rmsnorm"]["err"], err)
     has_rms = hasattr(torch.nn.functional, "rms_norm")
     for rows in (4, 512):  # decode wave, prefill
         x = torch.randn(rows, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -392,6 +492,8 @@ def kernel_phase(gen: torch.Generator):
     cases += [(1, 16, 2, 1000, 128, True, 256, dt) for dt in (torch.float32, torch.bfloat16)]
     cases += [(2, 4, 1, 100, 16, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
     cases += [(1, 4, 4, 128, 64, False, None, torch.float32)]
+    # zamba2-2.7b's shared attention at its prefill: 32 heads of head_dim 80
+    cases += [(1, 32, 32, 512, 80, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
     for b, h, kv, s, dd, causal, window, dtype in cases:
         q, k, v = qkv(b, h, kv, s, dd, dtype)
         name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
@@ -402,19 +504,20 @@ def kernel_phase(gen: torch.Generator):
         torch.cuda.synchronize()
         print(f"check {name}: max abs err {err:.3e}")
         results["flash_attention"]["err"] = max(results["flash_attention"]["err"], err)
-    # timing at the main path's prefill shape
-    b, h, kv, s, dd = 1, 16, 2, 512, 128
-    q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
-    k_rep = k.repeat_interleave(h // kv, dim=1)
-    v_rep = v.repeat_interleave(h // kv, dim=1)
-    bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16)
-    t = time_three(lambda: flash_attention_op(q, k, v, causal=True),
-                   lambda: flash_attention_ref(q, k, v, causal=True),
-                   lambda: torch.nn.functional.scaled_dot_product_attention(
-                       q, k_rep, v_rep, is_causal=True))
-    t.update(bound_ms=bound, bound_by=by,
-             shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
-    report("flash_attention", t)
+    # timing at the prefill shapes of zamba2's shared block (32 heads of 80)
+    # and, for the kernels line, of qwen2.5-3b
+    for b, h, kv, s, dd in ((1, 32, 32, 512, 80), (1, 16, 2, 512, 128)):
+        q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
+        k_rep = k.repeat_interleave(h // kv, dim=1)
+        v_rep = v.repeat_interleave(h // kv, dim=1)
+        bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16)
+        t = time_three(lambda: flash_attention_op(q, k, v, causal=True),
+                       lambda: flash_attention_ref(q, k, v, causal=True),
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q, k_rep, v_rep, is_causal=True))
+        t.update(bound_ms=bound, bound_by=by,
+                 shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
+        report("flash_attention", t)
     results["flash_attention"].update(t)
     results["paged_attention"] = paged_kernel_phase(gen)
     return results
@@ -521,7 +624,7 @@ def slice_phase(seed: int):
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_steps),
               "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
-              "moe_gmm": 0}
+              "moe_gmm": 0, "ssd": 0}
     print(f"slice: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
           f"expected {expect}")
     if n_prefills != n_req:
@@ -636,7 +739,7 @@ def paged_phase(cfg, params, seed: int):
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_waves + n_extend),
               "flash_attention": cfg.n_layers * n_prefills,
-              "paged_attention": cfg.n_layers * (n_waves + n_extend), "moe_gmm": 0}
+              "paged_attention": cfg.n_layers * (n_waves + n_extend), "moe_gmm": 0, "ssd": 0}
     st = engine.kv_stats()
     print(f"paged: {n_prefills} prefill, {n_extend} extend waves, {n_waves} decode waves, "
           f"launches {counts}, expected {expect}")
@@ -794,7 +897,7 @@ def moe_phase(seed: int):
     passes = n_prefills + n_steps
     expect = {"rmsnorm": (2 * cfg.n_layers + 1) * passes,
               "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
-              "moe_gmm": 3 * cfg.n_layers * passes}
+              "moe_gmm": 3 * cfg.n_layers * passes, "ssd": 0}
     print(f"moe: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
           f"expected {expect}")
     if n_prefills != n_req:
@@ -863,6 +966,160 @@ def moe_parity(seed: int, prompt) -> float:
     return err
 
 
+def ssm_phase(arch: str, seed: int):
+    """Full-width, full-depth mamba2-2.7b or zamba2-2.7b (fp32 master
+    weights plus the bf16 copy) served through ContinuousEngine under
+    ``kernel_impls="auto"``: every prefill's SSM layers on the ssd kernel,
+    every norm (the gated one too) on rmsnorm and zamba2's shared attention
+    on flash. 8 requests with prompts of 480-512 tokens (most not a multiple
+    of the 256-token chunk, so the dt=0 padding is on the path), a drain
+    after 4 decode steps and a resume of every drained request."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    tag = arch.split("-")[0]  # mamba2 | zamba2
+    n_req, new_tok, n_slots, max_seq, drain_after = 8, 32, 4, 640, 4
+    cfg = with_kernel_impls(get_config(arch), "auto")
+    print(f"{tag}: {cfg.arch_id} family={cfg.family} layers={cfg.n_layers} d={cfg.d_model} "
+          f"ssm heads={cfg.n_ssm_heads}x{cfg.ssm_headdim} state={cfg.ssm_state} "
+          f"chunk={cfg.ssm_chunk} attn every {cfg.attn_every} ({cfg.n_attn_layers} shared-block "
+          f"uses, {cfg.n_heads} heads of {cfg.head_dim}) vocab={cfg.vocab_size} "
+          f"dtype={cfg.dtype}/{cfg.param_dtype} kernel_impls={dict(cfg.kernel_impls)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq, device="cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: {sum(t.numel() for t in M.tree_leaves(params))} parameters "
+          f"({M.nbytes(params)} bytes fp32, bf16 copy {M.nbytes(engine.params)} bytes), init + "
+          f"copy {time.perf_counter() - t0:.2f} s, peak memory {init_peak} bytes")
+    rng = np.random.default_rng(seed + 5)
+    lens = rng.integers(480, 513, size=n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    engine.add(GenRequest(id=-1, prompt=prompts[0][:16], max_new=2))  # warm-up, not counted
+    engine.run()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = engine.n_decode_steps
+    add_ms, step_ms, admit_step_ms = [], [], []
+
+    def timed_step():
+        before = engine.prefill_tokens
+        t = time.perf_counter()
+        engine.step()  # ends in a host copy of the picked tokens
+        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
+            1e3 * (time.perf_counter() - t))
+
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        t = time.perf_counter()
+        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
+        if i < n_slots:  # admitted at once: prefill + graft + first token
+            add_ms.append(1e3 * (time.perf_counter() - t))
+    for _ in range(drain_after):
+        timed_step()
+    drained = engine.drain()
+    resumed = sum(1 for r in drained if r.generated and r.remaining > 0)
+    if len(drained) != n_req or resumed != n_slots or engine.batcher.active():
+        raise AssertionError(f"{tag}: drained {len(drained)}, {resumed} in flight")
+    for r in drained:
+        engine.add(r)  # resume: prompt + generated so far, prefilled again
+    while engine.batcher.active():
+        timed_step()
+    wall = time.perf_counter() - t_start
+    counts = launch_counts()
+    done = engine.run()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = engine.n_decode_steps - steps0
+    n_prefills = n_req + resumed  # each request once, each drained in-flight one again
+    passes = n_prefills + n_steps
+    n_attn = cfg.n_attn_layers  # zamba2's shared block, once per group
+    expect = {"rmsnorm": (2 * cfg.n_layers + 2 * n_attn + 1) * passes,
+              "flash_attention": n_attn * n_prefills, "paged_attention": 0, "moe_gmm": 0,
+              "ssd": cfg.n_layers * n_prefills}
+    print(f"{tag}: {n_prefills} prefills ({resumed} of them resumes), {n_steps} decode "
+          f"steps, launches {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts} != expected {expect}")
+    if sorted(r.id for r in done) != list(range(n_req)):
+        raise AssertionError(f"{tag}: finished ids {sorted(r.id for r in done)}")
+    for r in done:
+        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"{tag}: request {r.id}: {len(r.generated)} tokens "
+                                 f"{r.generated[:8]}...")
+    serving = {
+        "tokens_per_s": n_req * new_tok / wall,
+        "wall_s": wall,
+        "prefill_ms": statistics.median(add_ms),
+        "decode_ms_per_step": statistics.median(step_ms),
+        "admit_step_ms": admit_step_ms,
+        "peak_memory_bytes": peak,
+        "init_peak_memory_bytes": init_peak,
+        "decode_steps": n_steps,
+        "prefills": n_prefills,
+    }
+    print(f"{tag}: served {n_req} requests x {new_tok} tokens (prompts {int(lens.min())}-"
+          f"{int(lens.max())}, drain after {drain_after} steps) in {wall:.3f} s = "
+          f"{serving['tokens_per_s']:.2f} tok/s; prefill (batch 1) median "
+          f"{serving['prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
+          f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
+          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+    serving.update(profile_decode(engine, prompts, GenRequest))
+    del engine, done, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving["f32_logits_max_abs_err"] = ssm_parity(arch, seed, prompts[1])
+    return counts, {f"{tag}_{k}": x for k, x in serving.items()}
+
+
+def ssm_parity(arch: str, seed: int, prompt) -> float:
+    """Full-width float32 prefill and one decode step under ``auto`` (ssd,
+    rmsnorm, flash) against ``reference`` on the same weights: one mamba2
+    layer, or one zamba2 group (6 mamba layers and the shared block)."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+
+    full = get_config(arch)
+    base = dataclasses.replace(full, n_layers=max(1, full.attn_every), dtype="float32")
+    params = M.init_params(base, torch.Generator(device="cuda").manual_seed(seed + 6), "cuda")
+    tok = torch.as_tensor([prompt], dtype=torch.int64, device="cuda")
+    v = base.vocab_size
+    logits, nxt = {}, {}
+    for pol in ("auto", "reference"):
+        c32 = with_kernel_impls(base, pol)
+        lg, cache = M.prefill(params, {"tokens": tok}, c32)
+        grown = M.init_cache(c32, 1, tok.shape[1] + 8, "cuda")
+        for seg in cache:
+            for key, leaf in cache[seg].items():
+                grown[seg][key][tuple(slice(0, n) for n in leaf.shape)] = leaf
+        step = torch.tensor([[int(lg[0, :v].argmax())]], device="cuda")
+        nxt[pol], _ = M.decode_step(params, step, grown, tok.shape[1], c32)
+        logits[pol] = lg
+    torch.cuda.synchronize()
+    tag = arch.split("-")[0]
+    err = max(check_close(f"{tag} f32 prefill logits auto vs reference", logits["auto"][:, :v],
+                          logits["reference"][:, :v], SLICE_TOL),
+              check_close(f"{tag} f32 decode logits auto vs reference", nxt["auto"][:, :v],
+                          nxt["reference"][:, :v], SLICE_TOL))
+    for what, d in (("prefill", logits), ("decode", nxt)):
+        if not torch.equal(d["auto"][:, :v].argmax(-1), d["reference"][:, :v].argmax(-1)):
+            raise AssertionError(f"{tag} f32 {what}: argmax differs")
+    print(f"{tag}: f32 {base.n_layers}-layer prefill ({tok.shape[1]} tokens) and decode logits "
+          f"auto vs reference max abs err {err:.3e} (limit atol={SLICE_TOL[0]} "
+          f"rtol={SLICE_TOL[1]}), same argmax, logit scale "
+          f"{logits['reference'][:, :v].abs().max().item():.3f}")
+    del params, logits, nxt
+    torch.cuda.empty_cache()
+    return err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -896,20 +1153,26 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kern = kernel_phase(gen)
     kern["moe_gmm"] = moe_kernel_phase(gen)
+    kern["ssd"] = ssd_kernel_phase(gen)
     counts, serving, cfg, params = slice_phase(args.seed)
     paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
     serving.update(paged_serving)
     del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
-    moe_counts, moe_serving = moe_phase(args.seed)
+    moe_counts, moe_serving = moe_phase(args.seed)  # frees mixtral before it returns
     serving.update(moe_serving)
+    ssm_counts, ssm_serving = ssm_phase("mamba2-2.7b", args.seed)
+    serving.update(ssm_serving)
+    hybrid_counts, hybrid_serving = ssm_phase("zamba2-2.7b", args.seed)
+    serving.update(hybrid_serving)
     # each kernel's launches on the path that first carried it: rmsnorm and
     # flash on the dense path, paged attention on the paged path, the grouped
-    # matmul on the MoE path
-    print(f"launches: dense path {counts}, paged path {paged_counts}, moe path {moe_counts}")
+    # matmul on the MoE path, ssd on the SSM path
+    print(f"launches: dense path {counts}, paged path {paged_counts}, moe path {moe_counts}, "
+          f"ssm path {ssm_counts}, hybrid path {hybrid_counts}")
     counts = dict(counts, paged_attention=paged_counts["paged_attention"],
-                  moe_gmm=moe_counts["moe_gmm"])
+                  moe_gmm=moe_counts["moe_gmm"], ssd=ssm_counts["ssd"])
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:25"),
@@ -918,7 +1181,8 @@ def main(argv=None) -> int:
                "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:67"),
                "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
-                           "src/repro/kernels/moe_gmm.py:34")}
+                           "src/repro/kernels/moe_gmm.py:34"),
+               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:66")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
@@ -926,7 +1190,7 @@ def main(argv=None) -> int:
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
          "shape": kern[name]["shape"]}
-        for name in ("rmsnorm", "flash_attention", "paged_attention", "moe_gmm")]}
+        for name in ("rmsnorm", "flash_attention", "paged_attention", "moe_gmm", "ssd")]}
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

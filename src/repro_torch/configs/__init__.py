@@ -13,8 +13,10 @@ from repro_torch.configs.base import (
 
 _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 # architectures of ``repro`` that a later slice of the port brings
@@ -24,8 +26,6 @@ _LATER = {
     "hubert-xlarge": "the forward/loss_fn slice (encoder-only, gelu)",
     "internvl2-26b": "the forward/loss_fn slice (vision frontend)",
     "deepseek-v2-lite-16b": "the MLA slice",
-    "mamba2-2.7b": "the SSM/hybrid + ssd slice",
-    "zamba2-2.7b": "the SSM/hybrid + ssd slice",
 }
 
 

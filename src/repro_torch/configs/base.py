@@ -131,6 +131,19 @@ class ModelConfig:
         return _round_up(self.vocab_size, 128)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        # mamba2 convolves [x, B, C] jointly
+        return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
+
+    @property
     def n_attn_layers(self) -> int:
         if self.family == "ssm":
             return 0

@@ -21,6 +21,9 @@ _EXPORTS = {
     "reset_launch_counts": "repro_torch.kernels.ops",
     "rmsnorm_op": "repro_torch.kernels.ops",
     "rmsnorm_ref": "repro_torch.kernels.ref",
+    "ssd_chunk_ref": "repro_torch.kernels.ref",
+    "ssd_op": "repro_torch.kernels.ops",
+    "ssd_ref": "repro_torch.kernels.ref",
     "tile_experts_for_capacity": "repro_torch.kernels.ops",
 }
 

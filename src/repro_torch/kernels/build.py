@@ -45,6 +45,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "moe_gmm": {
         "moe_gmm_launch": [_P] * 4 + [_I] * 6 + [_P],
     },
+    "ssd": {
+        "ssd_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_I, _P],
+        "ssd_smem_bytes": [_I, _I, _I],
+        "ssd_smem_limit": [],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

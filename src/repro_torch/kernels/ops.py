@@ -12,6 +12,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd as _ssd
 
 
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -34,6 +35,11 @@ def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tens
 def moe_gmm_op(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert, *,
                block_t: int = 128) -> torch.Tensor:
     return _gmm.moe_gmm(lhs, rhs, tile_expert, block_t=block_t)
+
+
+def ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+           c_mat: torch.Tensor, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ssd.ssd(x, dt, a, b_mat, c_mat, chunk=chunk)
 
 
 def pad_group_sizes(group_sizes: torch.Tensor,
@@ -72,7 +78,8 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
     return {"rmsnorm": _rmsnorm.launches, "flash_attention": _flash.launches,
-            "paged_attention": _paged.launches, "moe_gmm": _gmm.launches}
+            "paged_attention": _paged.launches, "moe_gmm": _gmm.launches,
+            "ssd": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -80,3 +87,4 @@ def reset_launch_counts() -> None:
     _flash.launches = 0
     _paged.launches = 0
     _gmm.launches = 0
+    _ssd.launches = 0

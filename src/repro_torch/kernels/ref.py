@@ -106,3 +106,84 @@ def moe_gmm_tiles_ref(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.T
     as the kernel (and a clamped TPU index map) does."""
     row_expert = tile_expert.to(device=lhs.device, dtype=torch.int64).repeat_interleave(block_t)
     return _rows_times_experts(lhs, rhs, row_expert.clamp(0, rhs.shape[0] - 1))
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+            c_mat: torch.Tensor):
+    """The sequential SSD recurrence, one position at a time (the slow but
+    obvious oracle of ``repro.kernels.ref.ssd_ref``).
+
+    x: (B,S,H,P); dt: (B,S,H); a: (H,); b_mat/c_mat: (B,S,G,N), H % G == 0.
+    Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    rep = h // b_mat.shape[2]
+    bh = b_mat.float().repeat_interleave(rep, dim=2)
+    ch = c_mat.float().repeat_interleave(rep, dim=2)
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * af[None, :])
+        state = state * da[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dtf[:, t], bh[:, t], xf[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def check_ssd_shapes(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int) -> None:
+    """Raise ``ValueError`` unless the shapes meet the ``ssd`` contract."""
+    if x.ndim != 4 or b_mat.ndim != 4:
+        raise ValueError(f"ssd: x {tuple(x.shape)} and b_mat {tuple(b_mat.shape)} must "
+                         f"be (B,S,H,P) and (B,S,G,N)")
+    bsz, s, h, _ = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"ssd: S={s} is not a multiple of chunk={chunk}")
+    if g < 1 or h % g:
+        raise ValueError(f"ssd: H={h} is not a multiple of G={g}")
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b_mat.shape) != (bsz, s, g, n) or c_mat.shape != b_mat.shape):
+        raise ValueError(f"ssd: dt {tuple(dt.shape)}, a {tuple(a.shape)}, b_mat "
+                         f"{tuple(b_mat.shape)}, c_mat {tuple(c_mat.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                  c_mat: torch.Tensor, chunk: int):
+    """The ``ssd`` kernel's own arithmetic: the chunks in order with a
+    carried (P, N) state from zero, each chunk as ``_ssd_kernel`` computes
+    it (a per-chunk cumsum of dt*a, the ``exp(where(tri, cs_i - cs_j,
+    -1e9))`` decay, the off-chunk term from the entering state, then the
+    state update), for every (batch, head) at once.
+
+    x: (B,S,H,P); dt: (B,S,H); a: (H,); b_mat/c_mat: (B,S,G,N); head h reads
+    group h // (H/G). S % chunk == 0 and H % G == 0, else ``ValueError``.
+    Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32)."""
+    check_ssd_shapes(x, dt, a, b_mat, c_mat, chunk)
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    rep = h // b_mat.shape[2]
+    xf = x.float().permute(0, 2, 1, 3)                                    # (B,H,S,P)
+    dtf = dt.float().permute(0, 2, 1)                                     # (B,H,S)
+    bh = b_mat.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)  # (B,H,S,N)
+    ch = c_mat.float().repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    da = dtf * a.float()[None, :, None]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, bc, cc = xf[:, :, sl], dtf[:, :, sl], bh[:, :, sl], ch[:, :, sl]
+        cs = torch.cumsum(da[:, :, sl], dim=-1)                           # (B,H,Q)
+        seg = cs[..., :, None] - cs[..., None, :]
+        ell = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
+        xdt = xc * dtc[..., None]                                         # (B,H,Q,P)
+        y = ((cc @ bc.transpose(-1, -2)) * ell) @ xdt                     # within-chunk
+        y = y + torch.exp(cs)[..., None] * (cc @ state.transpose(-1, -2))  # entering state
+        decay = torch.exp(cs[..., -1:] - cs)
+        state = (state * torch.exp(cs[..., -1])[..., None, None]
+                 + (xdt * decay[..., None]).transpose(-1, -2) @ bc)
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).contiguous(), state

@@ -4,9 +4,12 @@ requests — the FaaS function an HPC-Whisk invoker hosts, on the port.
     PYTHONPATH=src python -m repro_torch.launch.serve              # card, smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --full       # card, full width
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu # CPU, smoke config
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
 
-``--sequential`` runs the run-to-completion baseline instead; SIGTERM drains
-the partial generations (the invoker hand-off path) and exits with 143.
+``--arch`` takes any ported arch (qwen2.5-3b, internlm2-1.8b, mixtral-8x22b,
+mamba2-2.7b, zamba2-2.7b). ``--sequential`` runs the run-to-completion
+baseline instead; SIGTERM drains the partial generations (the invoker
+hand-off path) and exits with 143.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Shared building blocks: RMSNorm, SwiGLU MLP, rotary embeddings, token
-embedding and the vocabulary head — the port of ``repro.models.layers``.
+"""Shared building blocks: RMSNorm and its gated Mamba2 form, SwiGLU MLP,
+rotary embeddings, token embedding and the vocabulary head — the port of
+``repro.models.layers``.
 
 Params are nested dicts of tensors with the same keys and shapes as in
 ``repro``; every function takes and returns tensors, with the same dtype
@@ -27,6 +28,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
+
+
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
+                   eps: float, cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """Mamba2 RMSNormGated: norm(x * silu(gate)) * weight, through
+    :func:`rms_norm` (the rmsnorm kernel under ``auto``)."""
+    return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
 
 
 # --- SwiGLU MLP -------------------------------------------------------------

@@ -24,57 +24,90 @@ from repro_torch.models.layers import embed_tokens, logits_from_hidden
 class ParamSpec:
     """One parameter leaf: its shape and how ``repro`` initialises it."""
     shape: Tuple[int, ...]
-    init: str           # normal (truncated at +-2 scale) | zeros | ones (norm weight)
+    init: str           # normal (truncated at +-2 scale) | zeros | ones (norm weight) | full
     scale: float = 0.0
-    cast: bool = True   # False: every use reads it in fp32 (the MoE router)
+    cast: bool = True   # False: every use reads it at param_dtype (router, SSM scalars)
+    value: float = 0.0  # the constant of a ``full`` leaf
+
+
+def _normal(shape, scale: float, cast: bool = True) -> ParamSpec:
+    return ParamSpec(tuple(shape), "normal", scale, cast)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree of ``repro.models.model.init_params``: same keys,
-    shapes (stacked layer axis first) and scales."""
+    shapes (stacked layer axes first) and scales."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} comes with the forward/loss_fn slice")
-    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def normal(shape, scale):
-        return ParamSpec(tuple(shape), "normal", scale)
-
+    transformer.require_ported(cfg)
+    d = cfg.d_model
     stack: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
-        transformer.require_ported(seg, cfg)
         n = seg.n
-        attn = {
-            "wq": normal((n, d, h * dh), d ** -0.5),
-            "wk": normal((n, d, kv * dh), d ** -0.5),
-            "wv": normal((n, d, kv * dh), d ** -0.5),
-            "wo": normal((n, h * dh, d), (h * dh) ** -0.5),
-        }
-        if cfg.qkv_bias:
-            attn["bq"] = ParamSpec((n, h * dh), "zeros")
-            attn["bk"] = ParamSpec((n, kv * dh), "zeros")
-            attn["bv"] = ParamSpec((n, kv * dh), "zeros")
-        stack[seg.name] = {
-            "ln1": {"w": ParamSpec((n, d), "ones")},
-            "attn": attn,
-            "ln2": {"w": ParamSpec((n, d), "ones")},
-        }
-        if seg.kind == "moe":
-            stack[seg.name]["moe"] = _moe_specs(cfg, n)
-        else:
-            stack[seg.name]["mlp"] = {
-                "w_up": normal((n, d, cfg.d_ff), d ** -0.5),
-                "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
-                "w_gate": normal((n, d, cfg.d_ff), d ** -0.5),
-            }
+        if seg.kind == "dense":
+            stack[seg.name] = _dense_specs(cfg, (n,))
+        elif seg.kind == "moe":
+            stack[seg.name] = {**_attn_block_specs(cfg, (n,)), "moe": _moe_specs(cfg, n)}
+        elif seg.kind == "ssm":
+            stack[seg.name] = _mamba_specs(cfg, (n,))
+        else:  # hybrid_group: attn_every mamba blocks per group + ONE shared block
+            stack[seg.name] = {"mamba": _mamba_specs(cfg, (n, cfg.attn_every)),
+                               "shared": _dense_specs(cfg, ())}
     specs: Dict[str, Any] = {
-        "embed": {"tokens": normal((cfg.vocab_padded, d), 0.02)},
+        "embed": {"tokens": _normal((cfg.vocab_padded, d), 0.02)},
         "stack": stack,
         "final_norm": {"w": ParamSpec((d,), "ones")},
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = normal((d, cfg.vocab_padded), d ** -0.5)
+        specs["lm_head"] = _normal((d, cfg.vocab_padded), d ** -0.5)
     return specs
+
+
+def _attn_block_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
+    """The two pre-norms and the GQA attention of a dense or moe block."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {
+        "wq": _normal(lead + (d, h * dh), d ** -0.5),
+        "wk": _normal(lead + (d, kv * dh), d ** -0.5),
+        "wv": _normal(lead + (d, kv * dh), d ** -0.5),
+        "wo": _normal(lead + (h * dh, d), (h * dh) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = ParamSpec(lead + (h * dh,), "zeros")
+        attn["bk"] = ParamSpec(lead + (kv * dh,), "zeros")
+        attn["bv"] = ParamSpec(lead + (kv * dh,), "zeros")
+    return {"ln1": {"w": ParamSpec(lead + (d,), "ones")}, "attn": attn,
+            "ln2": {"w": ParamSpec(lead + (d,), "ones")}}
+
+
+def _dense_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
+    """``repro.models.transformer._init_dense_block``'s leaves."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {**_attn_block_specs(cfg, lead), "mlp": {
+        "w_up": _normal(lead + (d, f), d ** -0.5),
+        "w_down": _normal(lead + (f, d), f ** -0.5),
+        "w_gate": _normal(lead + (d, f), d ** -0.5),
+    }}
+
+
+def _mamba_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
+    """A pre-norm and ``repro.models.ssm.init_mamba``'s leaves. The SSM
+    scalars and the conv stay at ``param_dtype`` (``cast=False``): ``repro``
+    reads ``A_log``, ``dt_bias``, ``D_skip`` and (at decode) the conv in
+    fp32, and casts the conv to the compute dtype only at its prefill use."""
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
+    d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + h  # [z, xBC, dt]
+    return {"ln": {"w": ParamSpec(lead + (d,), "ones")}, "mixer": {
+        "in_proj": _normal(lead + (d, d_in_proj), d ** -0.5),
+        "conv_w": _normal(lead + (cfg.conv_dim, cfg.d_conv), cfg.d_conv ** -0.5, cast=False),
+        "conv_b": ParamSpec(lead + (cfg.conv_dim,), "zeros", cast=False),
+        "A_log": ParamSpec(lead + (h,), "zeros", cast=False),      # A = -exp(A_log) = -1
+        "dt_bias": ParamSpec(lead + (h,), "full", cast=False, value=-2.0),  # softplus ~ 0.13
+        "D_skip": ParamSpec(lead + (h,), "ones", cast=False),
+        "norm_w": ParamSpec(lead + (di,), "ones"),
+        "out_proj": _normal(lead + (di, d), di ** -0.5),
+    }}
 
 
 def _moe_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
@@ -126,6 +159,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(spec.shape, dtype=pd, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=pd, device=dev)
+        if spec.init == "full":
+            return torch.full(spec.shape, spec.value, dtype=pd, device=dev)
         t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
         t.normal_(generator=generator)
         out = t.abs() > 2.0
@@ -141,7 +176,8 @@ def cast_params(params, cfg: ModelConfig) -> Dict[str, Any]:
     use casts to the compute dtype first (as ``p["wq"].astype(dt)`` does in
     ``repro``), so this changes no number; the casts at use are then no-ops.
     Norm weights stay at ``param_dtype`` (the rmsnorm kernel reads them in
-    fp32), and so does the MoE router (``route`` reads it in fp32). Leaves
+    fp32), and so do the MoE router (``route`` reads it in fp32) and the SSM
+    scalars and conv (read in fp32, the conv cast at its prefill use). Leaves
     already in the compute dtype are kept, not copied."""
     dt = cfg.compute_dtype
     return _map_specs(lambda spec, t: t if spec.init == "ones" or not spec.cast
@@ -210,15 +246,28 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
 
 # --- cache construction ---------------------------------------------------------
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
-    """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage)."""
+    """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage):
+    K/V per attention layer, the SSM state (fp32) and conv window per
+    mamba layer, with ``repro``'s stacked lead axes."""
+    def meta(shape, dtype=None):
+        return torch.empty(shape, dtype=dtype or cfg.compute_dtype, device="meta")
+
+    ssm_state = (batch, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    conv = (batch, cfg.d_conv - 1, cfg.conv_dim)
+    transformer.require_ported(cfg)
     out: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
-        transformer.require_ported(seg, cfg)
-        shape = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
-        out[seg.name] = {
-            "k": torch.empty(shape, dtype=cfg.compute_dtype, device="meta"),
-            "v": torch.empty(shape, dtype=cfg.compute_dtype, device="meta"),
-        }
+        if seg.kind in ("dense", "moe"):
+            kv = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
+            out[seg.name] = {"k": meta(kv), "v": meta(kv)}
+        elif seg.kind == "ssm":
+            out[seg.name] = {"state": meta((seg.n,) + ssm_state, torch.float32),
+                             "conv": meta((seg.n,) + conv)}
+        else:  # hybrid_group
+            lead = (seg.n, cfg.attn_every)
+            kv = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
+            out[seg.name] = {"state": meta(lead + ssm_state, torch.float32),
+                             "conv": meta(lead + conv), "k": meta(kv), "v": meta(kv)}
     return out
 
 

@@ -2,8 +2,10 @@
 ``repro.serving.slot_state``.
 
 The engine keeps ONE tree of device tensors holding the decode state of
-every batch slot (per-layer K/V for dense GQA). Each leaf has exactly one
-batch axis, found by diffing the model's ``cache_spec`` at two batch sizes.
+every batch slot: per-layer K/V for GQA attention, the SSM recurrent state
+and conv window (``{"state", "conv"}``) for mamba2, both for zamba2's
+hybrid groups. Each leaf has exactly one batch axis, found by diffing the
+model's ``cache_spec`` at two batch sizes.
 Admission produces a batch-1 state (prefill) that is grafted into one slot's
 row of the live state: the whole row is zeroed first, so no stale state from
 the row's previous occupant survives.

@@ -219,3 +219,95 @@ def test_moe_gmm_kernel_raises_on_what_it_does_not_take(cuda):
         ops.moe_gmm_op(lhs, rhs, te.float(), block_t=16)
     with pytest.raises(ValueError, match="rhs on"):
         ops.moe_gmm_op(lhs, rhs.cpu(), te, block_t=16)
+
+
+# tests/test_kernels.py's ssd tolerance at float32: the kernel and its plain
+# version take sums of Q*N products of order 10 in another order
+SSD_TOL = dict(atol=2e-3, rtol=1e-3)
+
+
+def _ssd_case(cuda, b, s, h, p, g, n, dtype, seed=0):
+    """tests/test_kernels.py's construction: x, B, C standard normal in
+    ``dtype``, dt = softplus(N(0,1)) and a = -exp(0.3 N(0,1)) in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, s, h, p, device=cuda, generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=cuda, generator=gen))
+    a = -torch.exp(torch.randn(h, device=cuda, generator=gen) * 0.3)
+    bm = torch.randn(b, s, g, n, device=cuda, generator=gen).to(dtype)
+    cm = torch.randn(b, s, g, n, device=cuda, generator=gen).to(dtype)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 64, 4, 16, 2, 8, 16),       # tests/test_kernels.py shapes
+    (1, 128, 8, 64, 1, 32, 32),
+    (2, 96, 2, 8, 2, 16, 32),
+    (1, 256, 4, 64, 1, 64, 128),
+    (1, 256, 4, 64, 1, 128, 256),   # S of one chunk
+    (1, 512, 80, 64, 1, 128, 256),  # mamba2-2.7b's 512-token prefill
+    (1, 512, 80, 64, 1, 64, 256),   # zamba2-2.7b's
+])
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
+    x, dt, a, bm, cm = _ssd_case(cuda, b, s, h, p, g, n, dtype)
+    before = ops.launch_counts()["ssd"]
+    y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd"] == before + 1
+    assert y.dtype == fin.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and fin.shape == (b, h, p, n)
+    yr, finr = ref.ssd_chunk_ref(x, dt, a, bm, cm, chunk)
+    torch.testing.assert_close(y, yr, **SSD_TOL)
+    torch.testing.assert_close(fin, finr, **SSD_TOL)
+
+
+def test_ssd_kernel_chunk_invariance_and_oracle(cuda):
+    """The output does not depend on the chunk size, and it is the
+    sequential recurrence's (ssd_ref)."""
+    x, dt, a, bm, cm = _ssd_case(cuda, 1, 128, 2, 16, 1, 8, torch.float32)
+    yr, finr = ref.ssd_ref(x, dt, a, bm, cm)
+    outs = [ops.ssd_op(x, dt, a, bm, cm, chunk=c) for c in (16, 32, 64, 128)]
+    torch.cuda.synchronize()
+    for y, fin in outs:
+        torch.testing.assert_close(y, outs[0][0], atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(y, yr, **SSD_TOL)
+        torch.testing.assert_close(fin, finr, **SSD_TOL)
+
+
+def test_ssd_kernel_reads_strided_slices(cuda):
+    """x, B and C as slices of one wider (B, S, C) tensor, as mamba_block
+    hands them over, give what contiguous copies give."""
+    h, p, n = 4, 16, 32
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xbc = torch.randn(2, 64, h * p + 2 * n, device=cuda, generator=gen).to(torch.bfloat16)
+    x = xbc[..., :h * p].reshape(2, 64, h, p)
+    bm = xbc[..., h * p:h * p + n].reshape(2, 64, 1, n)
+    cm = xbc[..., h * p + n:].reshape(2, 64, 1, n)
+    dt = torch.nn.functional.softplus(torch.randn(2, 64, h, device=cuda, generator=gen))
+    a = -torch.ones(h, device=cuda)
+    assert not x.is_contiguous()
+    y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=32)
+    yc, finc = ops.ssd_op(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), chunk=32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yc, atol=0, rtol=0)
+    torch.testing.assert_close(fin, finc, atol=0, rtol=0)
+
+
+def test_ssd_kernel_raises_on_what_it_does_not_take(cuda):
+    x, dt, a, bm, cm = _ssd_case(cuda, 1, 64, 4, 16, 2, 8, torch.float32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd_op(x, dt, a, bm, cm, chunk=48)
+    with pytest.raises(ValueError, match="multiple of G"):
+        x3, dt3, a3, bm3, cm3 = _ssd_case(cuda, 1, 64, 3, 16, 2, 8, torch.float32)
+        ops.ssd_op(x3, dt3, a3, bm3, cm3, chunk=16)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_op(x, dt.bfloat16(), a, bm, cm, chunk=16)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.ssd_op(x, dt, a, bm.bfloat16(), cm, chunk=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        x1, dt1, a1, bm1, cm1 = _ssd_case(cuda, 1, 16, 2, 80, 1, 8, torch.float32)
+        ops.ssd_op(x1, dt1, a1, bm1, cm1, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd_op(*_ssd_case(cuda, 1, 16384, 1, 64, 1, 128, torch.float32), chunk=16384)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.ssd_op(x, dt.cpu(), a, bm, cm, chunk=16)
