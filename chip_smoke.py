@@ -10,7 +10,9 @@ Run from the root of a checkout on a machine with one CUDA card. It
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times kernel, plain version and a library
-   yardstick (CUDA events);
+   yardstick (CUDA events); the paged-attention and grouped-matmul kernels
+   (the latter also at the ``w_down`` shapes) must give the same bits when
+   called again, and their times print beside their previous design's;
 4. serves 8 requests of full-width qwen2.5-3b (random weights from
    ``--seed``) through ``ContinuousEngine`` under ``kernel_impls="auto"``,
    checks the kernels' launch counts and every request's length, and holds
@@ -46,6 +48,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +74,11 @@ SSD_TOL = (2e-3, 1e-3)
 # about 1e-5 on logits of order 1, the limit is 100x that, and a wrong mask
 # or head map moves logits by order 0.1.
 SLICE_TOL = (1e-3, 1e-3)
+# device ms per call of the previous design of the paged-attention and
+# grouped-matmul kernels (one CTA per (row, kv head); fp32 FMAs), as this
+# script read them on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+PREVIOUS_MS = {"paged_attention": 0.52284, "moe_gmm decode": 1.65361,
+               "moe_gmm prefill": 10.13531}
 
 
 def cuda_ms(fn, iters: int = 50, reps: int = 5, graph: bool = True) -> tuple:
@@ -132,10 +140,22 @@ def _fmt(v) -> str:
 
 def report(name: str, t: dict) -> None:
     fmt = _fmt
+    prior = (f"; previous design {PREVIOUS_MS[name]:.5f} ms" if name in PREVIOUS_MS
+             else "")
     print(f"time {name} {t['shape']}: device (CUDA graph) kernel {fmt(t['ms'])} ms, "
           f"plain {fmt(t['plain_ms'])} ms, library {fmt(t['library_ms'])} ms; eager "
           f"kernel {fmt(t['eager_ms'])} ms, plain {fmt(t['eager_plain_ms'])} ms, library "
-          f"{fmt(t['eager_library_ms'])} ms; bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+          f"{fmt(t['eager_library_ms'])} ms; bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
+          f"{prior}")
+
+
+def check_repeat(name: str, fn) -> None:
+    """Two calls give the same bits (no float atomics in the kernels)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: a repeated call gave other bits")
+    print(f"check {name}: a repeated call gives the same bits")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
@@ -206,6 +226,7 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
     """moe_gmm against its plain version at the main path's decode-wave and
     prefill shapes (full-width mixtral, bf16) and at small float32 cases,
     then timed at both main shapes beside torch.bmm over the capacity buffer."""
+    from repro_torch.kernels.moe_gmm import row_tile
     from repro_torch.kernels.ops import moe_gmm_op, pad_group_sizes
     from repro_torch.kernels.ref import moe_gmm_ref, moe_gmm_tiles_ref
 
@@ -256,21 +277,27 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
           f"block_t 8, float32: max abs err {err:.3e}")
     res["err"] = max(res["err"], err)
 
-    # timing at the main path's shapes, bf16 (w_gate/w_up; w_down moves as many bytes)
-    for t, bt, label in ((64, 8, "decode"), (1280, 32, "prefill")):
-        lhs, rhs, te = case(t, d_model, d_ff, e_full, bt, torch.bfloat16, scale=d_model ** -0.5)
-        buf = lhs.view(e_full, t // e_full, d_model)
+    # timing at the main path's shapes, bf16: w_gate/w_up (D 6144 -> F 16384)
+    # and w_down (16384 -> 6144)
+    for t, d, f, bt, label in ((64, d_model, d_ff, 8, "decode"),
+                               (1280, d_model, d_ff, 32, "prefill"),
+                               (64, d_ff, d_model, 8, "decode w_down"),
+                               (1280, d_ff, d_model, 32, "prefill w_down")):
+        lhs, rhs, te = case(t, d, f, e_full, bt, torch.bfloat16, scale=d ** -0.5)
+        buf = lhs.view(e_full, t // e_full, d)
         check_close(f"moe_gmm {label} library yardstick (torch.bmm) vs plain",
-                    torch.bmm(buf, rhs).reshape(t, d_ff), moe_gmm_tiles_ref(lhs, rhs, te, bt),
+                    torch.bmm(buf, rhs).reshape(t, f), moe_gmm_tiles_ref(lhs, rhs, te, bt),
                     TOL[torch.bfloat16])
+        check_repeat(f"moe_gmm {label}", lambda: moe_gmm_op(lhs, rhs, te, block_t=bt))
         bound, by = gmm_bound(lhs, rhs, te)
         tm = time_three(lambda: moe_gmm_op(lhs, rhs, te, block_t=bt),
                         lambda: moe_gmm_tiles_ref(lhs, rhs, te, bt),
                         lambda: torch.bmm(buf, rhs), plain_graph=False)
         tm.update(bound_ms=bound, bound_by=by,
-                  shape=f"{label}: lhs ({t},{d_model}) rhs ({e_full},{d_model},{d_ff}) "
-                        f"block_t {bt} bf16; plain timed eager (it waits for the device); "
-                        f"library: torch.bmm over the (E, C, D) capacity buffer")
+                  shape=f"{label}: lhs ({t},{d}) rhs ({e_full},{d},{f}) "
+                        f"block_t {bt} bf16, {row_tile(t, e_full)}-row tiles; plain timed "
+                        f"eager (it waits for the device); library: torch.bmm over the "
+                        f"(E, C, D) capacity buffer")
         report(f"moe_gmm {label}", tm)
         res[label] = tm
         del lhs, rhs, buf
@@ -379,6 +406,7 @@ def paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype):
 
 def paged_kernel_phase(gen: torch.Generator) -> dict:
     from repro_torch.kernels.ops import paged_attention_op
+    from repro_torch.kernels.paged_attention import blocks_per_split
     from repro_torch.kernels.ref import paged_attention_ref
 
     res = {"err": 0.0}
@@ -434,11 +462,14 @@ def paged_kernel_phase(gen: torch.Generator) -> dict:
                                                                 attn_mask=mask)
     check_close("paged library yardstick (SDPA) vs plain", library()[:, :, 0],
                 paged_attention_ref(q, k_pool, v_pool, tables, ln), TOL[torch.bfloat16])
+    check_repeat("paged_attention decode wave",
+                 lambda: paged_attention_op(q, k_pool, v_pool, tables, ln))
     bound, by = paged_bound(lens, h, kv, d, bs, torch.bfloat16)
     t = time_three(lambda: paged_attention_op(q, k_pool, v_pool, tables, ln),
                    lambda: paged_attention_ref(q, k_pool, v_pool, tables, ln), library)
     t.update(bound_ms=bound, bound_by=by,
-             shape=f"q ({b},{h},{d}) kv {kv} bs {bs} maxb {maxb} lens {lens} bf16; library: "
+             shape=f"q ({b},{h},{d}) kv {kv} bs {bs} maxb {maxb} lens {lens} bf16, "
+                   f"{blocks_per_split(b, kv, bs, maxb)} blocks a split; library: "
                    f"SDPA over K/V gathered to dense (untimed) and repeated per group, "
                    f"length mask")
     report("paged_attention", t)
@@ -534,10 +565,19 @@ def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
     return out
 
 
+# the names of each op's kernels (every pass) as the profiler shows them, inside
+# a demangled signature such as "void (anonymous namespace)::paged_split_kernel<...>(...)"
+HAND_WRITTEN = {"rmsnorm": ("rmsnorm_kernel",), "flash_attention": ("flash_fwd_kernel",),
+                "paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
+                "moe_gmm": ("moe_gmm_kernel", "gmm_narrow_kernel", "gmm_wgmma_kernel"),
+                "ssd": ("ssd_kernel",)}
+
+
 def profile_steps(engine, steps: int) -> dict:
     """Device-busy time (sum of CUDA kernel times seen by ``torch.profiler``)
     against the host wall time of the engine's next ``steps`` steps, with
-    the profiler on, and the kernels that take the most."""
+    the profiler on, the kernels that take the most, and the hand-written
+    kernels' time by op (every pass of an op together)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,6 +597,11 @@ def profile_steps(engine, steps: int) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    by_op: dict = {}   # the hand-written kernels, every pass of an op together
+    for name, ms in by_name.items():
+        for op, kernel_names in HAND_WRITTEN.items():
+            if any(re.search(rf"(?<!\w){k}(?!\w)", name) for k in kernel_names):
+                by_op[op] = by_op.get(op, 0.0) + ms
     out = {"profile_decode_wall_ms_per_step": wall_ms / steps,
            "profile_decode_device_ms_per_step": busy_ms / steps,
            "profile_decode_idle_share": 1.0 - busy_ms / wall_ms,
@@ -568,6 +613,10 @@ def profile_steps(engine, steps: int) -> dict:
           f"{out['profile_decode_kernels_per_step']:.0f} kernels/step")
     for name, ms in top:
         print(f"profile: {ms / steps:.3f} ms/step  {name[:100]}")
+    if by_op:
+        print("profile: hand-written kernels, all passes: " + ", ".join(
+            f"{op} {ms / steps:.3f} ms/step" for op, ms in sorted(by_op.items())))
+    out["profile_kernel_ms_per_step"] = {op: ms / steps for op, ms in by_op.items()}
     return out
 
 
@@ -1120,6 +1169,30 @@ def ssm_parity(arch: str, seed: int, prompt) -> float:
     return err
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas -v`` output: the
+    kernel and its template arguments, registers, static shared memory and
+    spills (dynamic shared memory is set at launch and not listed)."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"entry function '([^']+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"([a-z_]+_kernel)(I(.*?)EE)?", mangled)
+            kernel = base.group(1) if base else mangled
+            if base and base.group(3):
+                targs = base.group(3)
+                dtype = ["bf16"] if "bfloat16" in targs else (["f32"] if targs[0] == "f" else [])
+                kernel += "<" + ", ".join(dtype + re.findall(r"Li(\d+)E", targs + "E")) + ">"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and kernel is not None:
+            used = line.split("Used", 1)[1].strip() if "Used" in line else line.strip()
+            out.append(f"{kernel}: {used}; {spills}")
+            kernel, spills = None, ""
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1146,9 +1219,13 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(build.SIGNATURES)} "
           f"(built now: {sorted(logs)})")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"ptxas {name}: {line}")
+    paged_lib, gmm_lib = build.library("paged_attention"), build.library("moe_gmm")
+    print(f"dynamic shared memory: paged_split_kernel<bf16, 128, G 8> "
+          f"{paged_lib.paged_attention_smem_bytes(128, 8, build.DTYPE_CODES[torch.bfloat16])} "
+          f"bytes; gmm_wgmma_kernel {gmm_lib.moe_gmm_smem_bytes(192)} bytes; "
+          f"gmm_narrow_kernel {gmm_lib.moe_gmm_smem_bytes(8)} bytes")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kern = kernel_phase(gen)

@@ -14,10 +14,12 @@ _EXPORTS = {
     "moe_gmm_capacity": "repro_torch.kernels.ops",
     "moe_gmm_op": "repro_torch.kernels.ops",
     "moe_gmm_ref": "repro_torch.kernels.ref",
+    "moe_gmm_schedule_ref": "repro_torch.kernels.ref",
     "moe_gmm_tiles_ref": "repro_torch.kernels.ref",
     "pad_group_sizes": "repro_torch.kernels.ops",
     "paged_attention_op": "repro_torch.kernels.ops",
     "paged_attention_ref": "repro_torch.kernels.ref",
+    "paged_attention_split_ref": "repro_torch.kernels.ref",
     "reset_launch_counts": "repro_torch.kernels.ops",
     "rmsnorm_op": "repro_torch.kernels.ops",
     "rmsnorm_ref": "repro_torch.kernels.ref",

@@ -40,10 +40,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_L] * 12 + [_I, _I, _F, _I, _P],
     },
     "paged_attention": {
-        "paged_attention_launch": [_P] * 6 + [_I] * 6 + [_L] * 11 + [_F, _I, _P],
+        "paged_attention_launch": [_P] * 7 + [_I] * 8 + [_L] * 11 + [_F, _I, _P],
+        "paged_attention_smem_bytes": [_I, _I, _I],
     },
     "moe_gmm": {
-        "moe_gmm_launch": [_P] * 4 + [_I] * 6 + [_P],
+        "moe_gmm_launch": [_P] * 4 + [_I] * 7 + [_P],
+        "moe_gmm_smem_bytes": [_I],
     },
     "ssd": {
         "ssd_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_I, _P],

@@ -6,8 +6,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
 attends over K/V that live in fixed-size blocks of a shared pool, reachable
 only through the sequence's block table, with an online softmax over the
 blocks. On the H100 it is bound by bytes (each valid K/V position read
-once); one CTA per (row, kv head) walks that row's blocks. See the source
-for the design.
+once). Each row's table is cut into splits of :func:`blocks_per_split`
+blocks, one CTA per (kv head, row, split), and a second pass merges the
+splits' fp32 partials in a fixed order (``ref.paged_attention_split_ref``
+is the same partition in plain PyTorch). See the source for the design.
 
 A CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.paged_attention_ref`; a CUDA tensor launches
@@ -24,7 +26,10 @@ from repro_torch.kernels.ref import paged_attention_ref
 
 # head dims the kernel is instantiated for (csrc/paged_attention.cu)
 HEAD_DIMS = (16, 32, 64, 80, 128)
-MAX_GROUP = 32  # query heads per kv head: one warp each
+MAX_GROUP = 32  # query heads per kv head
+SMS = 132       # the H100's streaming multiprocessors
+SPLIT_POSITIONS = 32  # positions a split covers, about
+MAX_SPLITS = 256
 
 # kernel launches since the last reset (CUDA tensors only)
 launches = 0
@@ -40,6 +45,18 @@ def _index(x, name: str, device: torch.device) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def blocks_per_split(b: int, kv: int, bs: int, maxb: int) -> int:
+    """Table blocks a split covers, from what the host knows (never the
+    lengths): about SPLIT_POSITIONS positions, halved while the grid of
+    (kv, b, splits) CTAs would leave SMs empty, grown where a row would
+    need more than MAX_SPLITS splits. The main decode wave (b 8, kv 2, bs 16,
+    maxb 40) gets 2 blocks: 20 splits, 320 CTAs on 132 SMs."""
+    bps = max(1, -(-SPLIT_POSITIONS // bs))
+    while bps > 1 and b * kv * -(-maxb // bps) < SMS:
+        bps //= 2
+    return max(bps, -(-maxb // MAX_SPLITS))
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_tables, context_lens, *,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -48,11 +65,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     including the query token (a row with 0 gives zeros). Returns (B,H,D)
     in q's dtype. q and the pools may have any strides with a unit
     last-dim stride."""
-    global launches
     if q.device.type == "cpu":
-        tables = torch.as_tensor(block_tables)
-        lens = torch.as_tensor(context_lens)
-        return paged_attention_ref(q, k_pool, v_pool, tables, lens, scale=scale)
+        return paged_attention_ref(q, k_pool, v_pool, torch.as_tensor(block_tables),
+                                   torch.as_tensor(context_lens), scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: q on {q.device}; expected cuda or cpu")
     if q.ndim != 3 or k_pool.ndim != 4 or v_pool.ndim != 4:
@@ -82,11 +97,31 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError(f"paged_attention: block_tables {tuple(tables.shape)} and "
                          f"context_lens {tuple(lens.shape)} must be ({b}, MAXB) and ({b},)")
     scale = scale if scale is not None else d ** -0.5
+    return _launch(q, k_pool, v_pool, tables, lens, scale,
+                   blocks_per_split(b, kv, bs, tables.shape[1]))
+
+
+def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+            tables: torch.Tensor, lens: torch.Tensor, scale: float,
+            bps: int) -> torch.Tensor:
+    """The kernel on checked CUDA inputs (``tables``/``lens`` contiguous
+    int32 on the card) in splits of ``bps`` table blocks. The card-only
+    tests call it to drive split sizes the rule would not pick."""
+    global launches
+    b, h, d = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    maxb = tables.shape[1]
+    n_splits = max(1, -(-maxb // bps))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part = None
+    if n_splits > 1:   # fp32 (acc, then (m, l)) of every split, merged by the second pass
+        part = torch.empty((b * h * n_splits * (d + 2),), dtype=torch.float32,
+                           device=q.device)
     lib = build.library("paged_attention")
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, h, kv, d, bs, tables.shape[1],
+        lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        b, h, kv, d, bs, maxb, bps, n_splits,
         q.stride(0), q.stride(1), *k_pool.stride()[:3], *v_pool.stride()[:3],
         tables.stride(0), out.stride(0), out.stride(1), float(scale),
         build.DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)

@@ -74,6 +74,53 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              block_tables: torch.Tensor, context_lens: torch.Tensor, *,
+                              blocks_per_split: int,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The paged kernel's own partition: each row's table cut into splits of
+    ``blocks_per_split`` blocks, each split's fp32 partial ``(m, l, acc)``
+    over its valid positions (a split past the row's length is the empty
+    partial ``m = NEG_INF, l = 0``), then the splits that hold positions
+    merged in split order into ``acc / max(l, 1e-30)``.
+
+    Shapes as :func:`paged_attention_ref`; at most MAXB * BS positions of a
+    row count. A row of length 0 gives zeros, as the kernel does."""
+    b, h, d = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    maxb = block_tables.shape[1]
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    span = blocks_per_split * bs
+    n_splits = max(1, -(-maxb // blocks_per_split))
+    tables = block_tables.to(device=k_pool.device, dtype=torch.int64)
+    lens = context_lens.to(device=q.device, dtype=torch.int64).clamp(0, maxb * bs)
+    pad = n_splits * span - maxb * bs
+    k = torch.nn.functional.pad(k_pool[tables].reshape(b, maxb * bs, kv, d).float(),
+                                (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v_pool[tables].reshape(b, maxb * bs, kv, d).float(),
+                                (0, 0, 0, 0, 0, pad))
+    scores = torch.einsum("bkgd,bskd->bkgs", q.reshape(b, kv, g, d).float(), k) * scale
+    valid = torch.arange(n_splits * span, device=q.device)[None, :] < lens[:, None]
+    valid = valid.reshape(b, 1, 1, n_splits, span)
+    scores = scores.reshape(b, kv, g, n_splits, span).masked_fill(~valid, NEG_INF)
+    m = scores.amax(dim=-1)                                          # (B,KV,G,NS)
+    p = torch.exp(scores - m[..., None]) * valid
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgns,bnskd->bkgnd", p, v.reshape(b, n_splits, span, kv, d))
+    # the combine: the splits that hold positions, in order
+    used = (torch.arange(n_splits, device=q.device) * span)[None, :] < lens[:, None]
+    m_all = m.masked_fill(~used[:, None, None, :], NEG_INF).amax(dim=-1)
+    den = torch.zeros_like(m_all)
+    num = torch.zeros_like(acc[..., 0, :])
+    for s in range(n_splits):
+        w = torch.exp(m[..., s] - m_all) * used[:, None, None, s]
+        den = den + l[..., s] * w
+        num = num + acc[..., s, :] * w[..., None]
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def _rows_times_experts(lhs: torch.Tensor, rhs: torch.Tensor,
                         row_expert: torch.Tensor) -> torch.Tensor:
     """Row t of ``lhs`` times ``rhs[row_expert[t]]`` in fp32, in lhs's
@@ -106,6 +153,36 @@ def moe_gmm_tiles_ref(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.T
     as the kernel (and a clamped TPU index map) does."""
     row_expert = tile_expert.to(device=lhs.device, dtype=torch.int64).repeat_interleave(block_t)
     return _rows_times_experts(lhs, rhs, row_expert.clamp(0, rhs.shape[0] - 1))
+
+
+def moe_gmm_schedule_ref(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.Tensor,
+                         block_t: int, *, tile_rows: int) -> torch.Tensor:
+    """The bf16 ``moe_gmm`` kernel's own partition, in fp32. Row tiles of
+    ``tile_rows``: for 8, fixed tiles from row 0, each taking one product
+    per run of equal (clamped) expert among its rows; for more, each run of
+    equal expert cut into tiles from its own first row. Each product covers
+    all of D; returned in lhs's dtype. Same contract as
+    :func:`moe_gmm_tiles_ref`."""
+    t = lhs.shape[0]
+    f = rhs.shape[2]
+    row_expert = tile_expert.to(device=lhs.device, dtype=torch.int64).repeat_interleave(
+        block_t).clamp(0, rhs.shape[0] - 1).tolist()
+    runs, r0 = [], 0          # maximal runs of equal expert: (first row, end, expert)
+    for r in range(1, t + 1):
+        if r == t or row_expert[r] != row_expert[r0]:
+            runs.append((r0, r, row_expert[r0]))
+            r0 = r
+    if tile_rows == 8:        # fixed tiles, runs cut at the tile edges
+        pieces = [(max(lo, m0), min(hi, m0 + 8), ex) for m0 in range(0, t, 8)
+                  for lo, hi, ex in runs if lo < m0 + 8 and hi > m0]
+    else:                     # tiles cut per run
+        pieces = [(m0, min(m0 + tile_rows, hi), ex) for lo, hi, ex in runs
+                  for m0 in range(lo, hi, tile_rows)]
+    lf, rf = lhs.float(), rhs.float()
+    out = torch.zeros((t, f), dtype=torch.float32, device=lhs.device)
+    for lo, hi, ex in pieces:
+        out[lo:hi] = lf[lo:hi] @ rf[ex]
+    return out.to(lhs.dtype)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,

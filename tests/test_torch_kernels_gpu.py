@@ -11,7 +11,9 @@ Tolerances are those of ``tests/test_kernels.py``: 5e-5/5e-4 at float32,
 import pytest
 import torch
 
+from repro_torch.kernels import moe_gmm as gmm_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as paged_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -119,6 +121,44 @@ def test_paged_kernel_null_rows_finite_and_empty_rows_zero(cuda):
         q[1:2], k_pool, v_pool, tables[1:2], lens[1:2]), **F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,d,bs,maxb,lens,split_blocks", [
+    # lengths at split boundaries (32 positions a split) and one past/short
+    (8, 16, 2, 128, 16, 40, [31, 32, 33, 63, 64, 65, 97, 640], None),
+    (8, 16, 2, 128, 16, 40, [63, 64, 65, 127, 128, 129, 191, 640], 4),   # 64 a split
+    (1, 16, 2, 128, 16, 40, [640], None),        # B = 1: one 640-token row
+    (3, 8, 8, 64, 16, 200, [1, 17, 40], None),   # maxb far above every length; group 1
+    (2, 16, 2, 128, 16, 40, [300, 640], 1),      # one block a split
+    (2, 16, 2, 128, 16, 40, [300, 640], 3),      # splits that do not divide maxb
+    (2, 16, 2, 128, 16, 40, [300, 640], 64),     # one split longer than the table
+    (2, 4, 2, 80, 48, 5, [50, 239], 2),          # blocks of 48 slots, head_dim 80
+    (2, 32, 1, 32, 8, 9, [3, 70], None),         # group 32
+])
+def test_paged_kernel_splits_match_plain_on_card(cuda, b, h, kv, d, bs, maxb, lens,
+                                                 split_blocks, dtype):
+    """The split-KV partition at its edges, against the plain version and
+    against the plain mirror of the same partition; a repeated call gives
+    the same bits. ``split_blocks`` None is the wrapper's own rule; a number
+    drives that split size through the private launch."""
+    q, k_pool, v_pool, tables, lens = _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype)
+    before = ops.launch_counts()["paged_attention"]
+    if split_blocks is None:
+        call = lambda: paged_kernel.paged_attention(q, k_pool, v_pool, tables, lens)  # noqa: E731
+    else:
+        call = lambda: paged_kernel._launch(q, k_pool, v_pool, tables, lens,  # noqa: E731
+                                            d ** -0.5, split_blocks)
+    out, again = call(), call()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 2
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), ref.paged_attention_ref(
+        q, k_pool, v_pool, tables, lens).float(), **tol)
+    bps = split_blocks or paged_kernel.blocks_per_split(b, kv, bs, maxb)
+    torch.testing.assert_close(out.float(), ref.paged_attention_split_ref(
+        q, k_pool, v_pool, tables, lens, blocks_per_split=bps).float(), **tol)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     x = torch.randn(4, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -201,6 +241,60 @@ def test_moe_gmm_kernel_ragged_groups_and_capacity_helper(cuda):
     got = ops.moe_gmm_capacity(buf, rhs, block_t=128)   # block_t clamps to C = 24
     torch.cuda.synchronize()
     torch.testing.assert_close(got, torch.bmm(buf, rhs), **F32_TOL)
+
+
+@pytest.mark.parametrize("tile_rows", [8, 192])
+@pytest.mark.parametrize("t,d,f,e,block_t", [
+    (64, 96, 64, 4, 8),         # the w_down decode shape at mixtral-smoke width (d_ff 96)
+    (256, 64, 96, 4, 32),       # runs of block_t 32 that cross 8-row tiles
+    (39, 40, 52, 3, 13),        # block_t 13: runs cross 8-row tiles; F not 16-byte rows
+])
+def test_moe_gmm_bf16_row_tiles_match_plain_on_card(cuda, t, d, f, e, block_t, tile_rows):
+    """Each bf16 row tile (narrow, wide), driven through the private
+    launch, against the plain version and the plain mirror of the same
+    partition; repeated calls give the same bits."""
+    lhs, rhs, te = _gmm_case(cuda, t, d, f, e, block_t, torch.bfloat16)
+    out = gmm_kernel._launch(lhs, rhs, te, block_t, tile_rows)
+    again = gmm_kernel._launch(lhs, rhs, te, block_t, tile_rows)
+    torch.cuda.synchronize()
+    want = ref.moe_gmm_tiles_ref(lhs, rhs, te, block_t).float()
+    torch.testing.assert_close(out.float(), want, **BF16_TOL)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_schedule_ref(
+        lhs, rhs, te, block_t, tile_rows=tile_rows).float(), **BF16_TOL)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+def test_moe_gmm_runs_that_cross_the_row_tiles(cuda):
+    """Runs of 96 rows (the wide tiles are cut per run; a warpgroup past a
+    run's end idles), and block_t 12, where every other narrow 8-row tile
+    spans two experts; in bf16 (each row tile through the private launch)
+    and f32; repeated calls give the same bits."""
+    cases = [(32, [0, 0, 0, 1, 1, 1, 2, 2], torch.bfloat16, 192),
+             (32, [0, 0, 0, 1, 1, 1, 2, 2], torch.float32, None),
+             (12, [0, 1, 1, 2, 2, 2, 0, 0, 1, 2], torch.bfloat16, 8),
+             (12, [0, 1, 1, 2, 2, 2, 0, 0, 1, 2], torch.float32, None)]
+    for block_t, te, dtype, tile_rows in cases:
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        t = block_t * len(te)
+        lhs, rhs, te_t = _gmm_case(cuda, t, 128, 192, 3, block_t, dtype, tile_expert=te)
+        if tile_rows is None:
+            call = lambda: gmm_kernel.moe_gmm(lhs, rhs, te_t, block_t=block_t)  # noqa: E731
+        else:
+            call = lambda: gmm_kernel._launch(lhs, rhs, te_t, block_t, tile_rows)  # noqa: E731
+        out, again = call(), call()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(
+            lhs, rhs, te_t, block_t).float(), **tol)
+        torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_repeat_gives_the_same_bits(cuda, dtype):
+    lhs, rhs, te = _gmm_case(cuda, 64, 512, 384, 8, 8, dtype)
+    outs = [ops.moe_gmm_op(lhs, rhs, te, block_t=8) for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], atol=0, rtol=0)
 
 
 def test_moe_gmm_kernel_raises_on_what_it_does_not_take(cuda):
