@@ -9,14 +9,18 @@ Run from the root of a checkout on a machine with one CUDA card. It
 2. builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes and times kernel, plain version and a library
-   yardstick (CUDA events); the paged-attention and grouped-matmul kernels
-   (the latter also at the ``w_down`` shapes) must give the same bits when
-   called again, and their times print beside their previous design's;
+   main path's shapes (flash and paged attention also at head_dim 8 and
+   160) and times kernel, plain version and a library yardstick (CUDA
+   events); the paged-attention and grouped-matmul kernels (the latter also
+   at the ``w_down`` shapes) must give the same bits when called again; the
+   bf16 flash kernel is also held against the plain mirror of its own tiles
+   (``ref.flash_attention_tiles_ref``) at a tighter limit; the redesigned
+   kernels' times print beside their previous design's;
 4. serves 8 requests of full-width qwen2.5-3b (random weights from
    ``--seed``) through ``ContinuousEngine`` under ``kernel_impls="auto"``,
-   checks the kernels' launch counts and every request's length, and holds
-   one float32 prefill under ``auto`` against ``reference``;
+   checks the kernels' launch counts and every request's length, profiles
+   a decode step and one 512-token admission, and holds one float32
+   prefill under ``auto`` against ``reference``;
 5. serves 8 requests that share a 488-token tenant prefix through
    ``PagedContinuousEngine(attn="kernel")`` on the same weights (prefix
    fork with copy-on-write, drain and parked resume), checks the launch
@@ -34,8 +38,9 @@ Run from the root of a checkout on a machine with one CUDA card. It
    plus the bf16 copy) through ``ContinuousEngine`` under
    ``kernel_impls="auto"``, with a drain after 4 steps and a resume,
    checks the exact launch counts of ssd, rmsnorm and flash and every
-   request's length, and holds a float32 prefill and decode step of one
-   mamba2 layer (one zamba2 group) under ``auto`` against ``reference``;
+   request's length, profiles a decode step and one admission, and holds a
+   float32 prefill and decode step of one mamba2 layer (one zamba2 group)
+   under ``auto`` against ``reference``;
 8. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 
@@ -64,6 +69,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor / fp3
 
 # tests/test_kernels.py tolerances: (atol, rtol)
 TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
+# the bf16 flash kernel against the plain mirror of its own tiles
+# (ref.flash_attention_tiles_ref: the same 64 x 64 tiles, halves and merge,
+# P rounded to bf16 before P V): only the order of fp32 sums differs, which
+# flips a rounding to bf16 (of P or of the output) now and then; rtol 2^-7
+# is one bf16 ulp of the output, atol covers a flipped P (PERF.md sets it
+# against sound and planted-fault readings)
+TILES_TOL = (1e-2, 2 ** -7)
 # tests/test_kernels.py's ssd tolerance at float32: kernel and plain version
 # sum Q*N products of order 10 in another order (both compute in fp32 from
 # the same inputs, bf16 ones included)
@@ -74,11 +86,15 @@ SSD_TOL = (2e-3, 1e-3)
 # about 1e-5 on logits of order 1, the limit is 100x that, and a wrong mask
 # or head map moves logits by order 0.1.
 SLICE_TOL = (1e-3, 1e-3)
-# device ms per call of the previous design of the paged-attention and
-# grouped-matmul kernels (one CTA per (row, kv head); fp32 FMAs), as this
-# script read them on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+# device ms per call of the previous design of each redesigned kernel, as
+# this script read them on an H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table): paged attention and the grouped matmul before their split-KV and
+# tensor-core designs; flash attention (fp32 FMAs) and ssd (one CTA per
+# (batch, head), fp32 FMAs) before their tensor-core designs
 PREVIOUS_MS = {"paged_attention": 0.52284, "moe_gmm decode": 1.65361,
-               "moe_gmm prefill": 10.13531}
+               "moe_gmm prefill": 10.13531, "flash_attention": 0.17507,
+               "flash_attention head_dim 80": 0.21983, "ssd mamba2": 0.54182,
+               "ssd zamba2": 0.36733}
 
 
 def cuda_ms(fn, iters: int = 50, reps: int = 5, graph: bool = True) -> tuple:
@@ -169,6 +185,13 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
         raise AssertionError(f"{name}: {int(bad.sum())} elements beyond atol={atol} "
                              f"rtol={rtol}; max abs err {err.max().item():.3e}")
     return err.max().item()
+
+
+def limit_share(got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): 1.0 is at the limit."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
 def rmsnorm_bound_ms(rows: int, d: int, dtype: torch.dtype) -> float:
@@ -351,13 +374,15 @@ def ssd_kernel_phase(gen: torch.Generator) -> dict:
         want = ssd_chunk_ref(*inputs, chunk)
         err = max(check_close(name + " y", y, want[0], SSD_TOL),
                   check_close(name + " final state", fin, want[1], SSD_TOL))
+        share = max(limit_share(y, want[0], SSD_TOL), limit_share(fin, want[1], SSD_TOL))
         if oracle:  # the sequential recurrence, a different order of sums
             seq = ssd_ref(*inputs)
             err = max(err, check_close(name + " y vs ssd_ref", y, seq[0], SSD_TOL),
                       check_close(name + " state vs ssd_ref", fin, seq[1], SSD_TOL))
         torch.cuda.synchronize()
-        print(f"check {name}: max abs err {err:.3e} (limit atol={SSD_TOL[0]} "
-              f"rtol={SSD_TOL[1]}){' incl. ssd_ref' if oracle else ''}")
+        print(f"check {name}: max abs err {err:.3e}, {share:.3f} of the limit against "
+              f"ssd_chunk_ref (atol={SSD_TOL[0]} rtol={SSD_TOL[1]})"
+              f"{'; also against ssd_ref' if oracle else ''}")
         res["err"] = max(res["err"], err)
         return y
 
@@ -415,7 +440,9 @@ def paged_kernel_phase(gen: torch.Generator) -> dict:
     cases += [c + (dt,) for c in ((4, 4, 1, 16, 16, 4, [1, 16, 17, 64]),
                                   (2, 4, 4, 32, 8, 3, [5, 24]),
                                   (3, 8, 2, 64, 16, 2, [2, 31, 32]),
-                                  (2, 6, 3, 32, 4, 5, [3, 13]))
+                                  (2, 6, 3, 32, 4, 5, [3, 13]),
+                                  (3, 4, 2, 8, 16, 4, [1, 33, 64]),         # head_dim 8
+                                  (4, 32, 8, 160, 16, 8, [5, 16, 100, 128]))  # head_dim 160
               for dt in (torch.float32, torch.bfloat16)]
     for b, h, kv, d, bs, maxb, lens, dtype in cases:
         q, k_pool, v_pool, tables, ln = paged_case(gen, b, h, kv, d, bs, maxb, lens, dtype)
@@ -479,7 +506,8 @@ def paged_kernel_phase(gen: torch.Generator) -> dict:
 
 def kernel_phase(gen: torch.Generator):
     from repro_torch.kernels.ops import flash_attention_op, rmsnorm_op
-    from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+    from repro_torch.kernels.ref import (flash_attention_ref, flash_attention_tiles_ref,
+                                         rmsnorm_ref)
 
     dev = "cuda"
     results = {"rmsnorm": {"err": 0.0}, "flash_attention": {"err": 0.0}}
@@ -525,6 +553,11 @@ def kernel_phase(gen: torch.Generator):
     cases += [(1, 4, 4, 128, 64, False, None, torch.float32)]
     # zamba2-2.7b's shared attention at its prefill: 32 heads of head_dim 80
     cases += [(1, 32, 32, 512, 80, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    # head_dim 8 (internvl2-26b's smoke) and 160 (stablelm-12b, 32/8 heads)
+    cases += [(1, 4, 2, 200, 8, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(1, 32, 8, 300, 160, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    # mixtral-8x22b's attention at its 512-token prefill: 48 heads on 8 kv heads
+    cases += [(1, 48, 8, 512, 128, True, None, torch.bfloat16)]
     for b, h, kv, s, dd, causal, window, dtype in cases:
         q, k, v = qkv(b, h, kv, s, dd, dtype)
         name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
@@ -532,12 +565,21 @@ def kernel_phase(gen: torch.Generator):
         out = flash_attention_op(q, k, v, causal=causal, window=window)
         err = check_close(name, out, flash_attention_ref(q, k, v, causal=causal, window=window),
                           TOL[dtype])
+        tiles = ""
+        if dtype == torch.bfloat16:  # the tensor-core kernel: also its own tiles' mirror
+            mirror = flash_attention_tiles_ref(q, k, v, causal=causal, window=window)
+            err_t = check_close(name + " vs the tiles mirror", out, mirror, TILES_TOL)
+            tiles = (f"; against the tiles mirror {err_t:.3e}, "
+                     f"{limit_share(out, mirror, TILES_TOL):.3f} of its limit (atol="
+                     f"{TILES_TOL[0]} rtol={TILES_TOL[1]})")
         torch.cuda.synchronize()
-        print(f"check {name}: max abs err {err:.3e}")
+        print(f"check {name}: max abs err {err:.3e} (atol={TOL[dtype][0]} "
+              f"rtol={TOL[dtype][1]}){tiles}")
         results["flash_attention"]["err"] = max(results["flash_attention"]["err"], err)
     # timing at the prefill shapes of zamba2's shared block (32 heads of 80)
     # and, for the kernels line, of qwen2.5-3b
-    for b, h, kv, s, dd in ((1, 32, 32, 512, 80), (1, 16, 2, 512, 128)):
+    for label, (b, h, kv, s, dd) in (("flash_attention head_dim 80", (1, 32, 32, 512, 80)),
+                                     ("flash_attention", (1, 16, 2, 512, 128))):
         q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
         k_rep = k.repeat_interleave(h // kv, dim=1)
         v_rep = v.repeat_interleave(h // kv, dim=1)
@@ -548,9 +590,8 @@ def kernel_phase(gen: torch.Generator):
                            q, k_rep, v_rep, is_causal=True))
         t.update(bound_ms=bound, bound_by=by,
                  shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
-        report("flash_attention", t)
+        report(label, t)
     results["flash_attention"].update(t)
-    results["paged_attention"] = paged_kernel_phase(gen)
     return results
 
 
@@ -567,31 +608,54 @@ def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
 
 # the names of each op's kernels (every pass) as the profiler shows them, inside
 # a demangled signature such as "void (anonymous namespace)::paged_split_kernel<...>(...)"
-HAND_WRITTEN = {"rmsnorm": ("rmsnorm_kernel",), "flash_attention": ("flash_fwd_kernel",),
+HAND_WRITTEN = {"rmsnorm": ("rmsnorm_kernel",),
+                "flash_attention": ("flash_fwd_kernel", "flash_tc_kernel"),
                 "paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
                 "moe_gmm": ("moe_gmm_kernel", "gmm_narrow_kernel", "gmm_wgmma_kernel"),
-                "ssd": ("ssd_kernel",)}
+                "ssd": ("ssd_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                        "ssd_chunk_scan_kernel")}
 
 
 def profile_steps(engine, steps: int) -> dict:
+    """Where the engine's next ``steps`` decode steps' time goes (see
+    :func:`profile_run`)."""
+    def run():
+        for _ in range(steps):
+            engine.step()
+    return profile_run(run, f"{steps} decode steps ({engine.n_slots} slots, profiler on)",
+                       steps, "decode", "step")
+
+
+def profile_prefill(engine, prompt, gen_request) -> dict:
+    """Where one admission's time goes on an idle engine: the prefill of
+    ``prompt`` at batch 1, the graft and the first token (see
+    :func:`profile_run`)."""
+    out = profile_run(lambda: engine.add(gen_request(id=2000, prompt=prompt, max_new=2)),
+                      f"one admission ({len(prompt)}-token prefill at batch 1, profiler on)",
+                      1, "prefill", "prefill")
+    engine.run()
+    return out
+
+
+def profile_run(run, label: str, n: int, key: str, unit: str) -> dict:
     """Device-busy time (sum of CUDA kernel times seen by ``torch.profiler``)
-    against the host wall time of the engine's next ``steps`` steps, with
-    the profiler on, the kernels that take the most, and the hand-written
-    kernels' time by op (every pass of an op together)."""
+    against the host wall time of ``run()``, which does ``n`` of ``unit``,
+    with the profiler on; the kernels that take the most, and the
+    hand-written kernels' time by op (every pass of an op together), per
+    ``unit``. Keys start with ``profile_<key>_``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print("profile: the profiler saw no CUDA kernel; device time not measured")
-        return {"profile": "not measured"}
+        print(f"profile: {label}: the profiler saw no CUDA kernel; device time not measured")
+        return {f"profile_{key}": "not measured"}
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
@@ -602,21 +666,20 @@ def profile_steps(engine, steps: int) -> dict:
         for op, kernel_names in HAND_WRITTEN.items():
             if any(re.search(rf"(?<!\w){k}(?!\w)", name) for k in kernel_names):
                 by_op[op] = by_op.get(op, 0.0) + ms
-    out = {"profile_decode_wall_ms_per_step": wall_ms / steps,
-           "profile_decode_device_ms_per_step": busy_ms / steps,
-           "profile_decode_idle_share": 1.0 - busy_ms / wall_ms,
-           "profile_decode_kernels_per_step": len(kernels) / steps}
-    print(f"profile: {steps} decode steps ({engine.n_slots} slots, profiler on): wall "
-          f"{out['profile_decode_wall_ms_per_step']:.2f} ms/step, device busy "
-          f"{out['profile_decode_device_ms_per_step']:.2f} ms/step, idle share "
-          f"{out['profile_decode_idle_share']:.3f}, "
-          f"{out['profile_decode_kernels_per_step']:.0f} kernels/step")
+    per = f"_per_{unit}"
+    out = {f"profile_{key}_wall_ms{per}": wall_ms / n,
+           f"profile_{key}_device_ms{per}": busy_ms / n,
+           f"profile_{key}_idle_share": 1.0 - busy_ms / wall_ms,
+           f"profile_{key}_kernels{per}": len(kernels) / n}
+    print(f"profile: {label}: wall {wall_ms / n:.2f} ms/{unit}, device busy "
+          f"{busy_ms / n:.2f} ms/{unit}, idle share {1.0 - busy_ms / wall_ms:.3f}, "
+          f"{len(kernels) / n:.0f} kernels/{unit}")
     for name, ms in top:
-        print(f"profile: {ms / steps:.3f} ms/step  {name[:100]}")
+        print(f"profile: {ms / n:.3f} ms/{unit}  {name[:100]}")
     if by_op:
         print("profile: hand-written kernels, all passes: " + ", ".join(
-            f"{op} {ms / steps:.3f} ms/step" for op, ms in sorted(by_op.items())))
-    out["profile_kernel_ms_per_step"] = {op: ms / steps for op, ms in by_op.items()}
+            f"{op} {ms / n:.3f} ms/{unit}" for op, ms in sorted(by_op.items())))
+    out[f"profile_{key}_kernel_ms{per}"] = {op: ms / n for op, ms in by_op.items()}
     return out
 
 
@@ -702,6 +765,7 @@ def slice_phase(seed: int):
           f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
           f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
     serving.update(profile_decode(engine, prompts, GenRequest))
+    serving.update(profile_prefill(engine, prompts[0], GenRequest))
     del engine, done
 
     # float32 prefill under auto vs reference, same weights (f32 params)
@@ -1121,6 +1185,7 @@ def ssm_phase(arch: str, seed: int):
           f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
           f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
     serving.update(profile_decode(engine, prompts, GenRequest))
+    serving.update(profile_prefill(engine, prompts[0], GenRequest))
     del engine, done, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1227,10 +1292,15 @@ def main(argv=None) -> int:
           f"bytes; gmm_wgmma_kernel {gmm_lib.moe_gmm_smem_bytes(192)} bytes; "
           f"gmm_narrow_kernel {gmm_lib.moe_gmm_smem_bytes(8)} bytes")
 
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kern = kernel_phase(gen)
-    kern["moe_gmm"] = moe_kernel_phase(gen)
-    kern["ssd"] = ssd_kernel_phase(gen)
+    # each kernel phase draws from a generator of its own, so that a check
+    # added to one phase leaves the other phases' inputs as they were
+    def gen(offset: int) -> torch.Generator:
+        return torch.Generator(device="cuda").manual_seed(args.seed + offset)
+
+    kern = kernel_phase(gen(0))
+    kern["paged_attention"] = paged_kernel_phase(gen(1))
+    kern["moe_gmm"] = moe_kernel_phase(gen(2))
+    kern["ssd"] = ssd_kernel_phase(gen(3))
     counts, serving, cfg, params = slice_phase(args.seed)
     paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
     serving.update(paged_serving)

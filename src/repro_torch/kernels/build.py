@@ -48,8 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "moe_gmm_smem_bytes": [_I],
     },
     "ssd": {
-        "ssd_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_I, _P],
-        "ssd_smem_bytes": [_I, _I, _I],
+        "ssd_launch": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],
+        "ssd_smem_bytes": [_I, _I, _I, _I],
         "ssd_smem_limit": [],
     },
 }

@@ -10,6 +10,8 @@
 // are masked with the finite NEG_INF = -1e9; the softmax keeps (m, l, acc)
 // in fp32, the output is acc / max(l, 1e-30) in q's dtype, so a row of
 // length 0 comes out as zeros. Query head h reads kv head h / (H / KV).
+// Built for the head dims 8, 16, 32, 64, 80, 128 and 160 (every attention
+// config's); a K/V row is whole 16-byte chunks at each of them.
 //
 // Bound on the H100: bytes. A decode query reads each valid K/V position
 // once (2 * len * KV * D elements per row) and does 4 * H * D FLOPs per
@@ -328,18 +330,18 @@ int dispatch_dim(int d, const void* q, const void* k, const void* v, void* o, fl
   case DIM:                   \
     return launch<T, DIM>(q, k, v, o, part_acc, part_ml, b, kv, a, stream);
   switch (d) {
+    REPRO_PAGED_CASE(8)
     REPRO_PAGED_CASE(16)
     REPRO_PAGED_CASE(32)
     REPRO_PAGED_CASE(64)
     REPRO_PAGED_CASE(80)
     REPRO_PAGED_CASE(128)
+    REPRO_PAGED_CASE(160)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_PAGED_CASE
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 

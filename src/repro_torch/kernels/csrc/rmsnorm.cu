@@ -69,8 +69,6 @@ void launch(const void* x, const void* w, void* y, int rows, int d, float eps,
       static_cast<const T*>(x), static_cast<const float*>(w), static_cast<T*>(y), d, eps);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 }  // namespace
 
 // x, y: (rows, d) contiguous in `dtype`; w: (d,) fp32. Returns cudaGetLastError().

@@ -5,9 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``): online-softmax GQA attention,
 causal and sliding-window masks by absolute index. On the H100 the FLOP and
 byte bounds are close at the main path's 512-token prefill and longer
-prompts are bound by operations; this first kernel runs them as fp32 FMAs (simple and right, the tensor cores come later) and walks
-only the k tiles that the causal and window masks leave. See the source for
-the design.
+prompts are bound by operations. In bf16 the kernel runs both products on
+the tensor cores (``mma.sync``, fp32 accumulators) over 64-row q tiles and
+64-key K/V tiles; in float32 it keeps fp32 FMAs. Either walks only the k
+tiles that the causal and window masks leave. See the source for the design.
 
 A CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`; a CUDA tensor launches
@@ -22,8 +23,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-# head dims the kernel is instantiated for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 80, 128)
+# head dims the kernel is instantiated for (csrc/flash_attention.cu): every
+# head_dim an attention config in repro's configs uses
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 160)
 
 # kernel launches since the last reset (CUDA tensors only)
 launches = 0

@@ -24,8 +24,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref
 
-# head dims the kernel is instantiated for (csrc/paged_attention.cu)
-HEAD_DIMS = (16, 32, 64, 80, 128)
+# head dims the kernel is instantiated for (csrc/paged_attention.cu): every
+# head_dim an attention config in repro's configs uses
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 160)
 MAX_GROUP = 32  # query heads per kv head
 SMS = 132       # the H100's streaming multiprocessors
 SPLIT_POSITIONS = 32  # positions a split covers, about

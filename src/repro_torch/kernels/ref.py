@@ -44,6 +44,62 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = True, window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The bf16 flash kernel's own partition: q tiles of 64 rows, each
+    taking the 64-key tiles (zero-padded past Sk) from the first tile its
+    window allows to the last tile causality allows, the even ones and the
+    odd ones (counted from that first tile) in two fp32 online softmaxes
+    (m, l, acc) that are merged at the end; l sums the fp32 P, and P is
+    rounded to q's dtype before P V. Returns acc / max(l, 1e-30) in q's
+    dtype. Shapes as :func:`flash_attention_ref`."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    tile = 64
+    qf = q.float().reshape(b, kv, g, sq, d)
+    pad = (-sk) % tile
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    out = torch.empty_like(qf)
+    for q0 in range(0, sq, tile):
+        rows = torch.arange(q0, min(q0 + tile, sq), device=q.device)[:, None]
+        lo = max(0, q0 - window + 1) if window is not None else 0
+        hi = min(sk - 1, q0 + tile - 1) if causal else sk - 1
+        halves = []
+        for parity in (0, 1):
+            m = torch.full((b, kv, g, rows.shape[0]), NEG_INF, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((b, kv, g, rows.shape[0], d), device=q.device)
+            for k0 in range((lo // tile + parity) * tile, hi + 1, 2 * tile):
+                keys = torch.arange(k0, k0 + tile, device=q.device)[None, :]
+                s = torch.einsum("bkgqd,bksd->bkgqs", qf[:, :, :, q0:q0 + tile],
+                                 kf[:, :, k0:k0 + tile]) * scale
+                mask = keys < sk
+                if causal:
+                    mask = mask & (keys <= rows)
+                if window is not None:
+                    mask = mask & (keys > rows - window)
+                s = s.masked_fill(~mask, NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkgqs,bksd->bkgqd", p.to(q.dtype).float(), vf[:, :, k0:k0 + tile])
+                m = m_new
+            halves.append((m, l, acc))
+        (m0, l0, acc0), (m1, l1, acc1) = halves
+        m = torch.maximum(m0, m1)
+        a0, a1 = torch.exp(m0 - m), torch.exp(m1 - m)
+        l = l0 * a0 + l1 * a1
+        acc = acc0 * a0[..., None] + acc1 * a1[..., None]
+        out[:, :, :, q0:q0 + tile] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                         block_tables: torch.Tensor, context_lens: torch.Tensor, *,
                         scale: Optional[float] = None) -> torch.Tensor:
@@ -264,3 +320,47 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: tor
                  + (xdt * decay[..., None]).transpose(-1, -2) @ bc)
         ys.append(y)
     return torch.cat(ys, dim=2).permute(0, 2, 1, 3).contiguous(), state
+
+
+def ssd_passes_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, chunk: int):
+    """The bf16 ``ssd`` kernel's decomposition, in fp32: (a) every chunk's
+    own contribution ``(xdt * exp(cs_last - cs))^T B`` at once, (b) the
+    states entering the chunks, ``state_c = state_{c-1} exp(cs_last_{c-1})
+    + contrib_{c-1}`` from zero, the last one the final state, (c) every
+    chunk's y at once from its entering state. Same contract as
+    :func:`ssd_chunk_ref`."""
+    check_ssd_shapes(x, dt, a, b_mat, c_mat, chunk)
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    rep = h // b_mat.shape[2]
+    nc = s // chunk
+
+    def chunks(t):  # (B,S,H,...) -> (B,H,nc,Q,...)
+        t = t.float()
+        if t.ndim == 3:
+            return t.permute(0, 2, 1).reshape(bsz, h, nc, chunk)
+        return t.permute(0, 2, 1, 3).reshape(bsz, h, nc, chunk, t.shape[-1])
+
+    xc, dtc = chunks(x), chunks(dt)
+    bc = chunks(b_mat.repeat_interleave(rep, dim=2))
+    cc = chunks(c_mat.repeat_interleave(rep, dim=2))
+    cs = torch.cumsum(dtc * a.float()[None, :, None, None], dim=-1)   # (B,H,nc,Q)
+    # (a) chunk state
+    w = dtc * torch.exp(cs[..., -1:] - cs)
+    contrib = (xc * w[..., None]).transpose(-1, -2) @ bc               # (B,H,nc,P,N)
+    # (b) state passing
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(cs[:, :, c, -1])[..., None, None] + contrib[:, :, c]
+    entering = torch.stack(entering, dim=2)                            # (B,H,nc,P,N)
+    # (c) chunk scan
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    seg = cs[..., :, None] - cs[..., None, :]
+    ell = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
+    scores = (cc @ bc.transpose(-1, -2)) * ell * dtc[..., None, :]
+    y = scores @ xc + torch.exp(cs)[..., None] * (cc @ entering.transpose(-1, -2))
+    y = y.reshape(bsz, h, s, p).permute(0, 2, 1, 3).contiguous()
+    return y, state

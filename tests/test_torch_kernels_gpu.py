@@ -6,11 +6,13 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances are those of ``tests/test_kernels.py``: 5e-5/5e-4 at float32,
-5e-2 at bfloat16.
+5e-2 at bfloat16; the bf16 flash kernel is also held against the plain
+mirror of its own tiles at ``TILES_TOL`` (as ``chip_smoke.py`` holds it).
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import moe_gmm as gmm_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as paged_kernel
@@ -19,6 +21,8 @@ pytestmark = pytest.mark.gpu
 
 F32_TOL = dict(atol=5e-5, rtol=5e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+# bf16 flash kernel vs ref.flash_attention_tiles_ref: chip_smoke.TILES_TOL
+TILES_TOL = dict(atol=1e-2, rtol=2 ** -7)
 
 
 @pytest.fixture
@@ -62,6 +66,62 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, kv, s, d, causal, window
         q, k, v, causal=causal, window=window).float(), **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (1, 4, 2, 200, 8, True, None),      # head_dim 8 (internvl2-26b smoke): padded to 16
+    (1, 4, 2, 130, 160, True, None),    # head_dim 160 (stablelm-12b)
+    (2, 4, 4, 70, 160, False, None),    # 160, not causal, Sq not a multiple of 64
+    (1, 8, 2, 333, 8, True, 100),       # 8 with a window
+    (1, 2, 1, 1, 128, True, None),      # one row
+    (2, 16, 2, 191, 128, True, 64),     # window of one tile, Sq one short of three tiles
+    (1, 48, 8, 512, 128, True, None),   # mixtral-8x22b's prefill: group 6
+])
+def test_flash_kernel_head_dims_and_edges_on_card(cuda, b, h, kv, s, d, causal, window,
+                                                  dtype):
+    """Every head dim of an attention config, Sq not a multiple of the
+    64-row tile, mixtral's group of 6; bf16 also against the plain mirror of
+    the kernel's tiles (P rounded to bf16 before P V) at the tighter
+    TILES_TOL; a repeated call gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, kv, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), ref.flash_attention_tiles_ref(
+        q, k, v, causal=causal, window=window).float(),
+        **(F32_TOL if dtype == torch.float32 else TILES_TOL))
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window).float(), **tol)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("d", [8, 80, 128, 160])
+def test_flash_kernel_misaligned_views_take_the_scalar_path_on_card(cuda, d):
+    """q, k, v as views whose base address and strides are not 16-byte
+    multiples (one element into a wider row) give what aligned copies give."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h, kv = 1, 150, 4, 2
+
+    def view(heads):
+        wide = torch.randn(b, s, heads, d + 1, device=cuda, generator=g).to(torch.bfloat16)
+        return wide[..., 1:].transpose(1, 2)
+
+    q, k, v = view(h), view(kv), view(kv)
+    assert q.data_ptr() % 16 and q.stride(2) % 8
+    out = ops.flash_attention_op(q, k, v, causal=True)
+    want = ops.flash_attention_op(*(t.contiguous() for t in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v).float(),
+                               **BF16_TOL)
+
+
 def _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype, seed=0):
     """Pool + distinct non-null block tables (block 0 plays the null block)
     + ragged lengths, on the card."""
@@ -83,6 +143,8 @@ def _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype, seed=0):
     (2, 6, 3, 32, 4, 5, [3, 13]),             # odd heads, tiny blocks
     (2, 4, 2, 80, 48, 2, [50, 96]),           # head_dim 80; blocks of more than 32 slots
     (8, 16, 2, 128, 16, 40, [1, 15, 16, 17, 255, 256, 511, 640]),  # full-width decode wave
+    (3, 4, 2, 8, 16, 4, [1, 33, 64]),         # head_dim 8 (internvl2-26b smoke)
+    (4, 32, 8, 160, 16, 8, [5, 16, 100, 128]),  # head_dim 160 (stablelm-12b: 32/8 heads)
 ])
 def test_paged_kernel_matches_plain_on_card(cuda, b, h, kv, d, bs, maxb, lens, dtype):
     q, k_pool, v_pool, tables, lens = _paged_case(cuda, b, h, kv, d, bs, maxb, lens, dtype)
@@ -166,6 +228,10 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention_op(q, q, q)
+    for d in (8, 160):  # every head_dim of an attention config is built
+        assert d in flash_kernel.HEAD_DIMS and d in paged_kernel.HEAD_DIMS
+        qd = torch.randn(1, 2, 8, d, device=cuda)
+        assert ops.flash_attention_op(qd, qd, qd).shape == qd.shape
     q, k_pool, v_pool, tables, lens = _paged_case(cuda, 2, 4, 2, 16, 8, 2, [3, 9],
                                                   torch.float32)
     with pytest.raises(TypeError, match="dtypes"):
@@ -341,18 +407,30 @@ def _ssd_case(cuda, b, s, h, p, g, n, dtype, seed=0):
     (1, 256, 4, 64, 1, 128, 256),   # S of one chunk
     (1, 512, 80, 64, 1, 128, 256),  # mamba2-2.7b's 512-token prefill
     (1, 512, 80, 64, 1, 64, 256),   # zamba2-2.7b's
+    (2, 256, 8, 64, 2, 128, 128),   # B 2, G 2 at full widths
+    (1, 96, 3, 8, 1, 8, 32),        # P and N padded to 16; one row tile of 32
+    (2, 200, 4, 24, 2, 40, 100),    # P, N not multiples of 16; chunk not of 64
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
+    """Against the plain version and, in bf16, against the plain mirror of
+    the three passes; one launch a call whatever the passes; a repeated
+    call gives the same bits."""
     x, dt, a, bm, cm = _ssd_case(cuda, b, s, h, p, g, n, dtype)
     before = ops.launch_counts()["ssd"]
     y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
+    y2, fin2 = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["ssd"] == before + 1
+    assert ops.launch_counts()["ssd"] == before + 2
     assert y.dtype == fin.dtype == torch.float32
     assert y.shape == (b, s, h, p) and fin.shape == (b, h, p, n)
-    yr, finr = ref.ssd_chunk_ref(x, dt, a, bm, cm, chunk)
-    torch.testing.assert_close(y, yr, **SSD_TOL)
-    torch.testing.assert_close(fin, finr, **SSD_TOL)
+    wants = [ref.ssd_chunk_ref(x, dt, a, bm, cm, chunk)]
+    if dtype == torch.bfloat16:
+        wants.append(ref.ssd_passes_ref(x, dt, a, bm, cm, chunk))
+    for yr, finr in wants:
+        torch.testing.assert_close(y, yr, **SSD_TOL)
+        torch.testing.assert_close(fin, finr, **SSD_TOL)
+    torch.testing.assert_close(y2, y, atol=0, rtol=0)
+    torch.testing.assert_close(fin2, fin, atol=0, rtol=0)
 
 
 def test_ssd_kernel_chunk_invariance_and_oracle(cuda):
@@ -368,23 +446,47 @@ def test_ssd_kernel_chunk_invariance_and_oracle(cuda):
         torch.testing.assert_close(fin, finr, **SSD_TOL)
 
 
-def test_ssd_kernel_reads_strided_slices(cuda):
+@pytest.mark.parametrize("h,p,n,s,chunk,offset", [
+    (4, 16, 32, 64, 32, 0),
+    (8, 64, 128, 512, 256, 0),   # mamba2's widths, 16-byte aligned: copies
+    (8, 64, 128, 512, 256, 1),   # one element off: scalar staging
+])
+def test_ssd_kernel_reads_strided_slices(cuda, h, p, n, s, chunk, offset):
     """x, B and C as slices of one wider (B, S, C) tensor, as mamba_block
-    hands them over, give what contiguous copies give."""
-    h, p, n = 4, 16, 32
+    hands them over (at an offset of ``offset`` elements), give what
+    contiguous copies give, and the same bits again."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    xbc = torch.randn(2, 64, h * p + 2 * n, device=cuda, generator=gen).to(torch.bfloat16)
-    x = xbc[..., :h * p].reshape(2, 64, h, p)
-    bm = xbc[..., h * p:h * p + n].reshape(2, 64, 1, n)
-    cm = xbc[..., h * p + n:].reshape(2, 64, 1, n)
-    dt = torch.nn.functional.softplus(torch.randn(2, 64, h, device=cuda, generator=gen))
+    wide = torch.randn(2, s, offset + h * p + 2 * n, device=cuda, generator=gen)
+    xbc = wide.to(torch.bfloat16)[..., offset:]
+    x = xbc[..., :h * p].reshape(2, s, h, p)
+    bm = xbc[..., h * p:h * p + n].reshape(2, s, 1, n)
+    cm = xbc[..., h * p + n:].reshape(2, s, 1, n)
+    dt = torch.nn.functional.softplus(torch.randn(2, s, h, device=cuda, generator=gen))
     a = -torch.ones(h, device=cuda)
     assert not x.is_contiguous()
-    y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=32)
-    yc, finc = ops.ssd_op(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), chunk=32)
+    y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
+    again = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
+    yc, finc = ops.ssd_op(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), chunk=chunk)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, yc, atol=0, rtol=0)
     torch.testing.assert_close(fin, finc, atol=0, rtol=0)
+    torch.testing.assert_close(again[0], y, atol=0, rtol=0)
+    torch.testing.assert_close(y, ref.ssd_chunk_ref(x, dt, a, bm, cm, chunk)[0], **SSD_TOL)
+
+
+def test_ssd_bf16_chunk_invariance_on_card(cuda):
+    """bf16 inputs: every chunk size gives the plain version's scan and the
+    sequential recurrence's."""
+    x, dt, a, bm, cm = _ssd_case(cuda, 2, 256, 4, 64, 2, 128, torch.bfloat16, seed=6)
+    yr, finr = ref.ssd_ref(x, dt, a, bm, cm)
+    for chunk in (16, 32, 64, 128, 256):
+        y, fin = ops.ssd_op(x, dt, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        yc, finc = ref.ssd_chunk_ref(x, dt, a, bm, cm, chunk)
+        torch.testing.assert_close(y, yc, **SSD_TOL)
+        torch.testing.assert_close(fin, finc, **SSD_TOL)
+        torch.testing.assert_close(y, yr, **SSD_TOL)
+        torch.testing.assert_close(fin, finr, **SSD_TOL)
 
 
 def test_ssd_kernel_raises_on_what_it_does_not_take(cuda):

@@ -1,26 +1,37 @@
-"""The partitions of the redesigned paged-attention and grouped-matmul CUDA
-kernels, as plain PyTorch mirrors, against ``repro``'s Pallas kernels
-(interpret mode) and the plain versions, on the CPU.
+"""The partitions of the redesigned CUDA kernels, as plain PyTorch mirrors,
+against ``repro``'s Pallas kernels (interpret mode) and the plain versions,
+on the CPU.
 
 ``ref.paged_attention_split_ref`` cuts each row's block table into splits,
 takes each split's fp32 partial ``(m, l, acc)`` and merges them in split
 order, as ``csrc/paged_attention.cu`` does; ``ref.moe_gmm_schedule_ref``
 takes the bf16 ``moe_gmm`` kernel's row tiles (fixed 8-row tiles walking
-runs, or 192-row tiles cut per run), as ``csrc/moe_gmm.cu`` does. Inputs
-come from numpy with a
-seed; the tolerance is 5e-5/5e-4 at float32, as in ``tests/test_kernels.py``.
-The kernels themselves are held against these mirrors on the card by
-``tests/test_torch_kernels_gpu.py``.
+runs, or 192-row tiles cut per run), as ``csrc/moe_gmm.cu`` does;
+``ref.flash_attention_tiles_ref`` walks the bf16 flash kernel's 64-row q
+tiles over their even and odd 64-key tiles in two online softmaxes that
+merge at the end, P rounded to q's dtype before P V;
+``ref.ssd_passes_ref`` is the bf16 ``ssd`` kernel's chunk-state /
+state-passing / chunk-scan decomposition. Inputs come from numpy with a
+seed; the tolerance is 5e-5/5e-4 at float32 and 5e-2 at bfloat16, as in
+``tests/test_kernels.py``, and its ssd tolerance (2e-3/1e-3) for the SSD
+scan. The kernels themselves are held against these mirrors on the card by
+``tests/test_torch_kernels_gpu.py``. The head dims the attention kernels
+are built for are checked against every attention config of ``repro``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import F32_TOL, close
+from _torch_parity import BF16_TOL, F32_TOL, close
+from repro.configs import ARCH_IDS, get_config as jax_get_config
+from repro.configs.base import supported_kernel_sites
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.moe_gmm import moe_gmm as pallas_gmm
 from repro.kernels.paged_attention import paged_attention as pallas_paged
+from repro.kernels.ssd import ssd as pallas_ssd
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import moe_gmm as gmm_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import paged_attention as paged_kernel
@@ -170,3 +181,80 @@ def test_moe_gmm_schedule_mirror_clamps_and_takes_any_map(tile_rows):
 ])
 def test_moe_gmm_row_tile_rule(t, e, want):
     assert gmm_kernel.row_tile(t, e) == want
+
+
+# --- flash attention: the bf16 kernel's 64 x 64 tiles ----------------------------
+def _qkv(b, h, kv, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, s, d), dtype=np.float32),
+            rng.standard_normal((b, kv, s, d), dtype=np.float32),
+            rng.standard_normal((b, kv, s, d), dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (2, 4, 2, 256, 64, True, None),     # GQA causal, whole tiles
+    (1, 4, 4, 128, 128, False, None),   # MHA bidirectional
+    (1, 8, 2, 384, 64, True, 128),      # sliding window: tiles start past 0
+    (2, 2, 1, 100, 32, True, None),     # Sq not a multiple of 64
+    (1, 2, 2, 150, 8, True, None),      # head_dim 8 (internvl2-26b smoke)
+    (1, 2, 1, 130, 160, True, 64),      # head_dim 160 (stablelm-12b), window
+])
+def test_flash_tiles_mirror_matches_pallas_and_ref(b, h, kv, s, d, causal, window, dtype):
+    q, k, v = _qkv(b, h, kv, s, d)
+    jd, td, tol = {"float32": (jnp.float32, torch.float32, F32_TOL),
+                   "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}[dtype]
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    out = ref.flash_attention_tiles_ref(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == td and out.shape == tq.shape
+    want = pallas_flash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    close(out.float().numpy(), np.asarray(want.astype(jnp.float32)), tol)
+    close(out.float().numpy(), ref.flash_attention_ref(
+        tq, tk, tv, causal=causal, window=window).float().numpy(), tol)
+
+
+def test_attention_kernels_are_built_for_every_config_head_dim():
+    """Every head_dim of a config whose attention may run the kernels (FULL
+    and SMOKE) is in both kernels' HEAD_DIMS, so a CUDA tensor of a config
+    never raises for its head_dim."""
+    dims = set()
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            cfg = jax_get_config(arch, smoke=smoke)
+            if cfg.n_attn_layers and "attention" in supported_kernel_sites(cfg):
+                dims.add(cfg.head_dim)
+    assert {8, 160} <= dims
+    assert dims <= set(flash_kernel.HEAD_DIMS)
+    assert dims <= set(paged_kernel.HEAD_DIMS)
+
+
+# --- ssd: the bf16 kernel's three passes ------------------------------------------
+SSD_TOL = dict(atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 64, 4, 16, 2, 8, 16),       # tests/test_kernels.py shapes
+    (1, 128, 8, 64, 1, 32, 32),
+    (2, 96, 2, 8, 2, 16, 32),
+    (1, 256, 4, 64, 1, 64, 128),
+    (2, 256, 4, 64, 2, 128, 64),    # B 2, G 2 at mamba2's head and state widths
+    (2, 128, 4, 16, 2, 32, 128),    # B 2, G 2, one chunk
+])
+def test_ssd_passes_mirror_matches_pallas_and_ref(b, s, h, p, g, n, chunk):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))
+    a = -np.exp(rng.standard_normal((h,), dtype=np.float32) * 0.3)
+    bm = rng.standard_normal((b, s, g, n), dtype=np.float32)
+    cm = rng.standard_normal((b, s, g, n), dtype=np.float32)
+    args = [torch.from_numpy(t) for t in (x, dt, a, bm, cm)]
+    y, fin = ref.ssd_passes_ref(*args, chunk)
+    assert y.shape == (b, s, h, p) and fin.shape == (b, h, p, n)
+    jy, jfin = pallas_ssd(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)), chunk=chunk,
+                          interpret=True)
+    close(y.numpy(), np.asarray(jy), SSD_TOL)
+    close(fin.numpy(), np.asarray(jfin), SSD_TOL)
+    yc, finc = ref.ssd_chunk_ref(*args, chunk)
+    close(y.numpy(), yc.numpy(), SSD_TOL)
+    close(fin.numpy(), finc.numpy(), SSD_TOL)
