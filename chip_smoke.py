@@ -11,16 +11,22 @@ Run from the root of a checkout on a machine with one CUDA card. It
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (flash and paged attention also at head_dim 8 and
    160) and times kernel, plain version and a library yardstick (CUDA
-   events); the paged-attention and grouped-matmul kernels (the latter also
-   at the ``w_down`` shapes) must give the same bits when called again; the
-   bf16 flash kernel is also held against the plain mirror of its own tiles
+   events); the rmsnorm kernel's three forms (plain, residual add, Mamba2
+   gate) at rows 1 to 777 of every width the configs norm, the residual
+   form's outputs bit for bit against ``torch.add`` and the plain kernel,
+   the bf16 gated form against the plain kernel on ``x * F.silu(z)`` in
+   bf16 ulps, the fused forms timed beside the several PyTorch calls they
+   replace, and each form's host time a call beside theirs; the
+   paged-attention and grouped-matmul kernels (the latter also at the
+   ``w_down`` shapes) must give the same bits when called again; the bf16
+   flash kernel is also held against the plain mirror of its own tiles
    (``ref.flash_attention_tiles_ref``) at a tighter limit; the redesigned
    kernels' times print beside their previous design's;
 4. serves 8 requests of full-width qwen2.5-3b (random weights from
    ``--seed``) through ``ContinuousEngine`` under ``kernel_impls="auto"``,
-   checks the kernels' launch counts and every request's length, profiles
-   a decode step and one 512-token admission, and holds one float32
-   prefill under ``auto`` against ``reference``;
+   checks the kernels' launch counts (rmsnorm's also by form) and every
+   request's length, profiles a decode step and one 512-token admission,
+   and holds one float32 prefill under ``auto`` against ``reference``;
 5. serves 8 requests that share a 488-token tenant prefix through
    ``PagedContinuousEngine(attn="kernel")`` on the same weights (prefix
    fork with copy-on-write, drain and parked resume), checks the launch
@@ -41,8 +47,8 @@ Run from the root of a checkout on a machine with one CUDA card. It
    request's length, profiles a decode step and one admission, and holds a
    float32 prefill and decode step of one mamba2 layer (one zamba2 group)
    under ``auto`` against ``reference``;
-8. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line.
+8. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
+   form) and, last, the ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
 with code 2 before printing any result. It imports no JAX.
@@ -94,7 +100,24 @@ SLICE_TOL = (1e-3, 1e-3)
 PREVIOUS_MS = {"paged_attention": 0.52284, "moe_gmm decode": 1.65361,
                "moe_gmm prefill": 10.13531, "flash_attention": 0.17507,
                "flash_attention head_dim 80": 0.21983, "ssd mamba2": 0.54182,
-               "ssd zamba2": 0.36733}
+               "ssd zamba2": 0.36733, "rmsnorm": 0.00192, "rmsnorm prefill": 0.00335}
+# the rmsnorm kernel's forms by the name of their wrapper (kernels/rmsnorm.py)
+RMS_FORMS = {"rmsnorm": "plain", "add_rmsnorm": "residual", "gated_rmsnorm": "gated"}
+# the form as rmsnorm_kernel's template argument (csrc/rmsnorm.cu's Form)
+RMS_FORM_OF_ARG = {"0": "plain", "1": "residual", "2": "gated"}
+# the widths the configs norm: qwen2.5-3b, mamba2/zamba2 d_model, their gated
+# d_inner, mixtral-8x22b; and an odd width (the element-wise path)
+RMS_WIDTHS = (2048, 2560, 5120, 6144, 777)
+# mamba2-2.7b's in_proj row [z, xBC, dt] is 2 * 5120 + 2 * 128 + 80 wide: the
+# row stride of the gated norm's z
+MAMBA2_ZXBCDT = 10576
+# the gated form rounds silu(z) to bf16 before the product, as `x * F.silu(z)`
+# does; its silu takes the fast exp and divide, which may flip that rounding
+# now and then, so it is not held bit for bit against the plain kernel on the
+# composition. Limits on y, in bf16 ulps at the reference and as the share of
+# elements that differ: on an H100 a sound kernel reads 0 and 0, one that
+# skips the rounding 3 ulps and over a quarter of the elements (PERF.md)
+GATE_ULPS, GATE_DIFF_SHARE = 1, 1e-3
 
 
 def cuda_ms(fn, iters: int = 50, reps: int = 5, graph: bool = True) -> tuple:
@@ -158,11 +181,20 @@ def report(name: str, t: dict) -> None:
     fmt = _fmt
     prior = (f"; previous design {PREVIOUS_MS[name]:.5f} ms" if name in PREVIOUS_MS
              else "")
+    fused = (f"; several library calls ({t['library_calls']}) {fmt(t['library_calls_ms'])} "
+             f"ms, unfused ({t['unfused']}) {fmt(t['unfused_ms'])} ms"
+             if "library_calls_ms" in t else "")
     print(f"time {name} {t['shape']}: device (CUDA graph) kernel {fmt(t['ms'])} ms, "
           f"plain {fmt(t['plain_ms'])} ms, library {fmt(t['library_ms'])} ms; eager "
           f"kernel {fmt(t['eager_ms'])} ms, plain {fmt(t['eager_plain_ms'])} ms, library "
           f"{fmt(t['eager_library_ms'])} ms; bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
-          f"{prior}")
+          f"{fused}{prior}")
+    if "host_us" in t:
+        others = ", ".join(f"{label} {fmt(t[key])}" for key, label in (
+            ("library_host_us", "the library call"),
+            ("unfused_host_us", f"the unfused calls ({t.get('unfused')})")) if key in t)
+        print(f"host {name}: the wrapper {fmt(t['host_us'])} us a call, {others} (host clock, "
+              f"2000 calls back to back)")
 
 
 def check_repeat(name: str, fn) -> None:
@@ -172,6 +204,11 @@ def check_repeat(name: str, fn) -> None:
     if not torch.equal(first, second):
         raise AssertionError(f"{name}: a repeated call gave other bits")
     print(f"check {name}: a repeated call gives the same bits")
+
+
+def check_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} elements differ in their bits")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
@@ -194,11 +231,62 @@ def limit_share(got: torch.Tensor, want: torch.Tensor, tol) -> float:
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def rmsnorm_bound_ms(rows: int, d: int, dtype: torch.dtype) -> float:
+def rmsnorm_bound(rows: int, d: int, dtype: torch.dtype, form: str):
+    """(bound ms, 'bytes' | 'operations') of one call of an rmsnorm form:
+    its inputs (x; h, or the d columns of z it needs; w) read once and its
+    outputs (y; s) written once; fp32 operations per element: square-add,
+    scale and weight, plus the add, or silu (negate, exp, add, divide) and
+    the product."""
     elt = torch.empty((), dtype=dtype).element_size()
-    bytes_ = 2 * rows * d * elt + d * 4            # x read, y written, w read
-    ops = 4 * rows * d                             # square-add, scale, weight
-    return 1e3 * max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[torch.float32])
+    moved = {"plain": 2, "residual": 4, "gated": 3}[form]
+    ops = {"plain": 4, "residual": 5, "gated": 9}[form] * rows * d
+    t_bytes = (moved * rows * d * elt + d * 4) / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in units of bf16's spacing at want (8 significant bits)."""
+    want = want.float()
+    spacing = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return (got.float() - want).abs() / spacing
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds a call of ``fn``: ``n`` back-to-back calls on the
+    host clock from a drained device. A small kernel's device time is below
+    its launch's host time, so the queue never backs up and this is what a
+    call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def expected_norm_forms(cfg, passes: int) -> dict:
+    """The rmsnorm kernel's launches by form over ``passes`` forward passes
+    (prefills, decode steps, paged waves), from the model code: per pass one
+    plain (the stack's first norm follows the embedding and no add), one
+    gated for each Mamba2 mixer, and the residual form for every other norm
+    (each follows a residual add; the final norm too)."""
+    gated = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    total = 2 * cfg.n_layers + 1 + (2 * cfg.n_attn_layers if cfg.family == "hybrid" else 0)
+    return {"plain": passes, "residual": (total - 1 - gated) * passes,
+            "gated": gated * passes}
+
+
+def check_norm_forms(tag: str, cfg, passes: int, counts: dict, forms: dict) -> dict:
+    """Assert this path's rmsnorm launches by form (read beside ``counts``);
+    returns ``counts`` with them under ``rmsnorm_forms``."""
+    expect = expected_norm_forms(cfg, passes)
+    print(f"{tag}: rmsnorm launches by form {forms}, expected {expect}")
+    if forms != expect:
+        raise AssertionError(f"{tag}: rmsnorm forms {forms} != expected {expect}")
+    return dict(counts, rmsnorm_forms=forms)
 
 
 def flash_bound(b, h, kv, s, d, dtype, causal=True, window=None):
@@ -504,40 +592,149 @@ def paged_kernel_phase(gen: torch.Generator) -> dict:
     return res
 
 
-def kernel_phase(gen: torch.Generator):
-    from repro_torch.kernels.ops import flash_attention_op, rmsnorm_op
-    from repro_torch.kernels.ref import (flash_attention_ref, flash_attention_tiles_ref,
-                                         rmsnorm_ref)
+def rmsnorm_kernel_phase(gen: torch.Generator) -> dict:
+    """The rmsnorm kernel's three forms against their plain versions at rows
+    1, 4, 8, 512 and 777 of every width the configs norm (and an odd one),
+    in both dtypes, z at the row stride of a Mamba2 in_proj row; the
+    residual form's s against torch.add and its y against the plain kernel
+    on s, bit for bit; the bf16 gated form against the plain kernel on
+    ``x * F.silu(z)`` within GATE_ULPS and GATE_DIFF_SHARE; the element-wise
+    path (misaligned views) against the 16-byte path, bit for bit; then each
+    form timed at the decode wave and at a prefill, and each wrapper's host
+    time a call beside the calls it replaces."""
+    from repro_torch.kernels.ops import add_rmsnorm_op, gated_rmsnorm_op, rmsnorm_op
+    from repro_torch.kernels.ref import add_rmsnorm_ref, gated_rmsnorm_ref, rmsnorm_ref
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    F = torch.nn.functional
+    res = {name: {"err": 0.0} for name in RMS_FORMS}
+    gate_ulps, gate_share = 0.0, 0.0  # the gated form's rounding, bf16
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    def z_slice(rows, d, dtype, stride=None, offset=0):
+        """z as Mamba2 slices it: the first d columns of a wider row
+        (``offset`` elements in: a base and stride off 16 bytes)."""
+        stride = stride or 2 * d + 336
+        return rand(rows, stride + offset, dtype=dtype)[:, offset:offset + d]
+
+    for d in RMS_WIDTHS:
+        w = rand(d)
+        for dtype in (f32, bf16):
+            errs = dict.fromkeys(RMS_FORMS, 0.0)
+            for rows in (1, 4, 8, 512, 777):
+                x, h, z = rand(rows, d, dtype=dtype), rand(rows, d, dtype=dtype), \
+                    z_slice(rows, d, dtype)
+                label = f"rows={rows} d={d} {dtype}"
+                errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+                    f"rmsnorm {label}", rmsnorm_op(x, w), rmsnorm_ref(x, w), TOL[dtype]))
+                s, y = add_rmsnorm_op(x, h, w)
+                check_bits(f"add_rmsnorm {label}: s against torch.add", s, torch.add(x, h))
+                check_bits(f"add_rmsnorm {label}: y against the plain kernel on s", y,
+                           rmsnorm_op(s, w))
+                errs["add_rmsnorm"] = max(errs["add_rmsnorm"], check_close(
+                    f"add_rmsnorm {label}", y, add_rmsnorm_ref(x, h, w)[1], TOL[dtype]))
+                yg = gated_rmsnorm_op(x, z, w)
+                errs["gated_rmsnorm"] = max(errs["gated_rmsnorm"], check_close(
+                    f"gated_rmsnorm {label}", yg, gated_rmsnorm_ref(x, z, w), TOL[dtype]))
+                if dtype == bf16:
+                    ulps = bf16_ulps(yg, rmsnorm_op(x * F.silu(z), w))
+                    share = (ulps > 0).float().mean().item()
+                    if ulps.max().item() > GATE_ULPS or share > GATE_DIFF_SHARE:
+                        raise AssertionError(
+                            f"gated_rmsnorm {label} against the plain kernel on x * F.silu(z): "
+                            f"{ulps.max().item():.0f} bf16 ulps at most, {share:.3e} of the "
+                            f"elements differ (limits {GATE_ULPS}, {GATE_DIFF_SHARE})")
+                    gate_ulps, gate_share = max(gate_ulps, ulps.max().item()), max(gate_share,
+                                                                                   share)
+            torch.cuda.synchronize()
+            print(f"check rmsnorm forms d={d} {dtype}, rows 1/4/8/512/777: "
+                  f"max abs err plain {errs['rmsnorm']:.3e}, residual "
+                  f"{errs['add_rmsnorm']:.3e} (s = torch.add and y = the plain kernel on s, "
+                  f"bit for bit), gated {errs['gated_rmsnorm']:.3e} (z at row stride "
+                  f"{2 * d + 336}) (atol={TOL[dtype][0]} rtol={TOL[dtype][1]})")
+            for name in RMS_FORMS:
+                res[name]["err"] = max(res[name]["err"], errs[name])
+    print(f"check gated_rmsnorm bf16 against the plain kernel on x * F.silu(z) (silu rounded "
+          f"to bf16 before the product): at most {gate_ulps:.0f} bf16 ulps, at most "
+          f"{gate_share:.3e} of a case's elements differ (limits {GATE_ULPS}, "
+          f"{GATE_DIFF_SHARE})")
+    for dtype in (f32, bf16):  # the element-wise path gives the 16-byte path's bits
+        d, rows = 5120, 502
+        w, x = rand(d), rand(rows, d, dtype=dtype)
+        z = z_slice(rows, d, dtype, stride=MAMBA2_ZXBCDT - 1, offset=1)
+        check_bits(f"gated_rmsnorm misaligned z {dtype}", gated_rmsnorm_op(x, z, w),
+                   gated_rmsnorm_op(x, z.contiguous(), w))
+        xm, hm = (z_slice(rows, d, dtype, stride=d + 1, offset=1) for _ in range(2))
+        for got, want in zip(add_rmsnorm_op(xm, hm, w),
+                             add_rmsnorm_op(xm.contiguous(), hm.contiguous(), w)):
+            check_bits(f"add_rmsnorm misaligned x and h {dtype}", got, want)
+        torch.cuda.synchronize()
+    print("check rmsnorm element-wise path (views one element into a wider row, base and "
+          "stride off 16 bytes) gives the 16-byte path's bits: gated and residual, "
+          "(502, 5120), both dtypes")
+
+    # timing: each form at the decode wave and at a prefill, bf16
+    has_rms = hasattr(torch.nn.functional, "rms_norm")
+    for rows, tag in ((512, " prefill"), (4, "")):  # the kernels line: the decode wave
+        d = 2048
+        w, x, h = rand(d), rand(rows, d, dtype=bf16), rand(rows, d, dtype=bf16)
+        w_lib = w.to(bf16)
+        lib = (lambda: F.rms_norm(x, (d,), w_lib, 1e-5)) if has_rms else None
+        t = time_three(lambda: rmsnorm_op(x, w), lambda: rmsnorm_ref(x, w), lib)
+        bound, by = rmsnorm_bound(rows, d, bf16, "plain")
+        t.update(bound_ms=bound, bound_by=by, shape=f"x ({rows}, {d}) bf16, w fp32; library: "
+                 f"F.rms_norm, w in bf16")
+        if not tag:  # what a call costs the host, at the decode wave
+            t.update(host_us=host_us(lambda: rmsnorm_op(x, w)),
+                     library_host_us=host_us(lib) if has_rms else None)
+        report("rmsnorm" + tag, t)
+        res["rmsnorm"]["prefill" if tag else "decode"] = t
+        t = time_three(lambda: add_rmsnorm_op(x, h, w), lambda: add_rmsnorm_ref(x, h, w), None)
+        bound, by = rmsnorm_bound(rows, d, bf16, "residual")
+        t.update(bound_ms=bound, bound_by=by,
+                 shape=f"x, h ({rows}, {d}) bf16, w fp32; library: none (no one PyTorch call)",
+                 library_calls="torch.add, F.rms_norm", unfused="torch.add, the plain kernel",
+                 library_calls_ms=cuda_ms(lambda: F.rms_norm(torch.add(x, h), (d,), w_lib, 1e-5))[0]
+                 if has_rms else None,
+                 unfused_ms=cuda_ms(lambda: rmsnorm_op(torch.add(x, h), w))[0])
+        if not tag:
+            t.update(host_us=host_us(lambda: add_rmsnorm_op(x, h, w)),
+                     unfused_host_us=host_us(lambda: rmsnorm_op(torch.add(x, h), w)))
+        report("add_rmsnorm" + tag, t)
+        res["add_rmsnorm"]["prefill" if tag else "decode"] = t
+    for rows, tag in ((502, " prefill"), (4, "")):
+        d = 5120
+        w, x = rand(d), rand(rows, d, dtype=bf16)
+        z = z_slice(rows, d, bf16, stride=MAMBA2_ZXBCDT)
+        w_lib = w.to(bf16)
+        t = time_three(lambda: gated_rmsnorm_op(x, z, w), lambda: gated_rmsnorm_ref(x, z, w),
+                       None)
+        bound, by = rmsnorm_bound(rows, d, bf16, "gated")
+        t.update(bound_ms=bound, bound_by=by,
+                 shape=f"x ({rows}, {d}) bf16, z its columns of a ({rows}, {MAMBA2_ZXBCDT}) "
+                       f"in_proj row (mamba2-2.7b), w fp32; library: none (no one PyTorch call)",
+                 library_calls="F.silu, mul, F.rms_norm", unfused="F.silu, mul, the plain kernel",
+                 library_calls_ms=cuda_ms(lambda: F.rms_norm(x * F.silu(z), (d,), w_lib, 1e-5))[0]
+                 if has_rms else None,
+                 unfused_ms=cuda_ms(lambda: rmsnorm_op(x * F.silu(z), w))[0])
+        if not tag:
+            t.update(host_us=host_us(lambda: gated_rmsnorm_op(x, z, w)),
+                     unfused_host_us=host_us(lambda: rmsnorm_op(x * F.silu(z), w)))
+        report("gated_rmsnorm" + tag, t)
+        res["gated_rmsnorm"]["prefill" if tag else "decode"] = t
+    for name in RMS_FORMS:  # the kernels line carries the decode wave's numbers
+        res[name].update(res[name]["decode"])
+    return res
+
+
+def flash_kernel_phase(gen: torch.Generator) -> dict:
+    from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.kernels.ref import flash_attention_ref, flash_attention_tiles_ref
 
     dev = "cuda"
-    results = {"rmsnorm": {"err": 0.0}, "flash_attention": {"err": 0.0}}
-
-    # --- rmsnorm: rows of the decode wave (4), a prefill (512), odd counts;
-    # d 2048 (qwen), 2560 (mamba2/zamba2 d_model), 5120 (their gated norm)
-    d = 2048
-    w = torch.randn(d, device=dev, generator=gen)
-    for dd, rows_list in ((2048, (1, 4, 512, 777)), (2560, (4, 512)), (5120, (4, 512))):
-        wd = w if dd == d else torch.randn(dd, device=dev, generator=gen)
-        for rows in rows_list:
-            for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn(rows, dd, device=dev, generator=gen).to(dtype)
-                err = check_close(f"rmsnorm rows={rows} d={dd} {dtype}", rmsnorm_op(x, wd),
-                                  rmsnorm_ref(x, wd), TOL[dtype])
-                torch.cuda.synchronize()
-                print(f"check rmsnorm rows={rows} d={dd} {dtype}: max abs err {err:.3e}")
-                results["rmsnorm"]["err"] = max(results["rmsnorm"]["err"], err)
-    has_rms = hasattr(torch.nn.functional, "rms_norm")
-    for rows in (4, 512):  # decode wave, prefill
-        x = torch.randn(rows, d, device=dev, generator=gen).to(torch.bfloat16)
-        w_lib = w.to(torch.bfloat16)
-        t = time_three(lambda: rmsnorm_op(x, w), lambda: rmsnorm_ref(x, w),
-                       (lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
-                       if has_rms else None)
-        t.update(bound_ms=rmsnorm_bound_ms(rows, d, torch.bfloat16), bound_by="bytes",
-                 shape=f"x ({rows}, {d}) bf16, w fp32")
-        report("rmsnorm", t)
-        if rows == 4:  # the decode wave carries most of the launches
-            results["rmsnorm"].update(t)
+    results = {"flash_attention": {"err": 0.0}}
 
     # --- flash attention: (B,S,H,D) projections read as (B,H,S,D) views
     def qkv(b, h, kv, s, dd, dtype):
@@ -592,7 +789,7 @@ def kernel_phase(gen: torch.Generator):
                  shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
         report(label, t)
     results["flash_attention"].update(t)
-    return results
+    return results["flash_attention"]
 
 
 def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
@@ -607,7 +804,9 @@ def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
 
 
 # the names of each op's kernels (every pass) as the profiler shows them, inside
-# a demangled signature such as "void (anonymous namespace)::paged_split_kernel<...>(...)"
+# a demangled signature such as "void (anonymous namespace)::paged_split_kernel<...>(...)";
+# rmsnorm's three forms are one kernel whose second template argument is the
+# form, "rmsnorm_kernel<__nv_bfloat16, 1, true, 1>" (RMS_FORM_OF_ARG)
 HAND_WRITTEN = {"rmsnorm": ("rmsnorm_kernel",),
                 "flash_attention": ("flash_fwd_kernel", "flash_tc_kernel"),
                 "paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
@@ -676,16 +875,26 @@ def profile_run(run, label: str, n: int, key: str, unit: str) -> dict:
           f"{len(kernels) / n:.0f} kernels/{unit}")
     for name, ms in top:
         print(f"profile: {ms / n:.3f} ms/{unit}  {name[:100]}")
+    by_form: dict = {}  # rmsnorm by form
+    for name, ms in by_name.items():
+        form = re.search(r"rmsnorm_kernel<[^,<>]+, (\d),", name)
+        if form:
+            label = RMS_FORM_OF_ARG[form.group(1)]
+            by_form[label] = by_form.get(label, 0.0) + ms
     if by_op:
         print("profile: hand-written kernels, all passes: " + ", ".join(
-            f"{op} {ms / n:.3f} ms/{unit}" for op, ms in sorted(by_op.items())))
+            f"{op} {ms / n:.3f} ms/{unit}" for op, ms in sorted(by_op.items()))
+            + ("; rmsnorm by form: " + ", ".join(f"{f} {ms / n:.3f} ms/{unit}"
+                                                 for f, ms in sorted(by_form.items()))
+               if by_form else ""))
     out[f"profile_{key}_kernel_ms{per}"] = {op: ms / n for op, ms in by_op.items()}
+    out[f"profile_{key}_rmsnorm_form_ms{per}"] = {f: ms / n for f, ms in by_form.items()}
     return out
 
 
 def slice_phase(seed: int):
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -727,7 +936,7 @@ def slice_phase(seed: int):
         (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
             1e3 * (time.perf_counter() - t))
     wall = time.perf_counter() - t_start
-    counts = launch_counts()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
     done = engine.run()
     peak = torch.cuda.max_memory_allocated()
 
@@ -743,6 +952,7 @@ def slice_phase(seed: int):
         raise AssertionError(f"{n_prefills} prefills, expected {n_req}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
+    counts = check_norm_forms("slice", cfg, n_prefills + n_steps, counts, forms)
     if sorted(r.id for r in done) != list(range(n_req)):
         raise AssertionError(f"finished ids {sorted(r.id for r in done)}")
     for r in done:
@@ -791,7 +1001,7 @@ def paged_phase(cfg, params, seed: int):
     registered tenant prefix forked into 8 requests (its tail block is
     shared, so each fork copies it on its first write), a drain after a few
     waves and a parked resume of every drained request."""
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import PagedContinuousEngine
 
@@ -842,7 +1052,7 @@ def paged_phase(cfg, params, seed: int):
         engine.step()
         step_ms.append(1e3 * (time.perf_counter() - t))
     wall = time.perf_counter() - t_start
-    counts = launch_counts()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
     done = engine.run()
     peak = torch.cuda.max_memory_allocated()
 
@@ -865,6 +1075,7 @@ def paged_phase(cfg, params, seed: int):
                              f"{n_req * (prompt_len - prefix_len)}")
     if counts != expect:
         raise AssertionError(f"paged: launch counts {counts} != expected {expect}")
+    counts = check_norm_forms("paged", cfg, n_prefills + n_waves + n_extend, counts, forms)
     if st["share_hits"] != n_req or st["cow_copies"] < n_req or st["resume_hits"] < 1:
         raise AssertionError(f"paged: share_hits {st['share_hits']}, cow_copies "
                              f"{st['cow_copies']}, resume_hits {st['resume_hits']}")
@@ -954,7 +1165,7 @@ def moe_phase(seed: int):
     weights, served through ContinuousEngine under ``kernel_impls="auto"``:
     attention, the MoE grouped matmul and every norm on the kernels."""
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -1001,7 +1212,7 @@ def moe_phase(seed: int):
         (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
             1e3 * (time.perf_counter() - t))
     wall = time.perf_counter() - t_start
-    counts = launch_counts()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
     done = engine.run()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1017,6 +1228,7 @@ def moe_phase(seed: int):
         raise AssertionError(f"moe: {n_prefills} prefills, expected {n_req}")
     if counts != expect:
         raise AssertionError(f"moe: launch counts {counts} != expected {expect}")
+    counts = check_norm_forms("moe", cfg, passes, counts, forms)
     if sorted(r.id for r in done) != list(range(n_req)):
         raise AssertionError(f"moe: finished ids {sorted(r.id for r in done)}")
     for r in done:
@@ -1088,7 +1300,7 @@ def ssm_phase(arch: str, seed: int):
     of the 256-token chunk, so the dt=0 padding is on the path), a drain
     after 4 decode steps and a resume of every drained request."""
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -1146,7 +1358,7 @@ def ssm_phase(arch: str, seed: int):
     while engine.batcher.active():
         timed_step()
     wall = time.perf_counter() - t_start
-    counts = launch_counts()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
     done = engine.run()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1161,6 +1373,7 @@ def ssm_phase(arch: str, seed: int):
           f"steps, launches {counts}, expected {expect}")
     if counts != expect:
         raise AssertionError(f"{tag}: launch counts {counts} != expected {expect}")
+    counts = check_norm_forms(tag, cfg, passes, counts, forms)
     if sorted(r.id for r in done) != list(range(n_req)):
         raise AssertionError(f"{tag}: finished ids {sorted(r.id for r in done)}")
     for r in done:
@@ -1248,7 +1461,7 @@ def ptxas_summary(log: str) -> list:
             if base and base.group(3):
                 targs = base.group(3)
                 dtype = ["bf16"] if "bfloat16" in targs else (["f32"] if targs[0] == "f" else [])
-                kernel += "<" + ", ".join(dtype + re.findall(r"Li(\d+)E", targs + "E")) + ">"
+                kernel += "<" + ", ".join(dtype + re.findall(r"L[ib](\d+)E", targs + "E")) + ">"
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line and kernel is not None:
@@ -1297,7 +1510,8 @@ def main(argv=None) -> int:
     def gen(offset: int) -> torch.Generator:
         return torch.Generator(device="cuda").manual_seed(args.seed + offset)
 
-    kern = kernel_phase(gen(0))
+    kern = rmsnorm_kernel_phase(gen(4))
+    kern["flash_attention"] = flash_kernel_phase(gen(0))
     kern["paged_attention"] = paged_kernel_phase(gen(1))
     kern["moe_gmm"] = moe_kernel_phase(gen(2))
     kern["ssd"] = ssd_kernel_phase(gen(3))
@@ -1313,16 +1527,20 @@ def main(argv=None) -> int:
     serving.update(ssm_serving)
     hybrid_counts, hybrid_serving = ssm_phase("zamba2-2.7b", args.seed)
     serving.update(hybrid_serving)
-    # each kernel's launches on the path that first carried it: rmsnorm and
-    # flash on the dense path, paged attention on the paged path, the grouped
-    # matmul on the MoE path, ssd on the SSM path
+    # each kernel's launches on the path that first carried it: the plain and
+    # residual rmsnorm forms and flash on the dense path, paged attention on
+    # the paged path, the grouped matmul on the MoE path, ssd and the gated
+    # rmsnorm form on the SSM path
     print(f"launches: dense path {counts}, paged path {paged_counts}, moe path {moe_counts}, "
           f"ssm path {ssm_counts}, hybrid path {hybrid_counts}")
-    counts = dict(counts, paged_attention=paged_counts["paged_attention"],
+    counts = dict(counts, rmsnorm=counts["rmsnorm_forms"]["plain"],
+                  add_rmsnorm=counts["rmsnorm_forms"]["residual"],
+                  gated_rmsnorm=ssm_counts["rmsnorm_forms"]["gated"],
+                  paged_attention=paged_counts["paged_attention"],
                   moe_gmm=moe_counts["moe_gmm"], ssd=ssm_counts["ssd"])
 
-    sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                           "src/repro/kernels/rmsnorm.py:25"),
+    rms_source = ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25")
+    sources = {**dict.fromkeys(RMS_FORMS, rms_source),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79"),
                "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1336,8 +1554,12 @@ def main(argv=None) -> int:
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
+         **({"library_calls_ms": kern[name]["library_calls_ms"],
+             "unfused_ms": kern[name]["unfused_ms"]} if "unfused_ms" in kern[name] else {}),
          "shape": kern[name]["shape"]}
-        for name in ("rmsnorm", "flash_attention", "paged_attention", "moe_gmm", "ssd")]}
+        for name in (*RMS_FORMS, "flash_attention", "paged_attention", "moe_gmm", "ssd")]}
+    if not all(k["launches"] > 0 for k in line["kernels"]):
+        raise AssertionError(f"a kernel of the path was not launched: {line}")
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

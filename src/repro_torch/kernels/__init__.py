@@ -8,8 +8,12 @@ import importlib
 from typing import Any
 
 _EXPORTS = {
+    "add_rmsnorm_op": "repro_torch.kernels.ops",
+    "add_rmsnorm_ref": "repro_torch.kernels.ref",
     "flash_attention_op": "repro_torch.kernels.ops",
     "flash_attention_ref": "repro_torch.kernels.ref",
+    "gated_rmsnorm_op": "repro_torch.kernels.ops",
+    "gated_rmsnorm_ref": "repro_torch.kernels.ref",
     "launch_counts": "repro_torch.kernels.ops",
     "moe_gmm_capacity": "repro_torch.kernels.ops",
     "moe_gmm_op": "repro_torch.kernels.ops",
@@ -21,6 +25,7 @@ _EXPORTS = {
     "paged_attention_ref": "repro_torch.kernels.ref",
     "paged_attention_split_ref": "repro_torch.kernels.ref",
     "reset_launch_counts": "repro_torch.kernels.ops",
+    "rmsnorm_form_counts": "repro_torch.kernels.ops",
     "rmsnorm_op": "repro_torch.kernels.ops",
     "rmsnorm_ref": "repro_torch.kernels.ref",
     "ssd_chunk_ref": "repro_torch.kernels.ref",

@@ -19,6 +19,16 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Ten
     return _rmsnorm.rmsnorm(x, w, eps=eps)
 
 
+def add_rmsnorm_op(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _rmsnorm.add_rmsnorm(x, h, w, eps=eps)
+
+
+def gated_rmsnorm_op(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    return _rmsnorm.gated_rmsnorm(x, z, w, eps=eps)
+
+
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: Optional[int] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
@@ -76,14 +86,21 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {"rmsnorm": _rmsnorm.launches, "flash_attention": _flash.launches,
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`
+    (``rmsnorm`` counts all three of its forms)."""
+    return {"rmsnorm": sum(_rmsnorm.launches.values()), "flash_attention": _flash.launches,
             "paged_attention": _paged.launches, "moe_gmm": _gmm.launches,
             "ssd": _ssd.launches}
 
 
+def rmsnorm_form_counts() -> Dict[str, int]:
+    """The rmsnorm kernel's launches by form (plain, residual, gated) since
+    the last :func:`reset_launch_counts`; they sum to its count there."""
+    return dict(_rmsnorm.launches)
+
+
 def reset_launch_counts() -> None:
-    _rmsnorm.launches = 0
+    _rmsnorm.launches.update(dict.fromkeys(_rmsnorm.launches, 0))
     _flash.launches = 0
     _paged.launches = 0
     _gmm.launches = 0

@@ -7,9 +7,10 @@ wrapper uses these for tensors on the CPU; on the card they are what
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e9
 
@@ -19,6 +20,22 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Te
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+
+def add_rmsnorm_ref(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s, y): s = x + h in x's dtype (``torch.add``'s rounding), y =
+    :func:`rmsnorm_ref` of s."""
+    s = x + h
+    return s, rmsnorm_ref(s, w, eps)
+
+
+def gated_rmsnorm_ref(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rmsnorm_ref` of x * silu(z), silu(z) and the product each
+    rounded to x's dtype, as ``models/layers.py``'s ``gated_rms_norm``
+    composes them."""
+    return rmsnorm_ref(x * F.silu(z.to(x.dtype)), w, eps)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

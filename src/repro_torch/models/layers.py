@@ -1,6 +1,6 @@
-"""Shared building blocks: RMSNorm and its gated Mamba2 form, SwiGLU MLP,
-rotary embeddings, token embedding and the vocabulary head — the port of
-``repro.models.layers``.
+"""Shared building blocks: RMSNorm with its residual-add and gated Mamba2
+forms, SwiGLU MLP, rotary embeddings, token embedding and the vocabulary
+head — the port of ``repro.models.layers``.
 
 Params are nested dicts of tensors with the same keys and shapes as in
 ``repro``; every function takes and returns tensors, with the same dtype
@@ -8,7 +8,7 @@ casts at the same places so float32 results agree with the JAX twin.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,10 +30,26 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
 
 
+def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, eps: float,
+                 cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s, y): the residual add s = x + h and its RMSNorm y. Under
+    ``kernel_impls['rmsnorm'] == 'kernel'`` one launch of the kernel's
+    residual form; otherwise ``x + h`` and :func:`rms_norm`, as before."""
+    if cfg is not None and kernel_impl(cfg, "rmsnorm") == "kernel":
+        from repro_torch.kernels.ops import add_rmsnorm_op
+        return add_rmsnorm_op(x, h, weight.float(), eps=eps)
+    s = x + h
+    return s, rms_norm(s, weight, eps, cfg)
+
+
 def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
                    eps: float, cfg: Optional[ModelConfig] = None) -> torch.Tensor:
-    """Mamba2 RMSNormGated: norm(x * silu(gate)) * weight, through
-    :func:`rms_norm` (the rmsnorm kernel under ``auto``)."""
+    """Mamba2 RMSNormGated: norm(x * silu(gate)) * weight. Under the kernel
+    policy one launch of the kernel's gated form, which reads a strided
+    ``gate`` in place; otherwise through :func:`rms_norm`."""
+    if cfg is not None and kernel_impl(cfg, "rmsnorm") == "kernel":
+        from repro_torch.kernels.ops import gated_rmsnorm_op
+        return gated_rmsnorm_op(x, gate.to(x.dtype), weight.float(), eps=eps)
     return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
 
 

@@ -196,8 +196,8 @@ def prefill(params, batch: Dict[str, Any], cfg: ModelConfig):
     x = embed_tokens(params["embed"], tokens, cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x, cache = transformer.stack_prefill(params["stack"], x, positions, cfg)
-    x = transformer._norm(x, params["final_norm"], cfg)
+    x, h, cache = transformer.stack_prefill(params["stack"], x, positions, cfg)
+    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x[:, -1:], cfg)
     return logits[:, 0], cache
 
@@ -206,8 +206,8 @@ def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig):
     """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
     Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
     x = embed_tokens(params["embed"], token, cfg)
-    x, cache = transformer.stack_decode(params["stack"], x, cache, pos, cfg)
-    x = transformer._norm(x, params["final_norm"], cfg)
+    x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, cfg)
+    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
     return logits[:, 0], cache
 
@@ -234,12 +234,13 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
     pos, bids, offs = (torch.as_tensor(t, device=dev).long() for t in (pos, bids, offs))
     x = embed_tokens(params["embed"], token, cfg)
     stack = params["stack"][segs[0].name]
+    h = None  # the residual stream is x + h, as in transformer.stack_decode
     for i in range(segs[0].n):
         lp = transformer._layer(stack, i)
-        a, _, _ = paged_gqa_decode(lp["attn"], transformer._norm(x, lp["ln1"], cfg),
-                                   k_pools[i], v_pools[i], tables, pos, bids, offs, cfg)
-        x = transformer._ffn(lp, x + a, cfg)
-    x = transformer._norm(x, params["final_norm"], cfg)
+        x, h, _, _ = transformer._dense_block(
+            lp, x, h, lambda y: paged_gqa_decode(lp["attn"], y, k_pools[i], v_pools[i], tables,
+                                                 pos, bids, offs, cfg), cfg)
+    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
     return logits[:, 0], k_pools, v_pools
 

@@ -6,6 +6,10 @@ are 5e-5/5e-4 at float32 and 5e-2 at bfloat16. The CUDA kernels themselves
 are held against the plain versions on the card by
 ``tests/test_torch_kernels_gpu.py``.
 """
+import ctypes
+import re
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +19,7 @@ from _torch_parity import BF16_TOL, F32_TOL, close
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 pytestmark = pytest.mark.slow
 
@@ -51,6 +55,88 @@ def test_rmsnorm_plain_matches_pallas_and_ref(shape, dtype):
     before = ops.launch_counts()["rmsnorm"]
     close(_f32(ops.rmsnorm_op(tx, tw)), _f32(out), tol)  # CPU tensor: plain path
     assert ops.launch_counts()["rmsnorm"] == before
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(4, 64, 256), (1, 7, 512), (3, 100, 80), (2, 3, 777),
+                                   (2, 2, 5120)])
+def test_add_rmsnorm_plain_matches_pallas_composition(shape, dtype):
+    """(s, y) = add_rmsnorm_ref(x, h, w) against JAX's x + h and the Pallas
+    rmsnorm (interpret) of it; on CPU tensors the op takes the plain version
+    and counts no launch."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    h = rng.standard_normal(shape, dtype=np.float32)
+    w = rng.standard_normal(shape[-1:], dtype=np.float32)
+    (jx, tx), (jh, th) = _both(x, dtype), _both(h, dtype)
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    tol = DTYPES[dtype][2]
+    s, y = ref.add_rmsnorm_ref(tx, th, tw)
+    assert s.dtype == y.dtype == tx.dtype
+    js = jx + jh
+    close(_f32(s), _f32(js), tol)
+    close(_f32(y), _f32(pallas_rmsnorm(js, jw, interpret=True)), tol)
+    before = ops.launch_counts()["rmsnorm"], ops.rmsnorm_form_counts()
+    s_op, y_op = ops.add_rmsnorm_op(tx, th, tw)
+    assert torch.equal(s_op, s) and torch.equal(y_op, y)
+    assert (ops.launch_counts()["rmsnorm"], ops.rmsnorm_form_counts()) == before
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+# the last two: an odd width, and mamba2-2.7b's z in its in_proj row
+@pytest.mark.parametrize("shape,z_width", [((4, 64, 256), 256), ((1, 7, 512), 1100),
+                                           ((3, 100, 80), 191), ((2, 3, 777), 1890),
+                                           ((2, 2, 5120), 10576)])
+def test_gated_rmsnorm_plain_matches_pallas_composition(shape, z_width, dtype):
+    """gated_rmsnorm_ref(x, z, w) against the Pallas rmsnorm (interpret) of
+    JAX's x * silu(z); z is a column slice of a wider row, as Mamba2 slices
+    it from in_proj's output, wherever the width leaves room for one."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    zw = rng.standard_normal(shape[:-1] + (z_width,), dtype=np.float32)
+    w = rng.standard_normal(shape[-1:], dtype=np.float32)
+    d = shape[-1]
+    (jx, tx), (jzw, tzw) = _both(x, dtype), _both(zw, dtype)
+    jz, tz = jzw[..., :d], tzw[..., :d]
+    assert z_width == d or not tz.is_contiguous()
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    tol = DTYPES[dtype][2]
+    y = ref.gated_rmsnorm_ref(tx, tz, tw)
+    assert y.dtype == tx.dtype
+    close(_f32(y), _f32(pallas_rmsnorm(jx * jax.nn.silu(jz), jw, interpret=True)), tol)
+    before = ops.launch_counts()["rmsnorm"]
+    assert torch.equal(ops.gated_rmsnorm_op(tx, tz, tw), y)
+    assert ops.launch_counts()["rmsnorm"] == before
+
+
+def test_rmsnorm_forms_raise_on_a_dtype_or_shape_mismatch_on_cpu():
+    x = torch.randn(2, 16)
+    w = torch.ones(16)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        ops.add_rmsnorm_op(x, x.bfloat16(), w)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        ops.gated_rmsnorm_op(x, x.double(), w)
+    with pytest.raises(ValueError, match="shape"):
+        ops.add_rmsnorm_op(x, x[:1], w)
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in build.SIGNATURES.items()
+                                    for fn in fns])
+def test_ctypes_signatures_match_the_cuda_sources(lib, fn):
+    """Every C function a wrapper calls takes, in csrc/<lib>.cu, the argument
+    types ``build.SIGNATURES`` gives ctypes, in that order: a launch
+    argument added to or dropped from a kernel's C interface without its
+    binding would shift every argument after it."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert m, f"{fn} not found in {lib}.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",") if p.strip()]
+    types = [_C_TYPES[re.sub(r"\s*\w+$", "", p)] for p in params]
+    assert types == build.SIGNATURES[lib][fn]
 
 
 # --- flash attention --------------------------------------------------------------

@@ -47,6 +47,144 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype):
     torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, w).float(), **tol)
 
 
+# the widths the configs norm: qwen2.5-3b, mamba2/zamba2 d_model, their gated
+# d_inner, mixtral-8x22b; and an odd width (the element-wise path)
+RMS_WIDTHS = (2048, 2560, 5120, 6144, 777)
+# Mamba2's in_proj row is [z, xBC, dt]: z's row stride is 2 d_inner + 2 G N + H
+# (mamba2-2.7b: 2 * 5120 + 2 * 128 + 80 = 10576)
+def _zxbcdt_z(cuda, g, rows, d, dtype, extra=336, offset=0):
+    wide = torch.randn(rows, 2 * d + extra + offset, device=cuda, generator=g).to(dtype)
+    return wide[:, offset:offset + d]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 8, 512, 777])
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+def test_rmsnorm_forms_match_plain_on_card(cuda, d, rows, dtype):
+    """The plain, residual and gated forms against their plain versions, the
+    gated one on z as a strided column slice; each launch counted once, by
+    form."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    h = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    z = _zxbcdt_z(cuda, g, rows, d, dtype)
+    w = torch.randn(d, device=cuda, generator=g)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    ops.reset_launch_counts()
+    y = ops.rmsnorm_op(x, w)
+    s, ys = ops.add_rmsnorm_op(x, h, w)
+    yg = ops.gated_rmsnorm_op(x, z, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == 3
+    assert ops.rmsnorm_form_counts() == {"plain": 1, "residual": 1, "gated": 1}
+    torch.testing.assert_close(y.float(), ref.rmsnorm_ref(x, w).float(), **tol)
+    want_s, want_ys = ref.add_rmsnorm_ref(x, h, w)
+    torch.testing.assert_close(s, want_s, atol=0, rtol=0)
+    torch.testing.assert_close(ys.float(), want_ys.float(), **tol)
+    torch.testing.assert_close(yg.float(), ref.gated_rmsnorm_ref(x, z, w).float(), **tol)
+    assert y.is_contiguous() and s.is_contiguous() and yg.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2048), (4, 2048), (8, 6144), (512, 2048), (777, 2560),
+                                   (2, 251, 5120), (3, 777)])
+def test_add_rmsnorm_is_torch_add_then_the_plain_kernel_bit_for_bit(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    h = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    w = torch.randn(shape[-1], device=cuda, generator=g)
+    s, y = ops.add_rmsnorm_op(x, h, w)
+    torch.cuda.synchronize()
+    assert s.data_ptr() not in (x.data_ptr(), h.data_ptr())
+    torch.testing.assert_close(s, torch.add(x, h), atol=0, rtol=0)
+    torch.testing.assert_close(y, ops.rmsnorm_op(s, w), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4, 5120), (502, 5120), (3, 64), (8, 2560)])
+def test_gated_rmsnorm_reads_zxbcdt_and_misaligned_views_on_card(cuda, rows, d, dtype):
+    """z as the strided slice of Mamba2's in_proj row (16-byte path) and as
+    a view one element into a wider row (base and stride not 16-byte
+    multiples: the element-wise path) gives what a contiguous copy gives, bit
+    for bit: both paths own the same elements and sum in the same order."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda, generator=g)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for offset, extra in ((0, 336), (1, 335)):
+        z = _zxbcdt_z(cuda, g, rows, d, dtype, extra=extra, offset=offset)
+        assert (z.data_ptr() % 16 == 0) == (offset == 0)
+        out = ops.gated_rmsnorm_op(x, z, w)
+        want = ops.gated_rmsnorm_op(x, z.contiguous(), w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, atol=0, rtol=0)
+        torch.testing.assert_close(out.float(), ref.gated_rmsnorm_ref(x, z, w).float(), **tol)
+    # x misaligned too, through the residual form as well
+    xm = _zxbcdt_z(cuda, g, rows, d, dtype, extra=1, offset=1)
+    xm.copy_(x)
+    hm = _zxbcdt_z(cuda, g, rows, d, dtype, extra=1, offset=1)
+    s, y = ops.add_rmsnorm_op(xm, hm, w)
+    s2, y2 = ops.add_rmsnorm_op(x, hm.contiguous(), w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, s2, atol=0, rtol=0)
+    torch.testing.assert_close(y, y2, atol=0, rtol=0)
+
+
+# the gated form rounds silu(z) to bf16 before the product, as `x * F.silu(z)`
+# does; its silu takes the fast exp and divide, which may flip that rounding
+# now and then, so it is held against the plain kernel on the composition by
+# chip_smoke.py's GATE_ULPS and GATE_DIFF_SHARE, set in PERF.md from sound
+# and planted-fault readings
+GATE_ULPS, GATE_DIFF_SHARE = 1, 1e-3
+
+
+def _bf16_ulps(got, want):
+    want = want.float()
+    spacing = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return (got.float() - want).abs() / spacing
+
+
+@pytest.mark.parametrize("rows,d", [(4, 5120), (502, 5120), (8, 2560), (512, 2048), (777, 777)])
+def test_gated_rmsnorm_rounds_silu_before_the_product_on_card(cuda, rows, d):
+    """bf16: the gated form against the plain kernel on ``x * F.silu(z)``,
+    z at a Mamba2 in_proj row stride, by bf16 ulps and by the share of
+    elements that differ; a gate that skips rounding silu(z) moves far more
+    elements than the fast silu does."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(torch.bfloat16)
+    z = _zxbcdt_z(cuda, g, rows, d, torch.bfloat16)
+    w = torch.randn(d, device=cuda, generator=g)
+    ulps = _bf16_ulps(ops.gated_rmsnorm_op(x, z, w),
+                      ops.rmsnorm_op(x * torch.nn.functional.silu(z), w))
+    share = (ulps > 0).float().mean().item()
+    assert ulps.max().item() <= GATE_ULPS and share <= GATE_DIFF_SHARE, (
+        f"{ulps.max().item():.0f} bf16 ulps at most, {share:.3e} of the elements differ")
+
+
+def test_rmsnorm_forms_raise_on_what_they_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        ops.add_rmsnorm_op(x, x.bfloat16(), w)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        ops.gated_rmsnorm_op(x.bfloat16(), x, w)
+    for op, args in ((ops.rmsnorm_op, (x,)), (ops.add_rmsnorm_op, (x, x)),
+                     (ops.gated_rmsnorm_op, (x, x))):
+        with pytest.raises(ValueError, match="different devices"):
+            op(*args, w.cpu())
+        with pytest.raises(ValueError, match="w shape"):
+            op(*args, torch.ones(32, device=cuda))
+        with pytest.raises(TypeError, match="float32"):
+            op(*args, w.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        ops.add_rmsnorm_op(x, x[:2], w)
+    with pytest.raises(ValueError, match="stride"):
+        ops.gated_rmsnorm_op(x, torch.randn(64, 4, device=cuda).T, w)
+    wide = torch.randn(1, 8192 + 4, device=cuda)
+    with pytest.raises(RuntimeError, match="up to 16384 bf16 or 8192 fp32 elements"):
+        ops.rmsnorm_op(wide, torch.ones(8192 + 4, device=cuda))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
     (1, 16, 2, 1000, 128, True, None),

@@ -21,6 +21,7 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch.configs import get_config as torch_get_config
+from repro_torch.configs import with_kernel_impls as torch_with_kernel_impls
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
@@ -172,6 +173,83 @@ def test_rms_norm_matches_jax(impls):
     x, w = _x(3, 5, 64), _x(64, seed=1)
     close(tlayers.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5, tc),
           jlayers.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5, jc))
+
+
+@pytest.mark.parametrize("impls", ["reference", "auto"])
+def test_add_rms_norm_matches_jax(impls):
+    """(s, y) = add_rms_norm(x, h) against JAX's x + h and its rms_norm;
+    under ``reference`` it is ``x + h`` and ``rms_norm``, bit for bit."""
+    jc, tc = configs("qwen2.5-3b", impls)
+    x, h, w = _x(3, 5, 64), _x(3, 5, 64, seed=2), _x(64, seed=1)
+    tx, th, tw = (torch.from_numpy(a) for a in (x, h, w))
+    s, y = tlayers.add_rms_norm(tx, th, tw, 1e-5, tc)
+    js = jnp.asarray(x) + jnp.asarray(h)
+    close(s, js)
+    close(y, jlayers.rms_norm(js, jnp.asarray(w), 1e-5, jc))
+    if impls == "reference":
+        assert torch.equal(s, tx + th)
+        assert torch.equal(y, tlayers.rms_norm(tx + th, tw, 1e-5, tc))
+
+
+def _count_norm_forms(monkeypatch):
+    """Count the calls of each rmsnorm kernel op from the model code (on CPU
+    tensors the ops run their plain versions and count no launch)."""
+    from repro_torch.kernels import ops as kops
+    calls = {"plain": 0, "residual": 0, "gated": 0}
+    for name, form in (("rmsnorm_op", "plain"), ("add_rmsnorm_op", "residual"),
+                       ("gated_rmsnorm_op", "gated")):
+        def counted(*args, _fn=getattr(kops, name), _form=form, **kwargs):
+            calls[_form] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(kops, name, counted)
+    return calls
+
+
+def _norms_per_pass(cfg):
+    """(plain, residual, gated) norm calls of one forward pass under
+    ``auto``: the stack's first norm follows the embedding and no add; every
+    other norm follows a residual add (the final norm too); each Mamba2
+    mixer has one gated norm."""
+    gated = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    total = 2 * cfg.n_layers + 1 + (2 * cfg.n_attn_layers if cfg.family == "hybrid" else 0)
+    return {"plain": 1, "residual": total - 1 - gated, "gated": gated}
+
+
+@pytest.mark.parametrize("impls", ["reference", "auto"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_norm_after_an_add_takes_the_residual_form(arch, impls, monkeypatch):
+    """Under ``auto`` a prefill and a decode step each make one plain norm
+    call, a residual-form call for every other norm and a gated call for
+    every Mamba2 mixer; under ``reference`` none of the kernel ops."""
+    tc = torch_with_kernel_impls(
+        dataclasses.replace(torch_get_config(arch, smoke=True), dtype="float32"), impls)
+    tp = tmodel.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    calls = _count_norm_forms(monkeypatch)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, tc.vocab_size, size=(2, 9)))
+    logits, cache = tmodel.prefill(tp, {"tokens": toks}, tc)
+    per_pass = _norms_per_pass(tc)
+    want = per_pass if impls == "auto" else dict.fromkeys(per_pass, 0)
+    assert calls == want
+    full = tmodel.init_cache(tc, 2, 12, device="cpu")
+    for seg in cache:
+        for key, leaf in cache[seg].items():
+            full[seg][key][tuple(slice(0, n) for n in leaf.shape)] = leaf
+    tmodel.decode_step(tp, toks[:, -1:], full, 9, tc)
+    assert calls == {k: 2 * n for k, n in want.items()}
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_paged_decode_step_norms_take_the_residual_form(monkeypatch):
+    tc = torch_with_kernel_impls(
+        dataclasses.replace(torch_get_config("qwen2.5-3b", smoke=True), dtype="float32"), "auto")
+    tp = tmodel.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    pool = (tc.n_layers, 5, 4, tc.n_kv_heads, tc.head_dim)
+    kp, vp = torch.zeros(pool), torch.zeros(pool)
+    calls = _count_norm_forms(monkeypatch)
+    tmodel.paged_decode_step(tp, torch.tensor([[3], [7]]), kp, vp,
+                             np.array([[1, 2], [3, 4]], np.int32), np.array([0, 0]),
+                             np.array([1, 3]), np.array([0, 0]), tc)
+    assert calls == _norms_per_pass(tc)
 
 
 def test_apply_rope_matches_jax():

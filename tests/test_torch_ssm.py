@@ -24,12 +24,14 @@ import torch
 from _torch_parity import close, configs, params
 from repro.kernels import ref as jref
 from repro.kernels.ssd import ssd as pallas_ssd
+from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import ssm as jssm
 from repro.serving.batching import GenRequest as JaxGenRequest
 from repro.serving.engine import ContinuousEngine as JaxContinuousEngine
 from repro.serving.slot_state import find_batch_axes as jax_find_batch_axes
 from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models import ssm as tssm
 from repro_torch.serving.batching import GenRequest
@@ -169,6 +171,24 @@ def _mixer(arch, impls):
     if seg == "hybrid":
         jm, tm = _layer0(jm["mamba"]), _layer0(tm["mamba"])
     return jc, tc, _layer0(jm["mixer"]), _layer0(tm["mixer"])
+
+
+@pytest.mark.parametrize("impls", ["reference", "auto"])
+def test_gated_rms_norm_matches_jax(impls):
+    """gated_rms_norm on z sliced from a wider row (as mamba_block slices it
+    from in_proj's output) against JAX's; under ``reference`` it is
+    rms_norm(x * silu(z)), bit for bit."""
+    jc, tc = configs("mamba2-2.7b", impls)
+    d = tc.d_inner
+    x, zw, w = _x(2, 5, d, seed=12), _x(2, 5, 2 * d + 40, seed=13), _x(d, seed=14)
+    tz = _t(zw)[..., :d]
+    assert not tz.is_contiguous()
+    y = tlayers.gated_rms_norm(_t(x), tz, _t(w), tc.norm_eps, tc)
+    close(y, jlayers.gated_rms_norm(jnp.asarray(x), jnp.asarray(zw)[..., :d], jnp.asarray(w),
+                                    jc.norm_eps, jc))
+    if impls == "reference":
+        want = tlayers.rms_norm(_t(x) * torch.nn.functional.silu(tz), _t(w), tc.norm_eps, tc)
+        assert torch.equal(y, want)
 
 
 @pytest.mark.parametrize("impls", ["reference", "auto"])
