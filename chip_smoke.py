@@ -33,13 +33,25 @@ Run from the root of a checkout on a machine with one CUDA card. It
    counts of all three kernels, the sharing counters and the block pool,
    and holds float32 paged decode through the kernel against the gather
    path for 8 teacher-forced waves;
-6. frees those weights and serves 8 requests of full-width mixtral-8x22b
+6. runs HPC-Whisk on the card on the same weights: the port's
+   ``Platform.build(ScenarioConfig)`` (Slurm idle windows, pilot jobs,
+   invokers, controller) with the ``batched-serving`` executor hosting
+   full-width qwen2.5-3b, once dense and once paged (a 96-token tenant
+   prefix forked through the paged-attention kernel), then once with the
+   smoke engine the executor's factory builds itself on the default
+   device; each run checks that every request ends in a terminal outcome
+   and at least one succeeds, that every finished stream has its
+   ``n_new`` tokens, that the ``kv_*`` gauges read ``kv_stats()``, and the
+   kernels' launch counts (rmsnorm's by form) against the prefills, waves
+   and decode steps it counted, and profiles one batch through the
+   executor;
+7. frees those weights and serves 8 requests of full-width mixtral-8x22b
    cut to 4 of its 56 layers (bf16 weights from ``--seed``) through
    ``ContinuousEngine`` under ``kernel_impls="auto"``, checks the launch
    counts of the grouped-matmul, flash and rmsnorm kernels and every
    request's length, and holds one float32 1-layer prefill under ``auto``
    against ``reference``;
-7. frees those weights and serves 8 requests each of full-width,
+8. frees those weights and serves 8 requests each of full-width,
    full-depth mamba2-2.7b and zamba2-2.7b (fp32 weights from ``--seed``
    plus the bf16 copy) through ``ContinuousEngine`` under
    ``kernel_impls="auto"``, with a drain after 4 steps and a resume,
@@ -47,7 +59,7 @@ Run from the root of a checkout on a machine with one CUDA card. It
    request's length, profiles a decode step and one admission, and holds a
    float32 prefill and decode step of one mamba2 layer (one zamba2 group)
    under ``auto`` against ``reference``;
-8. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
+9. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
    form) and, last, the ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
@@ -1160,6 +1172,184 @@ def paged_parity(cfg, params, seed: int, waves: int = 8) -> float:
     return worst
 
 
+# The platform phase: HPC-Whisk on the card. One scenario for the full-width
+# runs (600 virtual seconds, 59 requests, 32 pilots); the paged run is cut
+# to PAGED_DURATION because each of its admissions decodes its 32 suffix
+# tokens one batch-1 wave at a time (~1.3-2.2 s a request on the card), and
+# the registry run builds the smoke engine itself
+PLATFORM_DURATION, PAGED_DURATION, REGISTRY_DURATION = 600.0, 150.0, 300.0
+
+
+def platform_run(tag: str, sc, expect_fn, profile_n: int = 4) -> dict:
+    """Build ``sc`` through the port's ``Platform.build`` (its executor
+    ``batched-serving``), drive it with every launch count at 0, and check:
+    every request terminal and the counts summing to ``n_submitted``; at
+    least one success; every stream the executor finished ``n_new`` long;
+    the ``kv_*`` gauges reading ``kv_stats()``; the kernels' launches (by
+    rmsnorm form too) equal to ``expect_fn(engine, calls)``, from the
+    engine's counters and the calls the phase counts here. Then one batch of
+    ``profile_n`` requests under the profiler (not counted)."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.platform import Platform
+    from repro_torch.platform.executors import _KV_GAUGES
+
+    t0 = time.perf_counter()
+    plat = Platform.build(sc)
+    ex, eng = plat.executor, plat.executor.engine
+    param_devices = sorted({t.device.type for t in tree_leaves(eng.params)})
+    calls = {"prefill": 0, "paged_wave": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    eng._prefill = counted("prefill", eng._prefill)
+    if hasattr(eng, "_decode_paged"):
+        eng._decode_paged = counted("paged_wave", eng._decode_paged)
+    charged, batches, resumed, short = [], [], [0], []
+    run_batch = ex.run_batch
+
+    def recorded(reqs):
+        resumed[0] += sum(r.id in ex._partials for r in reqs)
+        times = run_batch(reqs)
+        charged.extend(times)
+        batches.append(len(reqs))
+        short.extend(rid for rid, t in ex.last_results.items() if len(t) != ex.n_new)
+        return times
+
+    ex.run_batch = recorded
+    steps0 = eng.n_decode_steps
+    reset_launch_counts()
+    res = plat.run()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
+    wall = time.perf_counter() - t0
+
+    ex.run_batch = run_batch   # the profiled batch below is not recorded
+    oc = res.outcome_counts
+    waves = eng.n_decode_steps - steps0
+    mean_batch = statistics.fmean(batches) if batches else float("nan")
+    p50, p95 = (float(q) for q in np.percentile(charged, [50, 95])) if charged else (
+        float("nan"), float("nan"))
+    print(f"{tag}: submitted {res.n_submitted}, outcomes {oc}, executions {len(charged)} "
+          f"in {len(batches)} batches (mean batch {mean_batch:.3f}), waves {waves}, "
+          f"occupancy {eng.occupancy:.3f}, parked partials resumed {resumed[0]}, charged s "
+          f"p50 {p50:.4f} p95 {p95:.4f}, pilots {res.n_jobs_started}, evicted "
+          f"{res.n_evicted}, coverage {res.slurm_coverage:.4f}, parameters on "
+          f"{param_devices}, phase wall {wall:.2f} s")
+    if any(r.outcome is None for r in res.requests) or sum(oc.values()) != res.n_submitted:
+        raise AssertionError(f"{tag}: a request without a terminal outcome: {oc}, "
+                             f"{res.n_submitted} submitted")
+    if oc.get("success", 0) < 1:
+        raise AssertionError(f"{tag}: no request succeeded: {oc}")
+    if short:
+        raise AssertionError(f"{tag}: streams of ids {short} are not {ex.n_new} tokens long")
+    st = eng.kv_stats()
+    gauges = {k: [g.read() for g in plat.metrics.gauges_matching(f"kv_{k}").values()]
+              for k in _KV_GAUGES}
+    print(f"{tag}: kv gauges {gauges}; kv_stats share_hits {st['share_hits']}, "
+          f"resume_hits {st['resume_hits']}, mem_preempts {st['mem_preempts']}")
+    if any(v != [st[k]] for k, v in gauges.items()):
+        raise AssertionError(f"{tag}: kv gauges {gauges} != kv_stats {st}")
+    expect, passes = expect_fn(eng, calls, waves)
+    print(f"{tag}: {calls['prefill']} prefills, {calls['paged_wave']} paged waves "
+          f"(decode and extend), {waves} decode steps, launches {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts} != expected {expect}")
+    counts = check_norm_forms(tag, eng.cfg, passes, counts, forms)
+
+    @dataclasses.dataclass
+    class Req:
+        id: int
+        fn: str
+
+    reqs = [Req(id=10 ** 6 + i, fn=f"profile-{i}") for i in range(profile_n)]
+    out = {"submitted": res.n_submitted, "outcomes": oc, "executions": len(charged),
+           "mean_batch": mean_batch, "waves": waves, "occupancy": eng.occupancy,
+           "resumed": resumed[0], "charged_p50_s": p50, "charged_p95_s": p95,
+           "coverage": res.slurm_coverage, "wall_s": wall, "launches": counts,
+           "kv_share_hits": st["share_hits"], "param_devices": param_devices}
+    t = time.perf_counter()
+    out.update(profile_run(lambda: ex.run_batch(reqs),
+                           f"{tag}: one batch of {profile_n} requests through the executor",
+                           profile_n, "batch", "request"))
+    out["profile_s"] = time.perf_counter() - t
+    print(f"{tag}: the profiled batch took {out['profile_s']:.2f} s with the profiler's "
+          f"processing")
+    return out
+
+
+def platform_phase(cfg, params, seed: int) -> dict:
+    """HPC-Whisk on the card: the port's ``Platform.build(ScenarioConfig)``
+    (Slurm idle windows, pilot jobs, invokers, controller) with the
+    ``batched-serving`` executor hosting full-width qwen2.5-3b, dense and
+    paged (tenant prefix forks through the paged-attention kernel), then a
+    run whose executor builds its own smoke engine from the registry."""
+    from repro_torch.platform import (PlatformSection, ScenarioConfig, SchedulingSection,
+                                      TraceSection, WorkloadSection)
+    from repro_torch.serving.engine import ContinuousEngine, PagedContinuousEngine
+
+    def scenario(name, duration, **platform):
+        return ScenarioConfig(
+            name=name, duration=duration, seed=seed, trace=TraceSection(seed=4),
+            workload=WorkloadSection(qps=0.1, n_functions=8),
+            scheduling=SchedulingSection(model="fib"),
+            platform=PlatformSection(executor="batched-serving", kernel_impls="auto",
+                                     invoker_params={"concurrency": 4}, **platform))
+
+    def dense_expect(eng, calls, waves):
+        passes = calls["prefill"] + waves
+        return ({"rmsnorm": (2 * eng.cfg.n_layers + 1) * passes,
+                 "flash_attention": eng.cfg.n_layers * calls["prefill"],
+                 "paged_attention": 0, "moe_gmm": 0, "ssd": 0}, passes)
+
+    def paged_expect(eng, calls, waves):
+        passes = calls["prefill"] + calls["paged_wave"]
+        return ({"rmsnorm": (2 * eng.cfg.n_layers + 1) * passes,
+                 "flash_attention": eng.cfg.n_layers * calls["prefill"],
+                 "paged_attention": eng.cfg.n_layers * calls["paged_wave"],
+                 "moe_gmm": 0, "ssd": 0}, passes)
+
+    out, t0 = {}, time.perf_counter()
+    engine = ContinuousEngine(cfg, params, n_slots=4, max_seq=256, device="cuda")
+    sc = scenario("platform_dense", PLATFORM_DURATION,
+                  executor_params={"engine": engine, "prompt_len": 128, "n_new": 8})
+    print(f"platform dense: {cfg.arch_id} full width, ContinuousEngine 4 slots, max_seq 256, "
+          f"prompts 128 + 8 new, {sc.duration:g} virtual s, qps {sc.workload.qps}")
+    out["dense"] = platform_run("platform dense", sc, dense_expect)
+    del engine, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = PagedContinuousEngine(cfg, params, n_slots=4, max_seq=256, block_size=16,
+                                   attn="kernel", device="cuda")
+    sc = scenario("platform_paged", PAGED_DURATION, kv_layout="paged",
+                  executor_params={"engine": engine, "prompt_len": 128, "prefix_len": 96,
+                                   "n_new": 8})
+    print(f"platform paged: {cfg.arch_id} full width, PagedContinuousEngine(attn=kernel) 4 slots, "
+          f"prompts 128 (a 96-token tenant prefix) + 8 new, {sc.duration:g} virtual s")
+    # one profiled request: a paged admission is 32 batch-1 waves, ~2 s
+    out["paged"] = platform_run("platform paged", sc, paged_expect, profile_n=1)
+    if out["paged"]["kv_share_hits"] < 1:
+        raise AssertionError("platform paged: no admission forked the tenant prefix")
+    del engine, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sc = scenario("platform_registry", REGISTRY_DURATION, model="qwen2.5-3b")
+    print(f"platform registry: executor_params {{}}, platform.model {sc.platform.model!r}: "
+          f"the factory builds the smoke engine on the default device")
+    out["registry"] = platform_run("platform registry", sc, dense_expect)
+    if out["registry"]["param_devices"] != ["cuda"]:
+        raise AssertionError(f"platform registry: the factory's engine holds parameters "
+                             f"on {out['registry']['param_devices']}, not on cuda")
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"platform: phase wall {out['phase_wall_s']:.2f} s (three runs and their profiles)")
+    return out
+
+
 def moe_phase(seed: int):
     """Full-width mixtral-8x22b, 4 of its 56 layers (the only cut), bf16
     weights, served through ContinuousEngine under ``kernel_impls="auto"``:
@@ -1518,6 +1708,7 @@ def main(argv=None) -> int:
     counts, serving, cfg, params = slice_phase(args.seed)
     paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
     serving.update(paged_serving)
+    serving["platform"] = platform_phase(cfg, params, args.seed)
     del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
     gc.collect()
     torch.cuda.empty_cache()

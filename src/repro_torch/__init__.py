@@ -1,4 +1,6 @@
-"""PyTorch / CUDA port of the serving half of ``repro``.
+"""PyTorch / CUDA port of ``repro``: the model zoo and serving engines on
+the card, and the HPC-Whisk platform (``core``, ``faas``, ``platform``)
+whose serving executors host them.
 
 Module names mirror ``repro`` so each counterpart is easy to find. The port
 imports ``torch`` and numpy only: never ``jax`` and never a ``repro.*``
@@ -13,6 +15,7 @@ from typing import Any
 
 # public name -> defining submodule (resolved on first attribute access)
 _EXPORTS = {
+    "BatchedServingExecutor": "repro_torch.platform.executors",
     "BlockAllocator": "repro_torch.serving.kvcache",
     "ContinuousEngine": "repro_torch.serving.engine",
     "GenRequest": "repro_torch.serving.batching",
@@ -20,6 +23,8 @@ _EXPORTS = {
     "OutOfBlocks": "repro_torch.serving.kvcache",
     "PagedContinuousEngine": "repro_torch.serving.engine",
     "PagedKVCache": "repro_torch.serving.kvcache",
+    "Platform": "repro_torch.platform.runtime",
+    "ScenarioConfig": "repro_torch.platform.scenario",
     "ServingEngine": "repro_torch.serving.engine",
     "SlotBatcher": "repro_torch.serving.batching",
     "cast_params": "repro_torch.models.model",

@@ -15,14 +15,14 @@ _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 # architectures of ``repro`` that a later slice of the port brings
 _LATER = {
-    "stablelm-12b": "the platform-executor slice (dense)",
-    "qwen1.5-4b": "the platform-executor slice (dense)",
     "hubert-xlarge": "the forward/loss_fn slice (encoder-only, gelu)",
     "internvl2-26b": "the forward/loss_fn slice (vision frontend)",
     "deepseek-v2-lite-16b": "the MLA slice",

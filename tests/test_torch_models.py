@@ -29,12 +29,14 @@ from repro_torch.models.weights import params_from_numpy
 
 pytestmark = pytest.mark.slow
 
-ARCHS = ["qwen2.5-3b", "internlm2-1.8b"]
+ARCHS = ["qwen2.5-3b", "internlm2-1.8b", "qwen1.5-4b", "stablelm-12b"]
 ALL_ARCHS = ARCHS + ["mixtral-8x22b", "mamba2-2.7b", "zamba2-2.7b"]
 # kernel sites under ``auto``: every arch runs rmsnorm, attention archs
 # flash attention, MoE archs the grouped matmul, SSM and hybrid archs ssd
 AUTO_SITES = {"qwen2.5-3b": ("attention", "rmsnorm"),
               "internlm2-1.8b": ("attention", "rmsnorm"),
+              "qwen1.5-4b": ("attention", "rmsnorm"),
+              "stablelm-12b": ("attention", "rmsnorm"),
               "mixtral-8x22b": ("attention", "moe", "rmsnorm"),
               "mamba2-2.7b": ("rmsnorm", "ssm"),
               "zamba2-2.7b": ("attention", "rmsnorm", "ssm")}
@@ -64,7 +66,7 @@ def test_config_equals_repro_field_by_field(arch, smoke):
 
 @pytest.mark.parametrize("arch,slice_name", [("deepseek-v2-lite-16b", "MLA"),
                                              ("hubert-xlarge", "forward/loss_fn"),
-                                             ("stablelm-12b", "platform-executor")])
+                                             ("internvl2-26b", "forward/loss_fn")])
 def test_unported_arch_names_its_slice(arch, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         torch_get_config(arch)

@@ -181,8 +181,10 @@ def test_no_jax_or_repro_import_in_port_sources():
 def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
     _, tc, _, tp = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch.launch import serve
+    from repro_torch.benchmarks import serving_batching
+    from repro_torch.launch import harvest_serving, serve
     from repro_torch.models.weights import params_from_numpy
+    from repro_torch.platform.executors import build_batched_serving, build_serving
     tree = tmodel.tree_map(lambda t: t.numpy(), tp)
     calls = [
         lambda: ContinuousEngine(tc, tp),
@@ -194,6 +196,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
         lambda: params_from_numpy(tree, tc),
         lambda: tmodel.init_cache(tc, 1, 8),
         lambda: serve.main(["--requests", "1"]),
+        lambda: build_batched_serving(None),
+        lambda: build_batched_serving(None, kv_layout="paged"),
+        lambda: build_serving(None),
+        lambda: harvest_serving.main(["--minutes", "1"]),
+        lambda: serving_batching.bench_serving(n_requests=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
