@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with one CUDA card. It
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (flash and paged attention also at head_dim 8 and
-   160) and times kernel, plain version and a library yardstick (CUDA
-   events); the rmsnorm kernel's three forms (plain, residual add, Mamba2
+   160, flash not causal at hubert-xlarge's head_dim 80, ``moe_gmm`` at
+   deepseek-v2-lite-16b's 64 experts of 1408) and times kernel, plain
+   version and a library yardstick (CUDA events); the rmsnorm kernel's three forms (plain, residual add, Mamba2
    gate) at rows 1 to 777 of every width the configs norm, the residual
    form's outputs bit for bit against ``torch.add`` and the plain kernel,
    the bf16 gated form against the plain kernel on ``x * F.silu(z)`` in
@@ -59,8 +60,30 @@ Run from the root of a checkout on a machine with one CUDA card. It
    request's length, profiles a decode step and one admission, and holds a
    float32 prefill and decode step of one mamba2 layer (one zamba2 group)
    under ``auto`` against ``reference``;
-9. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
-   form) and, last, the ``{"ok": true, ...}`` line.
+9. serves 8 requests of (512, 32) of full-width, full-depth
+   deepseek-v2-lite-16b (MLA over a 576-wide latent cache, 64 experts
+   top-6 on ``moe_gmm``; bf16 weights) through ``ContinuousEngine`` under
+   ``kernel_impls="auto"``, with a drain after 4 steps and a resume, checks
+   the exact launches (rmsnorm by form, ``moe_gmm`` 3 a moe layer a pass,
+   no flash), every request's length and the latent cache's bytes against
+   ``cache_spec``, profiles a decode step and one admission, and at float32
+   on a 1 dense + 2 moe layer cut holds a prefill under ``auto`` against
+   ``reference`` and the absorbed decode at position S against the
+   decompressed forward;
+10. runs ``loss_fn`` through the frontends at full width and depth:
+   hubert-xlarge on (2, 512) audio frames (non-causal flash, LayerNorm)
+   and internvl2-26b (bf16 weights) on 256 patches + 256 text tokens,
+   each with exact launch counts; and hubert at float32 cut to 2 layers,
+   ``auto`` against ``reference``;
+11. serves 4 requests of (512, 16) of full-width, full-depth stablelm-12b
+   (bf16 weights; flash at head_dim 160) with exact launch counts;
+12. every serving phase (qwen2.5-3b, mixtral, mamba2, zamba2, deepseek,
+   stablelm) also calls ``ServingEngine.score`` on (2, 512) tokens with the
+   weights it holds, checks the forward's launches and a finite loss, and
+   frees its weights before the next phase; each phase's wall prints;
+13. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
+   form; each kernel's launches summed over every path above) and, last,
+   the ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
 with code 2 before printing any result. It imports no JAX.
@@ -363,14 +386,25 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
         return lhs, rhs, te
 
     # (T, D, F, E, block_t, dtype, label): the capacity buffers of the main
-    # path (cap 8 at the 4-slot decode wave, cap 160 at a 512-token prefill;
-    # block_t = gcd(cap, 128)), w_gate/w_up and w_down shapes, then small
-    # float32 cases
+    # path (cap 8 at the 4-slot decode wave, cap 160 at a 512-token prefill,
+    # here at block_t 8 and 32; the path passes block_t = cap, one map entry
+    # an expert, which gives the same bits), w_gate/w_up and w_down shapes,
+    # then small float32 cases
     d_model, d_ff, e_full = 6144, 16384, 8
+    # deepseek-v2-lite-16b: 64 experts, moe_d_ff 1408 (not a multiple of the
+    # 256-column CTA tile); cap 8 at the 4-slot decode wave, 64 at a
+    # 512-token prefill, 120 at a forward of (2, 512) (checked at block_t 8
+    # under the 192-row tile, and at the path's 120)
+    ds_d, ds_f, ds_e = 2048, 1408, 64
     cases = [(64, d_model, d_ff, e_full, 8, torch.bfloat16, "decode w_gate/w_up"),
              (64, d_ff, d_model, e_full, 8, torch.bfloat16, "decode w_down"),
              (1280, d_model, d_ff, e_full, 32, torch.bfloat16, "prefill w_gate/w_up"),
              (1280, d_ff, d_model, e_full, 32, torch.bfloat16, "prefill w_down"),
+             (512, ds_d, ds_f, ds_e, 8, torch.bfloat16, "deepseek decode w_gate/w_up"),
+             (512, ds_f, ds_d, ds_e, 8, torch.bfloat16, "deepseek decode w_down"),
+             (4096, ds_d, ds_f, ds_e, 64, torch.bfloat16, "deepseek prefill w_gate/w_up"),
+             (7680, ds_d, ds_f, ds_e, 8, torch.bfloat16, "deepseek forward w_gate/w_up"),
+             (7680, ds_f, ds_d, ds_e, 8, torch.bfloat16, "deepseek forward w_down"),
              (256, 64, 96, 4, 32, torch.float32, "F not a multiple of the tile"),
              (64, 64, 96, 8, 8, torch.float32, "block_t 8"),
              (128, 32, 200, 2, 64, torch.float32, "E 2"),
@@ -381,8 +415,18 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
         err = check_close(name, moe_gmm_op(lhs, rhs, te, block_t=bt),
                           moe_gmm_tiles_ref(lhs, rhs, te, bt), TOL[dtype])
         torch.cuda.synchronize()
-        print(f"check {name}: max abs err {err:.3e}")
+        print(f"check {name}: max abs err {err:.3e}, {row_tile(t, e)}-row tiles")
         res["err"] = max(res["err"], err)
+        if label.startswith("deepseek"):
+            check_repeat(f"moe_gmm {label}", lambda: moe_gmm_op(lhs, rhs, te, block_t=bt))
+        if label == "deepseek forward w_gate/w_up":
+            # the path passes block_t = cap (one map entry an expert): the
+            # kernel cuts tiles per run of equal expert, so the same bits
+            cap = t // e
+            check_bits(f"moe_gmm {label} block_t {cap} vs {bt}",
+                       moe_gmm_op(lhs, rhs, torch.arange(e, device=dev, dtype=torch.int32),
+                                  block_t=cap), moe_gmm_op(lhs, rhs, te, block_t=bt))
+            print(f"check moe_gmm {label}: block_t {cap} gives block_t {bt}'s bits")
     # ragged groups padded by pad_group_sizes (an empty group, zero rows)
     sizes = torch.tensor([5, 0, 17, 8], dtype=torch.int32, device=dev)
     padded, offs = pad_group_sizes(sizes, 8)
@@ -400,14 +444,18 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
           f"block_t 8, float32: max abs err {err:.3e}")
     res["err"] = max(res["err"], err)
 
-    # timing at the main path's shapes, bf16: w_gate/w_up (D 6144 -> F 16384)
-    # and w_down (16384 -> 6144)
-    for t, d, f, bt, label in ((64, d_model, d_ff, 8, "decode"),
-                               (1280, d_model, d_ff, 32, "prefill"),
-                               (64, d_ff, d_model, 8, "decode w_down"),
-                               (1280, d_ff, d_model, 32, "prefill w_down")):
-        lhs, rhs, te = case(t, d, f, e_full, bt, torch.bfloat16, scale=d ** -0.5)
-        buf = lhs.view(e_full, t // e_full, d)
+    # timing at the main paths' shapes, bf16: mixtral's w_gate/w_up (D 6144
+    # -> F 16384) and w_down (16384 -> 6144), deepseek's w_gate/w_up
+    for t, d, f, e, bt, label in ((64, d_model, d_ff, e_full, 8, "decode"),
+                                  (1280, d_model, d_ff, e_full, 32, "prefill"),
+                                  (64, d_ff, d_model, e_full, 8, "decode w_down"),
+                                  (1280, d_ff, d_model, e_full, 32, "prefill w_down"),
+                                  (512, ds_d, ds_f, ds_e, 8, "deepseek decode"),
+                                  (4096, ds_d, ds_f, ds_e, 64, "deepseek prefill"),
+                                  (7680, ds_d, ds_f, ds_e, 120, "deepseek forward"),
+                                  (7680, ds_d, ds_f, ds_e, 8, "deepseek forward block_t 8")):
+        lhs, rhs, te = case(t, d, f, e, bt, torch.bfloat16, scale=d ** -0.5)
+        buf = lhs.view(e, t // e, d)
         check_close(f"moe_gmm {label} library yardstick (torch.bmm) vs plain",
                     torch.bmm(buf, rhs).reshape(t, f), moe_gmm_tiles_ref(lhs, rhs, te, bt),
                     TOL[torch.bfloat16])
@@ -417,8 +465,8 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
                         lambda: moe_gmm_tiles_ref(lhs, rhs, te, bt),
                         lambda: torch.bmm(buf, rhs), plain_graph=False)
         tm.update(bound_ms=bound, bound_by=by,
-                  shape=f"{label}: lhs ({t},{d}) rhs ({e_full},{d},{f}) "
-                        f"block_t {bt} bf16, {row_tile(t, e_full)}-row tiles; plain timed "
+                  shape=f"{label}: lhs ({t},{d}) rhs ({e},{d},{f}) "
+                        f"block_t {bt} bf16, {row_tile(t, e)}-row tiles; plain timed "
                         f"eager (it waits for the device); library: torch.bmm over the "
                         f"(E, C, D) capacity buffer")
         report(f"moe_gmm {label}", tm)
@@ -765,8 +813,11 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
     # head_dim 8 (internvl2-26b's smoke) and 160 (stablelm-12b, 32/8 heads)
     cases += [(1, 4, 2, 200, 8, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
     cases += [(1, 32, 8, 300, 160, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
-    # mixtral-8x22b's attention at its 512-token prefill: 48 heads on 8 kv heads
+    # mixtral-8x22b's and internvl2-26b's attention at a 512-token prefill:
+    # 48 heads on 8 kv heads
     cases += [(1, 48, 8, 512, 128, True, None, torch.bfloat16)]
+    # hubert-xlarge's encoder: 16 heads of 80, not causal
+    cases += [(1, 16, 16, 512, 80, False, None, dt) for dt in (torch.float32, torch.bfloat16)]
     for b, h, kv, s, dd, causal, window, dtype in cases:
         q, k, v = qkv(b, h, kv, s, dd, dtype)
         name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
@@ -785,20 +836,24 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
         print(f"check {name}: max abs err {err:.3e} (atol={TOL[dtype][0]} "
               f"rtol={TOL[dtype][1]}){tiles}")
         results["flash_attention"]["err"] = max(results["flash_attention"]["err"], err)
-    # timing at the prefill shapes of zamba2's shared block (32 heads of 80)
-    # and, for the kernels line, of qwen2.5-3b
-    for label, (b, h, kv, s, dd) in (("flash_attention head_dim 80", (1, 32, 32, 512, 80)),
-                                     ("flash_attention", (1, 16, 2, 512, 128))):
+    # timing at the prefill shapes of zamba2's shared block (32 heads of 80),
+    # of hubert's encoder (16 heads of 80, not causal) and, for the kernels
+    # line, of qwen2.5-3b
+    for label, (b, h, kv, s, dd), causal in (
+            ("flash_attention head_dim 80", (1, 32, 32, 512, 80), True),
+            ("flash_attention non-causal head_dim 80", (1, 16, 16, 512, 80), False),
+            ("flash_attention", (1, 16, 2, 512, 128), True)):
         q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
         k_rep = k.repeat_interleave(h // kv, dim=1)
         v_rep = v.repeat_interleave(h // kv, dim=1)
-        bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16)
-        t = time_three(lambda: flash_attention_op(q, k, v, causal=True),
-                       lambda: flash_attention_ref(q, k, v, causal=True),
+        bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16, causal=causal)
+        t = time_three(lambda: flash_attention_op(q, k, v, causal=causal),
+                       lambda: flash_attention_ref(q, k, v, causal=causal),
                        lambda: torch.nn.functional.scaled_dot_product_attention(
-                           q, k_rep, v_rep, is_causal=True))
+                           q, k_rep, v_rep, is_causal=causal))
         t.update(bound_ms=bound, bound_by=by,
-                 shape=f"q ({b},{h},{s},{dd}) kv {kv} causal bf16; library: SDPA, K/V repeated")
+                 shape=f"q ({b},{h},{s},{dd}) kv {kv} {'causal' if causal else 'not causal'} "
+                       f"bf16; library: SDPA, K/V repeated")
         report(label, t)
     results["flash_attention"].update(t)
     return results["flash_attention"]
@@ -906,7 +961,6 @@ def profile_run(run, label: str, n: int, key: str, unit: str) -> dict:
 
 def slice_phase(seed: int):
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -931,64 +985,19 @@ def slice_phase(seed: int):
     engine.run()
     torch.cuda.synchronize()
 
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    steps0, prefill0 = engine.n_decode_steps, engine.prefill_tokens
-    add_ms, step_ms, admit_step_ms = [], [], []
-    t_start = time.perf_counter()
-    for i, p in enumerate(prompts):
-        t = time.perf_counter()
-        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
-        if i < n_slots:  # admitted at once: prefill + graft + first token
-            add_ms.append(1e3 * (time.perf_counter() - t))
-    while engine.batcher.active():
-        before = engine.prefill_tokens
-        t = time.perf_counter()
-        engine.step()  # ends in a host copy of the picked tokens
-        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
-            1e3 * (time.perf_counter() - t))
-    wall = time.perf_counter() - t_start
-    counts, forms = launch_counts(), rmsnorm_form_counts()
-    done = engine.run()
-    peak = torch.cuda.max_memory_allocated()
-
-    n_steps = engine.n_decode_steps - steps0
-    n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
-    per_pass = 2 * cfg.n_layers + 1
-    expect = {"rmsnorm": per_pass * (n_prefills + n_steps),
-              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
-              "moe_gmm": 0, "ssd": 0}
-    print(f"slice: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
-          f"expected {expect}")
+    run = drive(engine, prompts, new_tok, GenRequest)
+    n_steps, n_prefills = run["steps"], run["prefills"]
+    print(f"slice: {n_prefills} prefills, {n_steps} decode steps")
     if n_prefills != n_req:
         raise AssertionError(f"{n_prefills} prefills, expected {n_req}")
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
-    counts = check_norm_forms("slice", cfg, n_prefills + n_steps, counts, forms)
-    if sorted(r.id for r in done) != list(range(n_req)):
-        raise AssertionError(f"finished ids {sorted(r.id for r in done)}")
-    for r in done:
-        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"request {r.id}: {len(r.generated)} tokens "
-                                 f"{r.generated[:8]}...")
-    n_tok = n_req * new_tok
-    serving = {
-        "tokens_per_s": n_tok / wall,
-        "wall_s": wall,
-        "prefill_ms": statistics.median(add_ms),
-        "decode_ms_per_step": statistics.median(step_ms),
-        "admit_step_ms": admit_step_ms,
-        "peak_memory_bytes": peak,
-        "decode_steps": n_steps,
-    }
-    print(f"slice: served {n_req} requests x {new_tok} tokens in {wall:.3f} s = "
-          f"{serving['tokens_per_s']:.1f} tok/s; prefill ({prompt_len} tokens, batch 1) median "
-          f"{serving['prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
-          f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
-          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+    expect = dict(forward_counts(cfg, n_prefills + n_steps),
+                  flash_attention=cfg.n_layers * n_prefills)
+    counts = check_counts("slice", cfg, run["counts"], run["forms"], expect,
+                          n_prefills + n_steps)
+    serving = serving_summary("slice", run, n_req, new_tok, None)
     serving.update(profile_decode(engine, prompts, GenRequest))
     serving.update(profile_prefill(engine, prompts[0], GenRequest))
-    del engine, done
+    del engine
 
     # float32 prefill under auto vs reference, same weights (f32 params)
     tok = torch.as_tensor([prompts[0]], dtype=torch.int64, device="cuda")
@@ -1355,7 +1364,6 @@ def moe_phase(seed: int):
     weights, served through ContinuousEngine under ``kernel_impls="auto"``:
     attention, the MoE grouped matmul and every norm on the kernels."""
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -1385,63 +1393,19 @@ def moe_phase(seed: int):
     engine.run()
     torch.cuda.synchronize()
 
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    steps0, prefill0 = engine.n_decode_steps, engine.prefill_tokens
-    add_ms, step_ms, admit_step_ms = [], [], []
-    t_start = time.perf_counter()
-    for i, p in enumerate(prompts):
-        t = time.perf_counter()
-        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
-        if i < n_slots:  # admitted at once: prefill + graft + first token
-            add_ms.append(1e3 * (time.perf_counter() - t))
-    while engine.batcher.active():
-        before = engine.prefill_tokens
-        t = time.perf_counter()
-        engine.step()  # ends in a host copy of the picked tokens
-        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
-            1e3 * (time.perf_counter() - t))
-    wall = time.perf_counter() - t_start
-    counts, forms = launch_counts(), rmsnorm_form_counts()
-    done = engine.run()
-    peak = torch.cuda.max_memory_allocated()
-
-    n_steps = engine.n_decode_steps - steps0
-    n_prefills = (engine.prefill_tokens - prefill0) // prompt_len
+    run = drive(engine, prompts, new_tok, GenRequest)
+    n_steps, n_prefills = run["steps"], run["prefills"]
     passes = n_prefills + n_steps
-    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * passes,
-              "flash_attention": cfg.n_layers * n_prefills, "paged_attention": 0,
-              "moe_gmm": 3 * cfg.n_layers * passes, "ssd": 0}
-    print(f"moe: {n_prefills} prefills, {n_steps} decode steps, launches {counts}, "
-          f"expected {expect}")
+    print(f"moe: {n_prefills} prefills, {n_steps} decode steps")
     if n_prefills != n_req:
         raise AssertionError(f"moe: {n_prefills} prefills, expected {n_req}")
-    if counts != expect:
-        raise AssertionError(f"moe: launch counts {counts} != expected {expect}")
-    counts = check_norm_forms("moe", cfg, passes, counts, forms)
-    if sorted(r.id for r in done) != list(range(n_req)):
-        raise AssertionError(f"moe: finished ids {sorted(r.id for r in done)}")
-    for r in done:
-        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"moe: request {r.id}: {len(r.generated)} tokens "
-                                 f"{r.generated[:8]}...")
-    serving = {
-        "moe_tokens_per_s": n_req * new_tok / wall,
-        "moe_wall_s": wall,
-        "moe_prefill_ms": statistics.median(add_ms),
-        "moe_decode_ms_per_step": statistics.median(step_ms),
-        "moe_admit_step_ms": admit_step_ms,
-        "moe_peak_memory_bytes": peak,
-        "moe_init_peak_memory_bytes": init_peak,
-        "moe_decode_steps": n_steps,
-    }
-    print(f"moe: served {n_req} requests x {new_tok} tokens in {wall:.3f} s = "
-          f"{serving['moe_tokens_per_s']:.2f} tok/s; prefill ({prompt_len} tokens, batch 1) "
-          f"median {serving['moe_prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
-          f"{serving['moe_decode_ms_per_step']:.2f} ms; steps with an admission "
-          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+    expect = dict(forward_counts(cfg, passes), flash_attention=cfg.n_layers * n_prefills)
+    counts = check_counts("moe", cfg, run["counts"], run["forms"], expect, passes)
+    serving = {"moe_" + k: x for k, x in
+               serving_summary("moe", run, n_req, new_tok, init_peak).items()}
     serving.update({"moe_" + k: x for k, x in profile_decode(engine, prompts, GenRequest).items()})
-    del engine, done, params
+    serving["moe_score"] = score_leg("moe", cfg, engine.params, seed)
+    del engine, params
     gc.collect()
     torch.cuda.empty_cache()
     serving["moe_f32_logits_max_abs_err"] = moe_parity(seed, prompts[0])
@@ -1490,7 +1454,6 @@ def ssm_phase(arch: str, seed: int):
     of the 256-token chunk, so the dt=0 padding is on the path), a drain
     after 4 decode steps and a resume of every drained request."""
     from repro_torch.configs import get_config, with_kernel_impls
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.models import model as M
     from repro_torch.serving.batching import GenRequest
     from repro_torch.serving.engine import ContinuousEngine
@@ -1519,77 +1482,23 @@ def ssm_phase(arch: str, seed: int):
     engine.run()
     torch.cuda.synchronize()
 
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    steps0 = engine.n_decode_steps
-    add_ms, step_ms, admit_step_ms = [], [], []
-
-    def timed_step():
-        before = engine.prefill_tokens
-        t = time.perf_counter()
-        engine.step()  # ends in a host copy of the picked tokens
-        (step_ms if engine.prefill_tokens == before else admit_step_ms).append(
-            1e3 * (time.perf_counter() - t))
-
-    t_start = time.perf_counter()
-    for i, p in enumerate(prompts):
-        t = time.perf_counter()
-        engine.add(GenRequest(id=i, prompt=p, max_new=new_tok))
-        if i < n_slots:  # admitted at once: prefill + graft + first token
-            add_ms.append(1e3 * (time.perf_counter() - t))
-    for _ in range(drain_after):
-        timed_step()
-    drained = engine.drain()
-    resumed = sum(1 for r in drained if r.generated and r.remaining > 0)
-    if len(drained) != n_req or resumed != n_slots or engine.batcher.active():
-        raise AssertionError(f"{tag}: drained {len(drained)}, {resumed} in flight")
-    for r in drained:
-        engine.add(r)  # resume: prompt + generated so far, prefilled again
-    while engine.batcher.active():
-        timed_step()
-    wall = time.perf_counter() - t_start
-    counts, forms = launch_counts(), rmsnorm_form_counts()
-    done = engine.run()
-    peak = torch.cuda.max_memory_allocated()
-
-    n_steps = engine.n_decode_steps - steps0
-    n_prefills = n_req + resumed  # each request once, each drained in-flight one again
+    run = drive(engine, prompts, new_tok, GenRequest, drain_after=drain_after)
+    n_steps, n_prefills, resumed = run["steps"], run["prefills"], run["resumed"]
+    if n_prefills != n_req + resumed:  # each request once, each drained in-flight one again
+        raise AssertionError(f"{tag}: {n_prefills} prefills, expected {n_req + resumed}")
     passes = n_prefills + n_steps
-    n_attn = cfg.n_attn_layers  # zamba2's shared block, once per group
-    expect = {"rmsnorm": (2 * cfg.n_layers + 2 * n_attn + 1) * passes,
-              "flash_attention": n_attn * n_prefills, "paged_attention": 0, "moe_gmm": 0,
-              "ssd": cfg.n_layers * n_prefills}
     print(f"{tag}: {n_prefills} prefills ({resumed} of them resumes), {n_steps} decode "
-          f"steps, launches {counts}, expected {expect}")
-    if counts != expect:
-        raise AssertionError(f"{tag}: launch counts {counts} != expected {expect}")
-    counts = check_norm_forms(tag, cfg, passes, counts, forms)
-    if sorted(r.id for r in done) != list(range(n_req)):
-        raise AssertionError(f"{tag}: finished ids {sorted(r.id for r in done)}")
-    for r in done:
-        if len(r.generated) != new_tok or not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"{tag}: request {r.id}: {len(r.generated)} tokens "
-                                 f"{r.generated[:8]}...")
-    serving = {
-        "tokens_per_s": n_req * new_tok / wall,
-        "wall_s": wall,
-        "prefill_ms": statistics.median(add_ms),
-        "decode_ms_per_step": statistics.median(step_ms),
-        "admit_step_ms": admit_step_ms,
-        "peak_memory_bytes": peak,
-        "init_peak_memory_bytes": init_peak,
-        "decode_steps": n_steps,
-        "prefills": n_prefills,
-    }
-    print(f"{tag}: served {n_req} requests x {new_tok} tokens (prompts {int(lens.min())}-"
-          f"{int(lens.max())}, drain after {drain_after} steps) in {wall:.3f} s = "
-          f"{serving['tokens_per_s']:.2f} tok/s; prefill (batch 1) median "
-          f"{serving['prefill_ms']:.2f} ms; decode step ({n_slots} slots) median "
-          f"{serving['decode_ms_per_step']:.2f} ms; steps with an admission "
-          f"{['%.2f' % x for x in admit_step_ms]} ms; peak memory {peak} bytes")
+          f"steps; prompts {int(lens.min())}-{int(lens.max())}, drain after {drain_after} steps")
+    # decode steps run neither flash (zamba2's shared block attends once a
+    # group at each prefill) nor ssd (the state steps in PyTorch)
+    expect = dict(forward_counts(cfg, passes), flash_attention=cfg.n_attn_layers * n_prefills,
+                  ssd=cfg.n_ssm_layers * n_prefills)
+    counts = check_counts(tag, cfg, run["counts"], run["forms"], expect, passes)
+    serving = serving_summary(tag, run, n_req, new_tok, init_peak)
     serving.update(profile_decode(engine, prompts, GenRequest))
     serving.update(profile_prefill(engine, prompts[0], GenRequest))
-    del engine, done, params
+    serving["score"] = score_leg(tag, cfg, engine.params, seed)
+    del engine, params
     gc.collect()
     torch.cuda.empty_cache()
     serving["f32_logits_max_abs_err"] = ssm_parity(arch, seed, prompts[1])
@@ -1635,6 +1544,378 @@ def ssm_parity(arch: str, seed: int, prompt) -> float:
     del params, logits, nxt
     torch.cuda.empty_cache()
     return err
+
+
+# repro's decode==forward tolerance (tests/test_models.py), for the absorbed
+# MLA decode against the decompressed forward at float32
+DECODE_TOL = (2e-4, 2e-3)
+
+
+def forward_counts(cfg, passes: int = 1) -> dict:
+    """Each kernel's launches over ``passes`` full-sequence passes (prefills,
+    forwards) under ``auto``: one rmsnorm a norm (none for the gelu
+    encoder's LayerNorms), flash once a GQA attention layer (MLA has no
+    flash twin), three moe_gmm a moe layer, ssd once a mamba layer."""
+    norms = 0 if cfg.act == "gelu" else (
+        2 * cfg.n_layers + 1 + (2 * cfg.n_attn_layers if cfg.family == "hybrid" else 0))
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
+    return {"rmsnorm": norms * passes,
+            "flash_attention": (0 if cfg.use_mla else cfg.n_attn_layers) * passes,
+            "paged_attention": 0, "moe_gmm": 3 * moe_layers * passes,
+            "ssd": cfg.n_ssm_layers * passes}
+
+
+def check_counts(tag: str, cfg, counts: dict, forms: dict, expect: dict, passes: int) -> dict:
+    """Assert the launches (rmsnorm's by form, where the arch norms with
+    it); returns ``counts`` with the forms under ``rmsnorm_forms``."""
+    print(f"{tag}: launches {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts} != expected {expect}")
+    if cfg.act == "gelu":
+        if any(forms.values()):
+            raise AssertionError(f"{tag}: rmsnorm forms {forms} on a LayerNorm arch")
+        return dict(counts, rmsnorm_forms=forms)
+    return check_norm_forms(tag, cfg, passes, counts, forms)
+
+
+def score_leg(tag: str, cfg, params, seed: int, batch: int = 2, seq: int = 512) -> dict:
+    """``ServingEngine.score`` on (batch, seq) random tokens with the
+    phase's weights: one forward of (batch, seq - 1) tokens through
+    ``loss_fn``, every launch counted; the loss must be finite."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_seq=seq, device="cuda")
+    toks = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, size=(batch, seq))
+    engine.score(toks)  # warm-up at the same shape (allocator, cuBLAS), not counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    loss = engine.score(toks)   # float(): waits for the card
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    counts = check_counts(f"{tag} score", cfg, launch_counts(), rmsnorm_form_counts(),
+                          forward_counts(cfg), 1)
+    if not np.isfinite(loss):
+        raise AssertionError(f"{tag} score: loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} score: ServingEngine.score on ({batch}, {seq}) tokens = {loss:.4f} "
+          f"(ln vocab {np.log(cfg.vocab_size):.4f}), {wall_ms:.2f} ms, peak memory {peak} bytes")
+    out = {"loss": loss, "wall_ms": wall_ms, "peak_memory_bytes": peak, "launches": counts}
+    out.update(profile_run(lambda: engine.score(toks), f"{tag} score (one forward of "
+                           f"({batch}, {seq - 1}) tokens, profiler on)", 1, "score", "score"))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive(engine, prompts, new_tok: int, gen_request, drain_after=None) -> dict:
+    """Serve ``prompts`` through a warm ``engine`` with every launch count
+    at 0: admit them all, step (and, after ``drain_after`` steps, drain
+    and resubmit every request, resumed by re-prefill) until idle. Returns
+    the timings, the launches read just after, the finished requests, and
+    the prefills (counted at the engine's prefill call) and decode steps."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+
+    n_slots = engine.n_slots
+    prefills = [0]
+    prefill = engine._prefill
+
+    def counted(context):
+        prefills[0] += 1
+        return prefill(context)
+
+    engine._prefill = counted
+    add_ms, step_ms, admit_step_ms = [], [], []
+
+    def timed_step():
+        before = prefills[0]
+        t = time.perf_counter()
+        engine.step()  # ends in a host copy of the picked tokens
+        (step_ms if prefills[0] == before else admit_step_ms).append(
+            1e3 * (time.perf_counter() - t))
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, resumed = engine.n_decode_steps, 0
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        t = time.perf_counter()
+        engine.add(gen_request(id=i, prompt=p, max_new=new_tok))
+        if i < n_slots:  # admitted at once: prefill + graft + first token
+            add_ms.append(1e3 * (time.perf_counter() - t))
+    if drain_after is not None:
+        for _ in range(drain_after):
+            timed_step()
+        drained = engine.drain()
+        resumed = sum(1 for r in drained if r.generated and r.remaining > 0)
+        if len(drained) != len(prompts) or resumed != n_slots or engine.batcher.active():
+            raise AssertionError(f"drained {len(drained)}, {resumed} in flight")
+        for r in drained:
+            engine.add(r)  # resume: prompt + generated so far, prefilled again
+    while engine.batcher.active():
+        timed_step()
+    wall = time.perf_counter() - t_start
+    counts, forms = launch_counts(), rmsnorm_form_counts()
+    done = engine.run()
+    del engine._prefill
+    if sorted(r.id for r in done) != list(range(len(prompts))):
+        raise AssertionError(f"finished ids {sorted(r.id for r in done)}")
+    vocab = engine.cfg.vocab_size
+    for r in done:
+        if len(r.generated) != new_tok or not all(0 <= t < vocab for t in r.generated):
+            raise AssertionError(f"request {r.id}: {len(r.generated)} tokens {r.generated[:8]}...")
+    return {"add_ms": add_ms, "step_ms": step_ms, "admit_step_ms": admit_step_ms, "wall": wall,
+            "counts": counts, "forms": forms, "prefills": prefills[0], "resumed": resumed,
+            "steps": engine.n_decode_steps - steps0, "peak": torch.cuda.max_memory_allocated()}
+
+
+def serving_summary(tag: str, run: dict, n_req: int, new_tok: int, init_peak: int) -> dict:
+    out = {"tokens_per_s": n_req * new_tok / run["wall"], "wall_s": run["wall"],
+           "prefill_ms": statistics.median(run["add_ms"]),
+           "decode_ms_per_step": statistics.median(run["step_ms"]),
+           "admit_step_ms": run["admit_step_ms"], "peak_memory_bytes": run["peak"],
+           "init_peak_memory_bytes": init_peak, "decode_steps": run["steps"],
+           "prefills": run["prefills"]}
+    print(f"{tag}: served {n_req} requests x {new_tok} tokens in {run['wall']:.3f} s = "
+          f"{out['tokens_per_s']:.2f} tok/s; admission (batch 1) median {out['prefill_ms']:.2f} "
+          f"ms; decode step median {out['decode_ms_per_step']:.2f} ms; steps with an admission "
+          f"{['%.2f' % x for x in run['admit_step_ms']]} ms; peak memory {run['peak']} bytes")
+    return out
+
+
+def mla_phase(seed: int):
+    """Full-width, full-depth deepseek-v2-lite-16b (bf16 weights from
+    ``seed``) served through ContinuousEngine under ``kernel_impls="auto"``:
+    MLA attention in plain PyTorch over the latent cache, every norm on
+    rmsnorm, every MoE layer's experts on moe_gmm (the capacity path). 8
+    requests of (512, 32), 4 slots, a drain after 4 steps and a resume;
+    then ``ServingEngine.score`` on the same weights."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    n_req, prompt_len, new_tok, n_slots, max_seq = 8, 512, 32, 4, 640
+    cfg = with_kernel_impls(dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                                                param_dtype="bfloat16"), "auto")
+    print(f"mla: {cfg.arch_id} layers={cfg.n_layers} (dense {cfg.first_dense_layers}) "
+          f"d={cfg.d_model} heads={cfg.n_heads} kv_lora={cfg.kv_lora_rank} "
+          f"rope={cfg.qk_rope_dim} nope={cfg.qk_nope_dim} v={cfg.v_head_dim} experts="
+          f"{cfg.n_experts} top_k={cfg.top_k} shared={cfg.n_shared_experts} moe_d_ff="
+          f"{cfg.moe_d_ff} d_ff={cfg.d_ff} vocab={cfg.vocab_size} moe_impl={cfg.moe_impl} "
+          f"dtype={cfg.dtype}/{cfg.param_dtype} kernel_impls={dict(cfg.kernel_impls)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq, device="cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"mla: {sum(t.numel() for t in M.tree_leaves(params))} parameters "
+          f"({M.nbytes(params)} bytes), init {time.perf_counter() - t0:.2f} s, peak memory "
+          f"during init {init_peak} bytes")
+    cache_bytes = M.nbytes(engine.cache)
+    spec_bytes = M.nbytes(M.cache_spec(cfg, n_slots, max_seq))
+    shapes = {seg: tuple(leaf["c"].shape) for seg, leaf in engine.cache.items()}
+    print(f"mla: latent cache {shapes}, {cache_bytes} bytes (cache_spec {spec_bytes})")
+    if cache_bytes != spec_bytes or any(sh[-1] != cfg.kv_cache_head_dim for sh in shapes.values()):
+        raise AssertionError(f"mla: latent cache {shapes} {cache_bytes} bytes vs spec {spec_bytes}")
+    rng = np.random.default_rng(seed + 7)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n_req, prompt_len)).tolist()
+    engine.add(GenRequest(id=-1, prompt=prompts[0][:16], max_new=2))  # warm-up, not counted
+    engine.run()
+    torch.cuda.synchronize()
+
+    run = drive(engine, prompts, new_tok, GenRequest, drain_after=4)
+    passes = run["prefills"] + run["steps"]
+    print(f"mla: {run['prefills']} prefills ({run['resumed']} of them resumes), "
+          f"{run['steps']} decode steps")
+    if run["prefills"] != n_req + run["resumed"]:
+        raise AssertionError(f"mla: {run['prefills']} prefills, expected {n_req + run['resumed']}")
+    counts = check_counts("mla", cfg, run["counts"], run["forms"], forward_counts(cfg, passes),
+                          passes)
+    serving = serving_summary("mla", run, n_req, new_tok, init_peak)
+    serving["latent_cache_bytes"] = cache_bytes
+    serving.update(profile_decode(engine, prompts, GenRequest))
+    serving.update(profile_prefill(engine, prompts[0], GenRequest))
+    for key in ("decode", "prefill"):
+        per = "step" if key == "decode" else "prefill"
+        dev = serving.get(f"profile_{key}_device_ms_per_{per}")
+        ops_ms = serving.get(f"profile_{key}_kernel_ms_per_{per}", {})
+        if isinstance(dev, float) and "moe_gmm" in ops_ms:
+            serving[f"profile_{key}_moe_gmm_share"] = ops_ms["moe_gmm"] / dev
+            print(f"mla: moe_gmm {ops_ms['moe_gmm']:.3f} of {dev:.3f} device ms a {per} "
+                  f"({ops_ms['moe_gmm'] / dev:.3f})")
+    serving["score"] = score_leg("mla", cfg, engine.params, seed)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.update(mla_parity(seed, prompts[0]))
+    return counts, {f"mla_{k}": x for k, x in serving.items()}
+
+
+def mla_parity(seed: int, prompt) -> dict:
+    """deepseek at full width cut to 1 dense + 2 moe layers, float32: a
+    prefill under ``auto`` (rmsnorm, moe_gmm's capacity path) against
+    ``reference``; and the absorbed decode at position S against the
+    decompressed forward's logits there, with the dropless MoE (``ragged``:
+    a forward of S+1 tokens and a decode of one route with no drop, so
+    they are one function)."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+
+    base = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=3, dtype="float32",
+                               param_dtype="float32")
+    params = M.init_params(base, torch.Generator(device="cuda").manual_seed(seed + 8), "cuda")
+    s = len(prompt)
+    tok = torch.as_tensor([prompt], dtype=torch.int64, device="cuda")
+    v = base.vocab_size
+    logits = {}
+    for pol in ("auto", "reference"):
+        logits[pol], _ = M.prefill(params, {"tokens": tok}, with_kernel_impls(base, pol))
+    err = check_close("mla f32 prefill logits auto vs reference", logits["auto"][:, :v],
+                      logits["reference"][:, :v], SLICE_TOL)
+    if not torch.equal(logits["auto"][:, :v].argmax(-1), logits["reference"][:, :v].argmax(-1)):
+        raise AssertionError("mla f32 prefill: argmax differs")
+    dropless = with_kernel_impls(dataclasses.replace(base, moe_impl="ragged"), "auto")
+    nxt = logits["auto"][:, :v].argmax(-1, keepdim=True)
+    _, cache = M.prefill(params, {"tokens": tok}, dropless)
+    grown = M.init_cache(dropless, 1, s + 1, "cuda")
+    for seg in cache:
+        grown[seg]["c"][:, :, :s] = cache[seg]["c"]
+    dec, _ = M.decode_step(params, nxt, grown, s, dropless)
+    fwd, _ = M.forward(params, {"tokens": torch.cat([tok, nxt], dim=1)}, dropless)
+    err_d = check_close("mla f32 decode at position S vs forward", dec[:, :v], fwd[:, s, :v],
+                        DECODE_TOL)
+    torch.cuda.synchronize()
+    print(f"mla: f32 3-layer (1 dense + 2 moe) prefill ({s} tokens) logits auto vs reference max "
+          f"abs err {err:.3e} (limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax; "
+          f"absorbed decode at position {s} vs the decompressed forward max abs err "
+          f"{err_d:.3e} (limit atol={DECODE_TOL[0]} rtol={DECODE_TOL[1]}); logit scale "
+          f"{logits['reference'][:, :v].abs().max().item():.3f}")
+    del params, logits, cache, grown
+    torch.cuda.empty_cache()
+    return {"f32_logits_max_abs_err": err, "f32_decode_vs_forward_max_abs_err": err_d}
+
+
+def frontend_phase(seed: int):
+    """``loss_fn`` through the two frontends at full width and depth:
+    hubert-xlarge (fp32 weights and the bf16 copy) on an audio batch of (2,
+    512) frames, the encoder's attention on non-causal flash, LayerNorm
+    (no rmsnorm); internvl2-26b (bf16 weights, 39.8 GB) on 256 patches +
+    256 text tokens, flash and rmsnorm.
+    Plus hubert at float32 cut to 2 layers: loss_fn's logits under
+    ``auto`` (non-causal flash) against ``reference``."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import make_batch
+
+    out, all_counts = {}, []
+    for arch, pdt in (("hubert-xlarge", "float32"), ("internvl2-26b", "bfloat16")):
+        tag = arch.split("-")[0]
+        cfg = with_kernel_impls(dataclasses.replace(get_config(arch), param_dtype=pdt), "auto")
+        print(f"{tag}: {cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} "
+              f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} act={cfg.act} "
+              f"frontend={cfg.frontend} ({cfg.frontend_seq} patches) causal="
+              f"{cfg.is_autoregressive} vocab={cfg.vocab_size} dtype={cfg.dtype}/"
+              f"{cfg.param_dtype} kernel_impls={dict(cfg.kernel_impls)}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        p16 = M.cast_params(params, cfg)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        print(f"{tag}: {sum(t.numel() for t in M.tree_leaves(params))} parameters "
+              f"({M.nbytes(params)} bytes, compute copy {M.nbytes(p16)} bytes), init "
+              f"{time.perf_counter() - t0:.2f} s, peak memory during init {init_peak} bytes")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+        batch = make_batch(gen, cfg, 2, 512, device="cuda")
+        M.loss_fn(p16, batch, cfg)  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        loss, metrics = M.loss_fn(p16, batch, cfg)
+        loss = float(loss)
+        wall_ms = 1e3 * (time.perf_counter() - t)
+        counts = check_counts(f"{tag} loss_fn", cfg, launch_counts(), rmsnorm_form_counts(),
+                              forward_counts(cfg), 1)
+        all_counts.append(counts)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{tag} loss_fn: loss {loss}")
+        shapes = {k: tuple(x.shape) for k, x in batch.items()}
+        print(f"{tag}: loss_fn on {shapes} = {loss:.4f} (ce {float(metrics['ce']):.4f}, ln vocab "
+              f"{np.log(cfg.vocab_size):.4f}), {wall_ms:.2f} ms, peak memory "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+        out[tag] = {"loss": loss, "wall_ms": wall_ms, "init_peak_memory_bytes": init_peak,
+                    "launches": counts}
+        del params, p16, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # hubert at float32, 2 layers: non-causal flash against the einsum
+    base = dataclasses.replace(get_config("hubert-xlarge"), n_layers=2, dtype="float32")
+    params = M.init_params(base, torch.Generator(device="cuda").manual_seed(seed + 10), "cuda")
+    batch = make_batch(torch.Generator(device="cuda").manual_seed(seed + 9), base, 2, 512,
+                       device="cuda")
+    logits = {pol: M.forward(params, batch, with_kernel_impls(base, pol))[0]
+              for pol in ("auto", "reference")}
+    v = base.vocab_size
+    err = check_close("hubert f32 forward logits auto vs reference", logits["auto"][..., :v],
+                      logits["reference"][..., :v], SLICE_TOL)
+    print(f"hubert: f32 2-layer forward ((2, 512) frames) logits auto vs reference max abs err "
+          f"{err:.3e} (limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), logit scale "
+          f"{logits['reference'][..., :v].abs().max().item():.3f}")
+    out["hubert"]["f32_logits_max_abs_err"] = err
+    del params, logits
+    torch.cuda.empty_cache()
+    return all_counts, out
+
+
+def stablelm_phase(seed: int):
+    """Full-width, full-depth stablelm-12b (bf16 weights) served through
+    ContinuousEngine under ``kernel_impls="auto"``: flash at head_dim 160
+    and every norm on rmsnorm; 4 requests of (512, 16); then
+    ``ServingEngine.score`` on the same weights."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    n_req, prompt_len, new_tok, n_slots = 4, 512, 16, 4
+    cfg = with_kernel_impls(dataclasses.replace(get_config("stablelm-12b"),
+                                                param_dtype="bfloat16"), "auto")
+    print(f"stablelm: {cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"dtype={cfg.dtype}/{cfg.param_dtype} kernel_impls={dict(cfg.kernel_impls)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=prompt_len + new_tok + 16,
+                              device="cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"stablelm: {sum(t.numel() for t in M.tree_leaves(params))} parameters "
+          f"({M.nbytes(params)} bytes), init {time.perf_counter() - t0:.2f} s, peak memory "
+          f"during init {init_peak} bytes")
+    prompts = np.random.default_rng(seed + 12).integers(
+        0, cfg.vocab_size, size=(n_req, prompt_len)).tolist()
+    engine.add(GenRequest(id=-1, prompt=prompts[0][:16], max_new=2))  # warm-up, not counted
+    engine.run()
+    torch.cuda.synchronize()
+    run = drive(engine, prompts, new_tok, GenRequest)
+    if run["prefills"] != n_req:
+        raise AssertionError(f"stablelm: {run['prefills']} prefills, expected {n_req}")
+    passes = run["prefills"] + run["steps"]
+    expect = dict(forward_counts(cfg, passes), flash_attention=cfg.n_layers * run["prefills"])
+    print(f"stablelm: {run['prefills']} prefills, {run['steps']} decode steps")
+    counts = check_counts("stablelm", cfg, run["counts"], run["forms"], expect, passes)
+    serving = serving_summary("stablelm", run, n_req, new_tok, init_peak)
+    serving["score"] = score_leg("stablelm", cfg, engine.params, seed)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {f"stablelm_{k}": x for k, x in serving.items()}
 
 
 def ptxas_summary(log: str) -> list:
@@ -1700,35 +1981,62 @@ def main(argv=None) -> int:
     def gen(offset: int) -> torch.Generator:
         return torch.Generator(device="cuda").manual_seed(args.seed + offset)
 
-    kern = rmsnorm_kernel_phase(gen(4))
-    kern["flash_attention"] = flash_kernel_phase(gen(0))
-    kern["paged_attention"] = paged_kernel_phase(gen(1))
-    kern["moe_gmm"] = moe_kernel_phase(gen(2))
-    kern["ssd"] = ssd_kernel_phase(gen(3))
-    counts, serving, cfg, params = slice_phase(args.seed)
-    paged_counts, paged_serving = paged_phase(cfg, params, args.seed)
+    walls = {}
+
+    def phase(label: str, fn, *a):
+        """Run one phase, keeping its wall."""
+        t = time.perf_counter()
+        result = fn(*a)
+        walls[label] = time.perf_counter() - t
+        print(f"phase {label}: wall {walls[label]:.2f} s")
+        return result
+
+    walls["build"] = time.perf_counter() - t0
+    kern = phase("rmsnorm kernel", rmsnorm_kernel_phase, gen(4))
+    kern["flash_attention"] = phase("flash kernel", flash_kernel_phase, gen(0))
+    kern["paged_attention"] = phase("paged kernel", paged_kernel_phase, gen(1))
+    kern["moe_gmm"] = phase("moe_gmm kernel", moe_kernel_phase, gen(2))
+    kern["ssd"] = phase("ssd kernel", ssd_kernel_phase, gen(3))
+    counts, serving, cfg, params = phase("dense", slice_phase, args.seed)
+    paged_counts, paged_serving = phase("paged", paged_phase, cfg, params, args.seed)
     serving.update(paged_serving)
-    serving["platform"] = platform_phase(cfg, params, args.seed)
+    serving["platform"] = phase("platform", platform_phase, cfg, params, args.seed)
+    serving["slice_score"] = phase("dense score", score_leg, "slice", cfg, params, args.seed)
     del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
-    moe_counts, moe_serving = moe_phase(args.seed)  # frees mixtral before it returns
+    moe_counts, moe_serving = phase("moe", moe_phase, args.seed)  # frees mixtral on return
     serving.update(moe_serving)
-    ssm_counts, ssm_serving = ssm_phase("mamba2-2.7b", args.seed)
+    ssm_counts, ssm_serving = phase("mamba2", ssm_phase, "mamba2-2.7b", args.seed)
     serving.update(ssm_serving)
-    hybrid_counts, hybrid_serving = ssm_phase("zamba2-2.7b", args.seed)
+    hybrid_counts, hybrid_serving = phase("zamba2", ssm_phase, "zamba2-2.7b", args.seed)
     serving.update(hybrid_serving)
-    # each kernel's launches on the path that first carried it: the plain and
-    # residual rmsnorm forms and flash on the dense path, paged attention on
-    # the paged path, the grouped matmul on the MoE path, ssd and the gated
-    # rmsnorm form on the SSM path
-    print(f"launches: dense path {counts}, paged path {paged_counts}, moe path {moe_counts}, "
-          f"ssm path {ssm_counts}, hybrid path {hybrid_counts}")
-    counts = dict(counts, rmsnorm=counts["rmsnorm_forms"]["plain"],
-                  add_rmsnorm=counts["rmsnorm_forms"]["residual"],
-                  gated_rmsnorm=ssm_counts["rmsnorm_forms"]["gated"],
-                  paged_attention=paged_counts["paged_attention"],
-                  moe_gmm=moe_counts["moe_gmm"], ssd=ssm_counts["ssd"])
+    mla_counts, mla_serving = phase("mla", mla_phase, args.seed)
+    serving.update(mla_serving)
+    frontend_counts, serving["frontend"] = phase("frontend", frontend_phase, args.seed)
+    stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
+    serving.update(stablelm_serving)
+    walls["total"] = time.perf_counter() - t0
+    serving["phase_wall_s"] = walls
+    print(f"phases: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
+    # each kernel's launches summed over every path that drove it (each read
+    # just after its path ran with the counts at 0): the serving phases, the
+    # platform runs, the score legs and the frontends' loss_fn
+    paths = {"dense": counts, "paged": paged_counts,
+             **{f"platform {k}": serving["platform"][k]["launches"]
+                for k in ("dense", "paged", "registry")},
+             "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
+             "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
+             "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,
+             "zamba2 score": serving["zamba2_score"]["launches"], "mla": mla_counts,
+             "mla score": serving["mla_score"]["launches"],
+             "hubert loss_fn": frontend_counts[0], "internvl2 loss_fn": frontend_counts[1],
+             "stablelm": stablelm_counts, "stablelm score": serving["stablelm_score"]["launches"]}
+    print("launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    counts = {name: sum(c["rmsnorm_forms"][form] for c in paths.values())
+              for name, form in RMS_FORMS.items()}
+    for name in ("flash_attention", "paged_attention", "moe_gmm", "ssd"):
+        counts[name] = sum(c[name] for c in paths.values())
 
     rms_source = ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25")
     sources = {**dict.fromkeys(RMS_FORMS, rms_source),

@@ -29,9 +29,12 @@ _EXPORTS = {
     "SlotBatcher": "repro_torch.serving.batching",
     "cast_params": "repro_torch.models.model",
     "decode_step": "repro_torch.models.model",
+    "forward": "repro_torch.models.model",
     "get_config": "repro_torch.configs",
     "init_cache": "repro_torch.models.model",
     "init_params": "repro_torch.models.model",
+    "loss_fn": "repro_torch.models.model",
+    "make_batch": "repro_torch.models.frontends",
     "paged_compatible": "repro_torch.serving.kvcache",
     "paged_decode_step": "repro_torch.models.model",
     "params_from_numpy": "repro_torch.models.weights",

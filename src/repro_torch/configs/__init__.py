@@ -1,4 +1,4 @@
-"""Registry of the architectures this slice of the port serves."""
+"""Registry of the ten architectures of ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
@@ -12,7 +12,10 @@ from repro_torch.configs.base import (
 )
 
 _MODULES = {
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
@@ -21,19 +24,10 @@ _MODULES = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
-# architectures of ``repro`` that a later slice of the port brings
-_LATER = {
-    "hubert-xlarge": "the forward/loss_fn slice (encoder-only, gelu)",
-    "internvl2-26b": "the forward/loss_fn slice (vision frontend)",
-    "deepseek-v2-lite-16b": "the MLA slice",
-}
+ARCH_IDS = tuple(sorted(_MODULES))
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: it comes with "
-            f"{_LATER[arch_id]}; ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch_id])
@@ -41,6 +35,7 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 
 __all__ = [
+    "ARCH_IDS",
     "ModelConfig",
     "get_config",
     "kernel_impl",

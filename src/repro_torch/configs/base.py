@@ -144,6 +144,18 @@ class ModelConfig:
         return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
 
     @property
+    def q_dim(self) -> int:
+        if self.use_mla:
+            return self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_cache_head_dim(self) -> int:
+        if self.use_mla:
+            return self.kv_lora_rank + self.qk_rope_dim
+        return self.head_dim
+
+    @property
     def n_attn_layers(self) -> int:
         if self.family == "ssm":
             return 0

@@ -1,11 +1,15 @@
-"""GQA attention (optional QKV bias and sliding window) — the port of the
-GQA half of ``repro.models.attention``.
+"""Attention variants — the port of ``repro.models.attention``: GQA
+(optional QKV bias and sliding window) and MLA (DeepSeek multi-head latent
+attention: a compressed latent cache, decoded with the up-projections
+absorbed).
 
-Full-sequence paths dispatch to the flash-attention kernel under
+GQA full-sequence paths dispatch to the flash-attention kernel under
 ``kernel_impls['attention'] == 'kernel'``, else run the einsum reference.
 Dense-cache decode attention is the plain einsum over the cache, as in
 ``repro``; paged decode (:func:`paged_gqa_decode`) always goes through the
-paged-attention kernel, as in ``repro``. MLA waits for the MLA slice.
+paged-attention kernel, as in ``repro``. MLA has no kernel in ``repro``
+(``supported_kernel_sites`` leaves its attention site out), so its products
+stay plain PyTorch here too.
 """
 from __future__ import annotations
 
@@ -21,8 +25,6 @@ NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention comes with the MLA slice")
     if cfg.attn_impl != "einsum" or cfg.shard_activations:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}, shard_activations="
@@ -124,9 +126,22 @@ def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
 
 # --- GQA decode (KV cache) ---------------------------------------------------
 def init_kv_cache_shape(cfg: ModelConfig, batch: int, seq_len: int):
-    """Per-layer cache shape (no allocation): (B, S_cache, KV, Dh)."""
+    """Per-layer cache shape (no allocation): (B, S_cache, KV, Dh), or the
+    MLA latent cache (B, S, kv_lora_rank + qk_rope_dim)."""
     s_cache = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    if cfg.use_mla:
+        return (batch, s_cache, cfg.kv_cache_head_dim)
     return (batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+
+
+def _positions(pos, b: int, dev: torch.device):
+    """(per_row, pos_t, positions (B,1)) from a scalar or (B,) position."""
+    if isinstance(pos, (np.ndarray, torch.Tensor)) and np.ndim(pos) > 0:
+        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        return True, pos_t, pos_t[:, None]
+    pos_i = int(pos)
+    return (False, torch.tensor(pos_i, dtype=torch.int64, device=dev),
+            torch.full((b, 1), pos_i, dtype=torch.int64, device=dev))
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
@@ -141,7 +156,8 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> N
     idx = slot.clamp(0, s_cache - 1)
     rows = torch.arange(b, device=cache.device)
     old = cache[rows, idx]
-    cache[rows, idx] = torch.where(ok[:, None, None], new.to(cache.dtype), old)
+    ok = ok.reshape((b,) + (1,) * (new.dim() - 1))
+    cache[rows, idx] = torch.where(ok, new.to(cache.dtype), old)
 
 
 def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -155,14 +171,7 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     b = x.shape[0]
     dt = x.dtype
     dev = x.device
-    per_row = isinstance(pos, (np.ndarray, torch.Tensor)) and np.ndim(pos) > 0
-    if per_row:
-        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-        positions = pos_t[:, None]
-    else:
-        pos_i = int(pos)
-        pos_t = torch.tensor(pos_i, dtype=torch.int64, device=dev)
-        positions = torch.full((b, 1), pos_i, dtype=torch.int64, device=dev)
+    per_row, pos_t, positions = _positions(pos, b, dev)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -172,7 +181,7 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         _write_rows(k_cache, k[:, 0], slot)
         _write_rows(v_cache, v[:, 0], slot)
     else:
-        slot = pos_i % s_cache if cfg.sliding_window else pos_i
+        slot = int(pos) % s_cache if cfg.sliding_window else int(pos)
         slot = min(max(slot, 0), s_cache - 1)  # dynamic_update_slice clamps
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
@@ -222,3 +231,100 @@ def paged_gqa_decode(p, x: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     out = paged_attention_op(q[:, 0], k_pool, v_pool, tables, pos + 1)  # (B,H,Dh)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(dt)
     return out @ p["wo"].to(dt), k_pool, v_pool
+
+
+# --- MLA ---------------------------------------------------------------------
+def _mla_q(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """(q_nope, q_rope): (B,S,H,nope) and the rope'd (B,S,H,rope)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """(c_kv (B,S,r), k_rope (B,S,rope)): the compressed KV and the shared
+    rope'd key of every position."""
+    dt = x.dtype
+    c_kv = x @ p["w_dkv"].to(dt)
+    k_rope = x @ p["w_krope"].to(dt)
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+
+def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence MLA, decompressed formulation: (out (B,S,D), c_kv,
+    k_rope). Always causal, as in ``repro``."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
+    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim)
+    v = (c_kv @ p["w_uv"].to(dt)).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)).float() * scale
+    mask = _attn_mask(positions, positions, causal=True, window=None)
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bhqs,bshd->bqhd", w, v).reshape(b, s, cfg.n_heads * cfg.v_head_dim)
+    return out @ p["wo"].to(dt), c_kv, k_rope
+
+
+def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence MLA (forward / scoring). x: (B,S,D)."""
+    _check_supported(cfg)
+    return _mla_full(p, x, positions, cfg)[0]
+
+
+def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence MLA that also returns the latent cache entries
+    (B,S,r+rope): c_kv ++ rope'd k_rope."""
+    _check_supported(cfg)
+    out, c_kv, k_rope = _mla_full(p, x, positions, cfg)
+    return out, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig):
+    """Absorbed-matrix MLA decode over the latent cache (B,S,r+rope). ``pos``
+    is a scalar or a (B,) per-row position; each row's entry is written at
+    its own position in place (a row out of bounds is dropped, as JAX's
+    ``mode="drop"``). W_uk is absorbed into the query and W_uv into the
+    output, so scores and context stay in the r-wide latent space.
+    Returns (out, c_cache)."""
+    _check_supported(cfg)
+    b = x.shape[0]
+    dt = x.dtype
+    r = cfg.kv_lora_rank
+    per_row, pos_t, positions = _positions(pos, b, x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)            # (B,1,H,*)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
+    entry = torch.cat([c_kv, k_rope], dim=-1)                 # (B,1,r+rope)
+    s_cache = c_cache.shape[1]
+    if per_row:
+        _write_rows(c_cache, entry[:, 0], pos_t)
+    else:
+        slot = min(max(int(pos), 0), s_cache - 1)             # dynamic_update_slice clamps
+        c_cache[:, slot] = entry[:, 0].to(c_cache.dtype)
+    cache_c = c_cache[..., :r].to(dt)                         # (B,S,r)
+    cache_rope = c_cache[..., r:].to(dt)                      # (B,S,rope)
+    w_uk = p["w_uk"].to(dt).reshape(r, cfg.n_heads, cfg.qk_nope_dim)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)      # (B,1,H,r)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, cache_c)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, cache_rope)).float() * scale
+    row_pos = pos_t[:, None] if per_row else pos_t
+    valid = (torch.arange(s_cache, device=x.device) <= row_pos).expand(b, s_cache)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, cache_c)          # (B,1,H,r)
+    w_uv = p["w_uv"].to(dt).reshape(r, cfg.n_heads, cfg.v_head_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv).reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
+    return out @ p["wo"].to(dt), c_cache
+
+
+def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence attention of either kind (the forward path)."""
+    if cfg.use_mla:
+        return mla_attention(p, x, positions, cfg)
+    return gqa_attention(p, x, positions, cfg)

@@ -1,6 +1,6 @@
 """Shared building blocks: RMSNorm with its residual-add and gated Mamba2
-forms, SwiGLU MLP, rotary embeddings, token embedding and the vocabulary
-head — the port of ``repro.models.layers``.
+forms, LayerNorm, the SwiGLU and gelu MLPs, rotary embeddings, token
+embedding and the vocabulary head — the port of ``repro.models.layers``.
 
 Params are nested dicts of tensors with the same keys and shapes as in
 ``repro``; every function takes and returns tensors, with the same dtype
@@ -30,6 +30,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with bias (hubert-style encoders), statistics in fp32."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * weight.to(dt) + bias.to(dt)
+
+
 def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, eps: float,
                  cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(s, y): the residual add s = x + h and its RMSNorm y. Under
@@ -53,16 +64,17 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
     return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
 
 
-# --- SwiGLU MLP -------------------------------------------------------------
+# --- dense / SwiGLU MLP -----------------------------------------------------
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            f"act={cfg.act!r}: only the SwiGLU MLP is ported; the gelu MLP "
-            f"comes with the forward/loss_fn slice")
+    """SwiGLU (``act="silu"``) or the plain gelu MLP (``act="gelu"``, the
+    tanh approximation, as ``jax.nn.gelu``'s default)."""
     dt = x.dtype
     up = x @ p["w_up"].to(dt)
-    gate = x @ p["w_gate"].to(dt)
-    return (F.silu(gate) * up) @ p["w_down"].to(dt)
+    if cfg.act == "silu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["w_down"].to(dt)
 
 
 # --- rotary embeddings ------------------------------------------------------

@@ -1,10 +1,14 @@
-"""Top-level model API: init / prefill / decode / cache — the port of the
-serving half of ``repro.models.model``. ``forward`` and ``loss_fn`` come
-with a later slice.
+"""Top-level model API: init / forward / loss / prefill / decode / cache —
+the port of ``repro.models.model``.
 
-Batch conventions follow ``repro``: prefill takes ``{"tokens": (B,S)}`` and
-returns (last-position logits (B,Vpad) fp32, cache); decode takes a (B,1)
-token, the cache and a scalar or (B,) position.
+Batch conventions follow ``repro`` (tensors on the model's device):
+  forward, loss : {"tokens": (B,S), "labels": (B,S)}                    [LM]
+                  {"tokens": (B,S-F), "vision_embeds": (B,F,D),
+                   "labels": (B,S-F)}                                   [vlm]
+                  {"frames": (B,S,D), "labels": (B,S)}                  [audio]
+  prefill       : the same inputs minus labels -> (last-position logits
+                  (B,Vpad) fp32, cache)
+  decode        : a (B,1) token, the cache and a scalar or (B,) position
 """
 from __future__ import annotations
 
@@ -36,11 +40,8 @@ def _normal(shape, scale: float, cast: bool = True) -> ParamSpec:
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree of ``repro.models.model.init_params``: same keys,
-    shapes (stacked layer axes first) and scales."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} comes with the forward/loss_fn slice")
-    transformer.require_ported(cfg)
+    shapes (stacked layer axes first) and scales. The audio frontend feeds
+    frame embeddings, so it has no token ``embed``."""
     d = cfg.d_model
     stack: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
@@ -54,18 +55,43 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         else:  # hybrid_group: attn_every mamba blocks per group + ONE shared block
             stack[seg.name] = {"mamba": _mamba_specs(cfg, (n, cfg.attn_every)),
                                "shared": _dense_specs(cfg, ())}
-    specs: Dict[str, Any] = {
-        "embed": {"tokens": _normal((cfg.vocab_padded, d), 0.02)},
-        "stack": stack,
-        "final_norm": {"w": ParamSpec((d,), "ones")},
-    }
+    specs: Dict[str, Any] = {}
+    if cfg.frontend != "audio":
+        specs["embed"] = {"tokens": _normal((cfg.vocab_padded, d), 0.02)}
+    specs["stack"] = stack
+    specs["final_norm"] = _norm_specs(cfg, ())
     if not cfg.tie_embeddings:
         specs["lm_head"] = _normal((d, cfg.vocab_padded), d ** -0.5)
     return specs
 
 
+def _norm_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
+    """A norm's leaves: the weight, and LayerNorm's bias for gelu archs."""
+    p = {"w": ParamSpec(lead + (cfg.d_model,), "ones")}
+    if cfg.act == "gelu":
+        p["b"] = ParamSpec(lead + (cfg.d_model,), "zeros")
+    return p
+
+
+def _mla_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
+    """``repro.models.attention.init_attention``'s MLA leaves."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    return {
+        "wq": _normal(lead + (d, cfg.q_dim), d ** -0.5),
+        "w_dkv": _normal(lead + (d, r), d ** -0.5),
+        "w_krope": _normal(lead + (d, cfg.qk_rope_dim), d ** -0.5),
+        "w_uk": _normal(lead + (r, h * cfg.qk_nope_dim), r ** -0.5),
+        "w_uv": _normal(lead + (r, h * cfg.v_head_dim), r ** -0.5),
+        "wo": _normal(lead + (h * cfg.v_head_dim, d), (h * cfg.v_head_dim) ** -0.5),
+    }
+
+
 def _attn_block_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
-    """The two pre-norms and the GQA attention of a dense or moe block."""
+    """The two pre-norms and the attention (GQA or MLA) of a dense or moe
+    block."""
+    if cfg.use_mla:
+        return {"ln1": _norm_specs(cfg, lead), "attn": _mla_specs(cfg, lead),
+                "ln2": _norm_specs(cfg, lead)}
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = {
         "wq": _normal(lead + (d, h * dh), d ** -0.5),
@@ -77,18 +103,18 @@ def _attn_block_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]
         attn["bq"] = ParamSpec(lead + (h * dh,), "zeros")
         attn["bk"] = ParamSpec(lead + (kv * dh,), "zeros")
         attn["bv"] = ParamSpec(lead + (kv * dh,), "zeros")
-    return {"ln1": {"w": ParamSpec(lead + (d,), "ones")}, "attn": attn,
-            "ln2": {"w": ParamSpec(lead + (d,), "ones")}}
+    return {"ln1": _norm_specs(cfg, lead), "attn": attn, "ln2": _norm_specs(cfg, lead)}
 
 
 def _dense_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
-    """``repro.models.transformer._init_dense_block``'s leaves."""
+    """``repro.models.transformer._init_dense_block``'s leaves (the gelu
+    MLP has no gate)."""
     d, f = cfg.d_model, cfg.d_ff
-    return {**_attn_block_specs(cfg, lead), "mlp": {
-        "w_up": _normal(lead + (d, f), d ** -0.5),
-        "w_down": _normal(lead + (f, d), f ** -0.5),
-        "w_gate": _normal(lead + (d, f), d ** -0.5),
-    }}
+    mlp = {"w_up": _normal(lead + (d, f), d ** -0.5),
+           "w_down": _normal(lead + (f, d), f ** -0.5)}
+    if cfg.act == "silu":
+        mlp["w_gate"] = _normal(lead + (d, f), d ** -0.5)
+    return {**_attn_block_specs(cfg, lead), "mlp": mlp}
 
 
 def _mamba_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
@@ -98,7 +124,7 @@ def _mamba_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
     fp32, and casts the conv to the compute dtype only at its prefill use."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
     d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + h  # [z, xBC, dt]
-    return {"ln": {"w": ParamSpec(lead + (d,), "ones")}, "mixer": {
+    return {"ln": _norm_specs(cfg, lead), "mixer": {
         "in_proj": _normal(lead + (d, d_in_proj), d ** -0.5),
         "conv_w": _normal(lead + (cfg.conv_dim, cfg.d_conv), cfg.d_conv ** -0.5, cast=False),
         "conv_b": ParamSpec(lead + (cfg.conv_dim,), "zeros", cast=False),
@@ -144,10 +170,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     parameters with :func:`repro_torch.models.weights.params_from_numpy`.
 
     The truncated normal is drawn by rejection (``normal_``, then redraws of
-    the entries outside +-2), not through ``erfinv_``: on the CPU ``erfinv_``
-    runs in MKL, whose float32 bits change with the code path MKL picks at
-    run time, so the same seed could give other weights in another process
-    state. This way the values depend on the generator alone."""
+    the entries outside +-2, :func:`_redraw_outside`), not through
+    ``erfinv_``: on the CPU ``erfinv_`` runs in MKL, whose float32 bits
+    change with the code path MKL picks at run time, so the same seed could
+    give other weights in another process state. This way the values depend
+    on the generator alone."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}: "
@@ -163,12 +190,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.full(spec.shape, spec.value, dtype=pd, device=dev)
         t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
         t.normal_(generator=generator)
-        out = t.abs() > 2.0
-        while bool(out.any()):
-            t[out] = torch.empty(int(out.sum()), device=dev).normal_(generator=generator)
-            out = t.abs() > 2.0
+        _redraw_outside(t, generator)
         return t.mul_(spec.scale).to(pd)
     return _map_specs(make, param_specs(cfg))
+
+
+# elements of one slice in :func:`_redraw_outside`
+_SLICE = 1 << 26
+
+
+def _redraw_outside(t: torch.Tensor, generator: torch.Generator) -> None:
+    """Redraw the entries of ``t`` (contiguous fp32) outside +-2 until none
+    is left: each round draws as many normals as there are such entries
+    and writes them to those entries in row-major order, which is what
+    ``t[t.abs() > 2] = draw`` does. The mask, its counts and the writes go
+    slice by slice, so no temporary is as large as ``t``: over a whole
+    stacked expert leaf (4.8 G elements for deepseek-v2-lite-16b) the sum
+    of the mask alone takes an int64 copy of it, 38 GB."""
+    flat = t.view(-1)
+    out = torch.empty(flat.shape, dtype=torch.bool, device=t.device)
+    slices = [slice(lo, lo + _SLICE) for lo in range(0, flat.numel(), _SLICE)]
+    while True:
+        for sl in slices:
+            torch.gt(flat[sl].abs(), 2.0, out=out[sl])
+        counts = torch.stack([torch.count_nonzero(out[sl]) for sl in slices]).tolist()
+        if sum(counts) == 0:
+            return
+        draw = torch.empty(sum(counts), device=t.device).normal_(generator=generator)
+        at = 0
+        for sl, k in zip(slices, counts):
+            if k:
+                flat[sl][out[sl]] = draw[at:at + k]
+                at += k
 
 
 def cast_params(params, cfg: ModelConfig) -> Dict[str, Any]:
@@ -190,12 +243,51 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """(hidden (B,S,D), positions (B,S)): token embeddings, the audio
+    frames, or the vision patches followed by the text's embeddings."""
+    if cfg.frontend == "audio":
+        x = batch["frames"].to(cfg.compute_dtype)
+    elif cfg.frontend == "vision":
+        tok = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = torch.cat([batch["vision_embeds"].to(cfg.compute_dtype), tok], dim=1)
+    else:
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+    b, s = x.shape[0], x.shape[1]
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
+def forward(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Full-sequence forward -> (logits (B,S,Vpad) fp32, aux), the logits
+    on the text positions only under the vision frontend; ``aux["lb_loss"]``
+    is the MoE load-balance loss summed over layers."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, h, aux = transformer.stack_forward(params["stack"], x, positions, cfg)
+    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
+    if cfg.frontend == "vision":
+        x = x[:, batch["vision_embeds"].shape[1]:]
+    return logits_from_hidden(_head_weight(params, cfg), x, cfg), aux
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.01):
+    """Mean next-token (or, encoder-only, frame-label) cross-entropy plus
+    ``lb_coef`` times the MoE load-balance loss. Returns (loss, metrics
+    {"ce", "lb_loss", "loss"})."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.is_autoregressive:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    ce = -ll.mean()
+    total = ce + lb_coef * aux["lb_loss"]
+    return total, {"ce": ce, "lb_loss": aux["lb_loss"], "loss": total}
+
+
 def prefill(params, batch: Dict[str, Any], cfg: ModelConfig):
     """Forward + cache. Returns (last-position logits (B,Vpad) fp32, cache)."""
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x, positions = _embed_inputs(params, batch, cfg)
     x, h, cache = transformer.stack_prefill(params["stack"], x, positions, cfg)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     logits = logits_from_hidden(_head_weight(params, cfg), x[:, -1:], cfg)
@@ -237,7 +329,7 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
     h = None  # the residual stream is x + h, as in transformer.stack_decode
     for i in range(segs[0].n):
         lp = transformer._layer(stack, i)
-        x, h, _, _ = transformer._dense_block(
+        x, h, *_ = transformer._dense_block(
             lp, x, h, lambda y: paged_gqa_decode(lp["attn"], y, k_pools[i], v_pools[i], tables,
                                                  pos, bids, offs, cfg), cfg)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
@@ -248,19 +340,19 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
 # --- cache construction ---------------------------------------------------------
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage):
-    K/V per attention layer, the SSM state (fp32) and conv window per
-    mamba layer, with ``repro``'s stacked lead axes."""
+    K/V per attention layer (the latent ``c`` under MLA), the SSM state
+    (fp32) and conv window per mamba layer, with ``repro``'s stacked lead
+    axes."""
     def meta(shape, dtype=None):
         return torch.empty(shape, dtype=dtype or cfg.compute_dtype, device="meta")
 
     ssm_state = (batch, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
     conv = (batch, cfg.d_conv - 1, cfg.conv_dim)
-    transformer.require_ported(cfg)
     out: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
         if seg.kind in ("dense", "moe"):
             kv = (seg.n,) + init_kv_cache_shape(cfg, batch, seq_len)
-            out[seg.name] = {"k": meta(kv), "v": meta(kv)}
+            out[seg.name] = {"c": meta(kv)} if cfg.use_mla else {"k": meta(kv), "v": meta(kv)}
         elif seg.kind == "ssm":
             out[seg.name] = {"state": meta((seg.n,) + ssm_state, torch.float32),
                              "conv": meta((seg.n,) + conv)}

@@ -15,7 +15,6 @@ index they build stays on the device.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -165,11 +164,14 @@ def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig):
     t = x.shape[0]
     cap = _capacity(t, cfg)
     buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
-    bt = math.gcd(cap, 128)   # cap need not divide 128 when clamped to t
+    # one tile-map entry per expert: the kernel cuts its row tiles per run
+    # of equal expert, so a finer map gives the same products and bits but
+    # more CTAs that walk the map (at block_t 8 under deepseek's forward,
+    # cap 120, a launch took 27x torch.bmm on an H100; PERF.md)
     dt = x.dtype
-    g = F.silu(moe_gmm_capacity(buf3, p["w_gate"].to(dt), block_t=bt))
-    u = moe_gmm_capacity(buf3, p["w_up"].to(dt), block_t=bt)
-    h = moe_gmm_capacity(g * u, p["w_down"].to(dt), block_t=bt)
+    g = F.silu(moe_gmm_capacity(buf3, p["w_gate"].to(dt), block_t=cap))
+    u = moe_gmm_capacity(buf3, p["w_up"].to(dt), block_t=cap)
+    h = moe_gmm_capacity(g * u, p["w_down"].to(dt), block_t=cap)
     return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
 
 

@@ -3,14 +3,17 @@
 A trunk is an ordered list of segments of stacked layers. ``repro`` walks the
 stacked layer axis with ``lax.scan``; here a Python loop walks it. Families:
 
-  dense           : [dense x L]
+  dense/vlm/audio : [dense x L]
   moe             : [dense x first_dense] + [moe x (L - first_dense)]
   ssm             : [mamba x L]
   hybrid (zamba2) : [group x (L // attn_every)], each group = attn_every
                     mamba blocks + ONE shared attention+MLP block whose
                     params are common to all groups
 
-MLA attention raises and names the slice that brings it.
+Each segment runs in three modes: forward (full sequence, no cache),
+prefill (forward + cache emission) and decode (one token against the
+cache). Dense and moe blocks attend with GQA or, under ``use_mla``, MLA
+(a latent cache ``{"c": ...}`` in place of ``{"k", "v"}``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import add_rms_norm, apply_mlp, rms_norm
+from repro_torch.models.layers import add_rms_norm, apply_mlp, layer_norm, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,22 +55,17 @@ def segments_for(cfg: ModelConfig) -> List[Segment]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: MLA attention."""
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: it comes with the MLA slice")
-
-
 def _add_norm(x: torch.Tensor, h: Optional[torch.Tensor], p,
               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x + h, its norm): the residual add of the previous block's delta
     ``h`` folded into the next norm (one launch of the rmsnorm kernel's
     residual form under ``auto``). ``h`` is None before the first norm of
-    the stack, which follows the embedding and no add: (x, norm(x))."""
+    the stack, which follows the embedding and no add: (x, norm(x)). gelu
+    archs (hubert) norm with LayerNorm, which has no kernel: the add, then
+    :func:`layer_norm`, as ``repro`` computes it."""
     if cfg.act == "gelu":
-        raise NotImplementedError(
-            "LayerNorm (gelu archs) comes with the forward/loss_fn slice")
+        s = x if h is None else x + h
+        return s, layer_norm(s, p["w"], p["b"], cfg.norm_eps)
     if h is None:
         return x, rms_norm(x, p["w"], cfg.norm_eps, cfg)
     return add_rms_norm(x, h, p["w"], cfg.norm_eps, cfg)
@@ -84,27 +82,25 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 # stack's last delta goes into the final norm.
 def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig):
     """A dense or moe block: ``attend`` maps the normed input to (attention
-    output, *rest). Returns (x, feed-forward delta, *rest)."""
+    output, *rest). Returns (x, feed-forward delta, the MoE load-balance
+    loss or None, *rest). The feed-forward is the MLP of a dense layer, the
+    MoE of a moe layer (prefill and decode run it too, as ``repro``'s
+    bodies do)."""
     x, y = _add_norm(x, h, p["ln1"], cfg)
     a, *rest = attend(y)
     x, y = _add_norm(x, a, p["ln2"], cfg)
-    return (x, _ffn(p, y, cfg), *rest)
-
-
-def _ffn(p, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The feed-forward delta of a layer on its normed input ``y``: the MLP
-    of a dense layer, the MoE of a moe layer (prefill runs it too, as
-    ``repro``'s bodies do)."""
     if "mlp" in p:
-        return apply_mlp(p["mlp"], y, cfg)
-    return moe_mod.apply_moe(p["moe"], y, cfg)[0]
+        return (x, apply_mlp(p["mlp"], y, cfg), None, *rest)
+    out, aux = moe_mod.apply_moe(p["moe"], y, cfg)
+    return (x, out, aux["lb_loss"], *rest)
 
 
 def _dense_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: torch.Tensor,
                    cfg: ModelConfig):
-    """A dense or moe block at prefill: (x, delta, k, v)."""
-    return _dense_block(p, x, h, lambda y: attn_mod.gqa_prefill(p["attn"], y, positions, cfg),
-                        cfg)
+    """A dense or moe block at prefill: (x, delta, lb, k, v), or (x, delta,
+    lb, latent) under MLA."""
+    prefill = attn_mod.mla_prefill if cfg.use_mla else attn_mod.gqa_prefill
+    return _dense_block(p, x, h, lambda y: prefill(p["attn"], y, positions, cfg), cfg)
 
 
 def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig):
@@ -114,22 +110,56 @@ def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig
     return x, delta, state, tail
 
 
+def _dense_forward(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: torch.Tensor,
+                   cfg: ModelConfig):
+    """A dense or moe block of the full-sequence forward: (x, delta, lb)."""
+    return _dense_block(p, x, h, lambda y: (attn_mod.attention(p["attn"], y, positions, cfg),),
+                        cfg)
+
+
+def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence forward, no cache. Returns (x, h, aux): the hidden
+    state x + h as in :func:`stack_prefill`, and ``aux["lb_loss"]``, the
+    MoE load-balance loss summed over the moe layers (0 without any)."""
+    h = None
+    lbs = []
+    for seg in segments_for(cfg):
+        p = params[seg.name]
+        if seg.kind in ("dense", "moe"):
+            for i in range(seg.n):
+                x, h, lb = _dense_forward(_layer(p, i), x, h, positions, cfg)
+                if lb is not None:
+                    lbs.append(lb)
+        elif seg.kind == "ssm":
+            for i in range(seg.n):
+                x, h, _, _ = _ssm_prefill(_layer(p, i), x, h, cfg)
+        else:  # hybrid_group
+            for i in range(seg.n):
+                group = _layer(p["mamba"], i)
+                for j in range(cfg.attn_every):
+                    x, h, _, _ = _ssm_prefill(_layer(group, j), x, h, cfg)
+                x, h, _ = _dense_forward(p["shared"], x, h, positions, cfg)
+    lb = (torch.stack(lbs).sum() if lbs
+          else torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, h, {"lb_loss": lb}
+
+
 def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Returns (x, h, cache dict): the hidden state is x + h, h the last
     block's delta, which the final norm adds. Cache leaves carry the stacked
     layer axes first, as in ``repro``."""
-    require_ported(cfg)
     cache: Dict[str, Any] = {}
     h = None
     for seg in segments_for(cfg):
         p = params[seg.name]
         if seg.kind in ("dense", "moe"):
-            ks, vs = [], []
+            entries = []
             for i in range(seg.n):
-                x, h, k, v = _dense_prefill(_layer(p, i), x, h, positions, cfg)
-                ks.append(k)
-                vs.append(v)
-            cache[seg.name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+                x, h, _, *kv = _dense_prefill(_layer(p, i), x, h, positions, cfg)
+                entries.append(kv)
+            keys = ("c",) if cfg.use_mla else ("k", "v")
+            cache[seg.name] = {key: torch.stack([e[j] for e in entries])
+                               for j, key in enumerate(keys)}
         elif seg.kind == "ssm":
             states, tails = [], []
             for i in range(seg.n):
@@ -146,7 +176,7 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
                     x, h, st, tail = _ssm_prefill(_layer(group, j), x, h, cfg)
                     sts.append(st)
                     tls.append(tail)
-                x, h, k, v = _dense_prefill(p["shared"], x, h, positions, cfg)
+                x, h, _, k, v = _dense_prefill(p["shared"], x, h, positions, cfg)
                 states.append(torch.stack(sts))
                 tails.append(torch.stack(tls))
                 ks.append(k)
@@ -156,12 +186,17 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     return x, h, cache
 
 
-def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, pos, cfg: ModelConfig):
-    """A dense or moe block at decode: (x, delta); writes the token's K/V in
-    place."""
-    x, delta, _, _ = _dense_block(
-        p, x, h, lambda y: attn_mod.gqa_decode(p["attn"], y, k_cache, v_cache, pos, cfg), cfg)
+def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: ModelConfig):
+    """A dense or moe block at decode: (x, delta); writes the token's K/V
+    (or its latent entry under MLA) into ``c``, one layer's cache leaves,
+    in place."""
+    if cfg.use_mla:
+        def attend(y):
+            return attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg)
+    else:
+        def attend(y):
+            return attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg)
+    x, delta, *_ = _dense_block(p, x, h, attend, cfg)
     return x, delta
 
 
@@ -183,13 +218,12 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     Returns (x, h, cache), the hidden state x + h as in
     :func:`stack_prefill`; the cache is updated in place (saves a copy of
     the whole cache per token) and the same tree is returned."""
-    require_ported(cfg)
     h = None
     for seg in segments_for(cfg):
         p, c = params[seg.name], cache[seg.name]
         if seg.kind in ("dense", "moe"):
             for i in range(seg.n):
-                x, h = _dense_decode(_layer(p, i), x, h, c["k"][i], c["v"][i], pos, cfg)
+                x, h = _dense_decode(_layer(p, i), x, h, _layer(c, i), pos, cfg)
         elif seg.kind == "ssm":
             for i in range(seg.n):
                 x, h = _ssm_decode(_layer(p, i), x, h, c["state"][i], c["conv"][i], cfg)
@@ -199,5 +233,5 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
                 for j in range(cfg.attn_every):
                     x, h = _ssm_decode(_layer(group, j), x, h, c["state"][i, j],
                                        c["conv"][i, j], cfg)
-                x, h = _dense_decode(p["shared"], x, h, c["k"][i], c["v"][i], pos, cfg)
+                x, h = _dense_decode(p["shared"], x, h, _layer(c, i), pos, cfg)
     return x, h, cache

@@ -121,9 +121,14 @@ class ServingEngine:
         return _pick(logits, self.cfg.vocab_size, temperature, generator)
 
     def score(self, tokens: np.ndarray) -> float:
-        raise NotImplementedError(
-            "ServingEngine.score needs forward/loss_fn, which come with a "
-            "later slice of the port (ROADMAP)")
+        """Mean NLL of a token batch through ``loss_fn`` (a cheap integrity
+        check when an invoker re-registers after migration). As in
+        ``repro``, the batch is ``tokens[:, :-1]`` labelled with
+        ``tokens[:, 1:]``, and ``loss_fn`` shifts them once more."""
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=self.device)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        loss, _ = model_mod.loss_fn(self.params, batch, self.cfg)
+        return float(loss)
 
 
 class ContinuousEngine:

@@ -212,7 +212,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, kv, s, d, causal, window
     (1, 8, 2, 333, 8, True, 100),       # 8 with a window
     (1, 2, 1, 1, 128, True, None),      # one row
     (2, 16, 2, 191, 128, True, 64),     # window of one tile, Sq one short of three tiles
-    (1, 48, 8, 512, 128, True, None),   # mixtral-8x22b's prefill: group 6
+    (1, 48, 8, 512, 128, True, None),   # mixtral-8x22b's prefill and internvl2-26b's: group 6
+    (1, 16, 16, 512, 80, False, None),  # hubert-xlarge's encoder: not causal, head_dim 80
 ])
 def test_flash_kernel_head_dims_and_edges_on_card(cuda, b, h, kv, s, d, causal, window,
                                                   dtype):
@@ -490,6 +491,55 @@ def test_moe_gmm_runs_that_cross_the_row_tiles(cuda):
         torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(
             lhs, rhs, te_t, block_t).float(), **tol)
         torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("t,d,f,block_t,tile_rows", [
+    (512, 2048, 1408, 8, 8),      # decode, 4 slots: cap 8, w_gate/w_up, the narrow tile
+    (512, 1408, 2048, 8, 8),      # decode w_down
+    (4096, 2048, 1408, 64, 192),  # a 512-token prefill: cap 64, the wide tile
+    (7680, 2048, 1408, 8, 192),   # forward at B 2, S 512: cap 120, block_t 8 under the wide tile
+    (7680, 1408, 2048, 8, 192),   # its w_down
+])
+def test_moe_gmm_deepseek_shapes_on_card(cuda, t, d, f, block_t, tile_rows):
+    """deepseek-v2-lite-16b's capacity buffers (64 experts, moe_d_ff 1408,
+    F not a multiple of the 256-column CTA tile) in bf16, as the model lays
+    them out (each expert's capacity rows in a run): the row tile the
+    wrapper picks, against the plain version and the plain mirror of its
+    partition; a repeated call gives the same bits."""
+    e = 64
+    assert gmm_kernel.row_tile(t, e) == tile_rows
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lhs = torch.randn(t, d, device=cuda, generator=g).to(torch.bfloat16)
+    rhs = (torch.randn(e, d, f, device=cuda, generator=g) * d ** -0.5).to(torch.bfloat16)
+    te = ops.tile_experts_for_capacity(e, t // e, block_t, device=cuda)
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=block_t)
+    again = ops.moe_gmm_op(lhs, rhs, te, block_t=block_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, block_t).float(),
+                               **BF16_TOL)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_schedule_ref(
+        lhs, rhs, te, block_t, tile_rows=tile_rows).float(), **BF16_TOL)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,f", [(120, 1408), (160, 96), (19, 52)])
+def test_moe_gmm_capacity_block_t_does_not_change_the_bits(cuda, cap, f, dtype):
+    """The capacity path passes block_t = cap (one tile-map entry an
+    expert); a finer map (block_t 8, or 1) gives the same bits in every
+    row tile and dtype, since the kernels cut their tiles per run of equal
+    expert."""
+    e, d = 16, 256
+    g = torch.Generator(device=cuda).manual_seed(9)
+    buf = torch.randn(e, cap, d, device=cuda, generator=g).to(dtype)
+    rhs = (torch.randn(e, d, f, device=cuda, generator=g) * d ** -0.5).to(dtype)
+    want = ops.moe_gmm_capacity(buf, rhs, block_t=cap)
+    fine = 8 if cap % 8 == 0 else 1
+    got = ops.moe_gmm_capacity(buf, rhs, block_t=fine)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(want.float(), torch.bmm(buf.float(), rhs.float()),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -30,16 +30,22 @@ from repro_torch.models.weights import params_from_numpy
 pytestmark = pytest.mark.slow
 
 ARCHS = ["qwen2.5-3b", "internlm2-1.8b", "qwen1.5-4b", "stablelm-12b"]
-ALL_ARCHS = ARCHS + ["mixtral-8x22b", "mamba2-2.7b", "zamba2-2.7b"]
-# kernel sites under ``auto``: every arch runs rmsnorm, attention archs
-# flash attention, MoE archs the grouped matmul, SSM and hybrid archs ssd
+# the archs served through prefill/decode, and every arch of repro
+SERVED_ARCHS = ARCHS + ["mixtral-8x22b", "deepseek-v2-lite-16b", "mamba2-2.7b", "zamba2-2.7b"]
+ALL_ARCHS = SERVED_ARCHS + ["hubert-xlarge", "internvl2-26b"]
+# kernel sites under ``auto``: rmsnorm for every arch but the gelu encoder
+# (LayerNorm), flash attention for GQA archs (MLA has no flash twin), the
+# grouped matmul for MoE archs, ssd for SSM and hybrid archs
 AUTO_SITES = {"qwen2.5-3b": ("attention", "rmsnorm"),
               "internlm2-1.8b": ("attention", "rmsnorm"),
               "qwen1.5-4b": ("attention", "rmsnorm"),
               "stablelm-12b": ("attention", "rmsnorm"),
               "mixtral-8x22b": ("attention", "moe", "rmsnorm"),
               "mamba2-2.7b": ("rmsnorm", "ssm"),
-              "zamba2-2.7b": ("attention", "rmsnorm", "ssm")}
+              "zamba2-2.7b": ("attention", "rmsnorm", "ssm"),
+              "deepseek-v2-lite-16b": ("moe", "rmsnorm"),
+              "hubert-xlarge": ("attention",),
+              "internvl2-26b": ("attention", "rmsnorm")}
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -64,12 +70,10 @@ def test_config_equals_repro_field_by_field(arch, smoke):
         (site, "kernel") for site in AUTO_SITES[arch])
 
 
-@pytest.mark.parametrize("arch,slice_name", [("deepseek-v2-lite-16b", "MLA"),
-                                             ("hubert-xlarge", "forward/loss_fn"),
-                                             ("internvl2-26b", "forward/loss_fn")])
-def test_unported_arch_names_its_slice(arch, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        torch_get_config(arch)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_mla_properties_equal_repros(arch):
+    jc, tc = jax_get_config(arch), torch_get_config(arch)
+    assert tc.q_dim == jc.q_dim and tc.kv_cache_head_dim == jc.kv_cache_head_dim
 
 
 # --- parameters ---------------------------------------------------------------
@@ -150,6 +154,28 @@ def test_init_params_bits_do_not_depend_on_mkl_or_threads():
     assert len(digests) == 1, digests
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-lite-16b"])
+def test_init_params_redraws_slice_by_slice_with_the_same_bits(arch, monkeypatch):
+    """The out-of-range redraws go slice by slice; with slices of 7
+    elements the parameters are bit for bit those of one whole-leaf slice
+    (``t[t.abs() > 2] = draw``)."""
+    tc = torch_get_config(arch, smoke=True)
+    whole = tmodel.init_params(tc, torch.Generator().manual_seed(3), device="cpu")
+    monkeypatch.setattr(tmodel, "_SLICE", 7)
+    sliced = tmodel.init_params(tc, torch.Generator().manual_seed(3), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tmodel.tree_leaves(whole),
+                                                 tmodel.tree_leaves(sliced)))
+    t = torch.empty(1000).normal_(generator=torch.Generator().manual_seed(4))
+    want = t.clone()
+    gen = torch.Generator().manual_seed(5)
+    out = want.abs() > 2.0
+    while bool(out.any()):
+        want[out] = torch.empty(int(out.sum())).normal_(generator=gen)
+        out = want.abs() > 2.0
+    tmodel._redraw_outside(t, torch.Generator().manual_seed(5))
+    assert torch.equal(t, want) and float(t.abs().max()) <= 2.0
+
+
 def test_cast_params_keeps_norms_and_copies_matrices_once():
     _, tc = configs("qwen2.5-3b", dtype="bfloat16")
     tp = tmodel.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
@@ -218,7 +244,7 @@ def _norms_per_pass(cfg):
 
 
 @pytest.mark.parametrize("impls", ["reference", "auto"])
-@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_every_norm_after_an_add_takes_the_residual_form(arch, impls, monkeypatch):
     """Under ``auto`` a prefill and a decode step each make one plain norm
     call, a residual-form call for every other norm and a gated call for

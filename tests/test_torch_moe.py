@@ -224,15 +224,6 @@ def test_prefill_and_decode_with_a_dense_layer_and_a_shared_expert(impls):
     _prefill_and_decode(jc, tc)
 
 
-@pytest.mark.parametrize("first_dense_layers", [0, 1])
-def test_mla_still_names_its_slice(first_dense_layers):
-    _, tc = configs(ARCH, use_mla=True, first_dense_layers=first_dense_layers)
-    with pytest.raises(NotImplementedError, match="MLA slice"):
-        tmodel.param_specs(tc)
-    with pytest.raises(NotImplementedError, match="MLA slice"):
-        tmodel.cache_spec(tc, 1, 8)
-
-
 # --- serving ----------------------------------------------------------------------------------
 def _serve(engine, prompts, max_new, cls, drain_after=None):
     for i, p in enumerate(prompts):

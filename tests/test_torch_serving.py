@@ -142,8 +142,9 @@ def test_kv_stats_and_grown_cache_match_jax(setup):
     seq = ServingEngine(tc, tp, max_seq=64, device="cpu")
     grown = seq._grown_cache(tmodel.init_cache(tc, 1, 5, device="cpu"), 2, 24)
     assert tuple(grown["dense"]["k"].shape) == (tc.n_layers, 2, 24, tc.n_kv_heads, tc.head_dim)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        seq.score(np.zeros((1, 4), np.int64))
+    toks = np.random.default_rng(3).integers(0, tc.vocab_size, size=(2, 12))
+    want = JaxServingEngine(jc, jp, max_seq=64).score(toks)
+    np.testing.assert_allclose(seq.score(toks), want, atol=5e-5, rtol=5e-4)
 
 
 # --- the port's rules -------------------------------------------------------------
