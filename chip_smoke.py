@@ -77,11 +77,29 @@ Run from the root of a checkout on a machine with one CUDA card. It
    ``auto`` against ``reference``;
 11. serves 4 requests of (512, 16) of full-width, full-depth stablelm-12b
    (bf16 weights; flash at head_dim 160) with exact launch counts;
-12. every serving phase (qwen2.5-3b, mixtral, mamba2, zamba2, deepseek,
+12. trains on the card under ``kernel_impls="reference"`` (the kernels
+   have no backward, as in ``repro``): (a) full-width, full-depth
+   internlm2-1.8b (1.889 B fp32 parameters, bf16 compute) 12 steps of (8,
+   512) tokens in 2 microbatches from ``DataPipeline``: finite losses and
+   grad norms, the last loss below the first, no kernel launched; step ms,
+   tokens/s, init and training peak memory, one profiled step, steps with
+   the stacked leaves split by ``v[i]`` against one ``unbind`` in turns,
+   and ``adamw_update`` alone against its bytes floor; (b) one microbatch's
+   loss and gradients under each ``remat`` mode: equal within
+   ``REMAT_REL_TOL``, and ``"full"`` below ``"none"`` in peak memory; (c)
+   under ``auto``, ``loss_fn`` on 1 layer with parameters that require grad
+   raises before any launch, with the refusal bypassed its backward leaves
+   parameters without gradient, and under ``torch.no_grad()`` it launches
+   as counted; (d) at full width cut to 2 layers, 8 steps unbroken against 4,
+   an async checkpoint, a restore (bit for bit, the pipeline step too) and
+   4 more (``RESUME_REL_TOL``), with the bytes and the save and restore
+   seconds; (e) ``launch.train.train()`` with a checkpoint and a resume,
+   ``launch.train_lm``, and 3 smoke f32 steps on the card against the CPU;
+13. every serving phase (qwen2.5-3b, mixtral, mamba2, zamba2, deepseek,
    stablelm) also calls ``ServingEngine.score`` on (2, 512) tokens with the
    weights it holds, checks the forward's launches and a finite loss, and
    frees its weights before the next phase; each phase's wall prints;
-13. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
+14. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
    form; each kernel's launches summed over every path above) and, last,
    the ``{"ok": true, ...}`` line.
 
@@ -1918,6 +1936,400 @@ def stablelm_phase(seed: int):
     return counts, {f"stablelm_{k}": x for k, x in serving.items()}
 
 
+# HBM bytes a parameter moves in one AdamW update: p, g, m, v read (fp32)
+# and p, m, v written
+ADAMW_BYTES_PER_PARAM = 28
+# the largest relative difference allowed between the remat modes' losses and
+# grad norms on the card (the recomputed forward runs the same kernels on
+# the same inputs; cuBLAS may pick another algorithm inside a checkpoint)
+REMAT_REL_TOL = 1e-3
+# the largest relative difference allowed between a resumed run and an
+# unbroken one on the card, losses and parameters
+RESUME_REL_TOL = 1e-5
+
+
+def _train_cfg(n_layers=None, remat="none"):
+    """internlm2-1.8b FULL (bf16 compute, fp32 parameters, reference ops),
+    cut to ``n_layers`` when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internlm2-1.8b")
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, remat=remat)
+
+
+def _cuda_batch(pipe) -> dict:
+    return {k: torch.from_numpy(v).to("cuda") for k, v in pipe.next_batch().items()}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_full_leg(seed: int) -> dict:
+    """(a) internlm2-1.8b FULL (1.889 B parameters) trains 12 steps of (8 x
+    512) tokens in 2 microbatches under ``kernel_impls="reference"``: finite
+    losses and grad norms, the last loss below the first, no kernel launched.
+    Then one profiled step, (b) the remat modes on one microbatch of the
+    first batch, and ``adamw_update`` alone against its bytes floor. Between
+    the profiled step and (b), steps with the stacked leaves split per layer
+    by ``v[i]`` (the earlier design) and by one ``unbind``, in turns."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import (OptimizerConfig, adamw_update, global_norm,
+                                                init_opt_state)
+    from repro_torch.training.train_step import _grads_of, make_train_step
+
+    steps, batch, seq, n_mb = 12, 8, 512, 2
+    cfg = _train_cfg()
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    print(f"training: {cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype="
+          f"{cfg.dtype}/{cfg.param_dtype} remat={cfg.remat} kernel_impls={dict(cfg.kernel_impls)}; "
+          f"batch {batch} x {seq} in {n_mb} microbatches, {steps} steps, {opt_cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    state_bytes = M.nbytes(params) + M.nbytes(opt["m"]) + M.nbytes(opt["v"])
+    pgmv = state_bytes + M.nbytes(params)  # + one fp32 gradient tree (counted)
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"training: {n_params} parameters; p + m + v {state_bytes} bytes, with one gradient "
+          f"tree {pgmv} bytes (counted); init {time.perf_counter() - t0:.2f} s, peak memory "
+          f"during init {init_peak} bytes")
+    step_fn = make_train_step(cfg, opt_cfg, n_mb)
+    pipe = DataPipeline(cfg, batch, seq, seed=seed)
+    first_batch = None
+    losses, gnorms, ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(steps):
+        b = _cuda_batch(pipe)
+        if first_batch is None:
+            first_batch = b
+        t = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # wait for the card
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(loss)
+        gnorms.append(gnorm)
+        print(f"training: step {i + 1} loss {loss:.5f} ce {float(metrics['ce']):.5f} grad_norm "
+              f"{gnorm:.5f} lr {float(metrics['lr']):.3e} {ms[-1]:.2f} ms")
+    counts = launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"training: kernels launched on the reference path: {counts}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"training: non-finite loss or grad norm {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: loss did not fall: {losses}")
+    tokens = batch * seq
+    med = statistics.median(ms[1:])
+    flops = 6 * n_params * tokens
+    out = {"params": n_params, "losses": losses, "grad_norms": gnorms, "step_ms": ms,
+           "median_step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+           "init_peak_memory_bytes": init_peak, "train_peak_memory_bytes": train_peak,
+           "state_bytes_counted": state_bytes, "pgmv_bytes_counted": pgmv,
+           "launches": counts, "flops_per_step_counted": flops,
+           "flops_floor_ms": 1e3 * flops / PEAK_FLOPS[torch.bfloat16]}
+    print(f"training: loss {losses[0]:.5f} -> {losses[-1]:.5f} over {steps} steps; step median "
+          f"{med:.2f} ms (steps 2-{steps}; step 1 {ms[0]:.2f} ms) = {out['tokens_per_s']:.1f} "
+          f"tokens/s; counted 6 N T = {flops:.4e} FLOP a step, {out['flops_floor_ms']:.2f} ms at "
+          f"the bf16 dense peak; launches {counts}; peak memory training {train_peak} bytes, "
+          f"init {init_peak} bytes, counted p+g+m+v {pgmv} bytes")
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, _ = step_fn(params, opt, _cuda_batch(pipe))
+    out.update(profile_run(one_step, f"one train step ((8, 512) in 2 microbatches, step "
+                           f"{steps + 1}, profiler on)", 1, "train", "step"))
+
+    # the stacked leaves split per layer by v[i] (the earlier design, whose
+    # backward zero-fills a whole stacked leaf for every layer) against one
+    # unbind (transformer._layers), in turns on the same card
+    from repro_torch.models import transformer
+    unbind = transformer._layers
+    split = {"index": lambda tree, n: [transformer._layer(tree, i) for i in range(n)],
+             "unbind": unbind}
+    ab = {"index": [], "unbind": []}
+    try:
+        for label in ("index", "unbind", "unbind", "index"):
+            transformer._layers = split[label]
+            t_ms = []
+            for _ in range(3):
+                t = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                t_ms.append(1e3 * (time.perf_counter() - t))
+            ab[label].append(statistics.median(t_ms[1:]))
+    finally:
+        transformer._layers = unbind
+    out["layer_split_step_ms"] = ab
+    print(f"training: step ms with the stacked leaves split by v[i] "
+          f"{['%.2f' % x for x in ab['index']]}, by one unbind "
+          f"{['%.2f' % x for x in ab['unbind']]} (in turns, median of the last 2 of 3 steps)")
+
+    # (b) remat: one microbatch of the first batch, loss and gradients per mode
+    mb = {k: v[:batch // n_mb] for k, v in first_batch.items()}
+    remat = {}
+    for mode in ("none", "full", "dots_saveable"):
+        rcfg = dataclasses.replace(cfg, remat=mode)
+        _grads_of(params, mb, rcfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls = []
+        for _ in range(2):
+            grads = None
+            t = time.perf_counter()
+            loss, _, grads = _grads_of(params, mb, rcfg)
+            gn = float(global_norm(grads))
+            walls.append(1e3 * (time.perf_counter() - t))
+        peak = torch.cuda.max_memory_allocated()
+        remat[mode] = {"loss": float(loss), "grad_norm": gn, "ms": walls,
+                       "peak_memory_bytes": peak, "peak_above_state_bytes": peak - base}
+        if mode != "dots_saveable":
+            del grads
+        print(f"remat {mode}: loss {remat[mode]['loss']:.7f} grad_norm {gn:.7f}, loss and grads "
+              f"of one (4, 512) microbatch {walls[0]:.2f} / {walls[1]:.2f} ms (two passes), peak "
+              f"memory {peak} bytes ({peak - base} above the state)")
+    worst = max(_rel(remat[m][k], remat["none"][k]) for m in ("full", "dots_saveable")
+                for k in ("loss", "grad_norm"))
+    print(f"remat: largest relative difference against none {worst:.3e} (limit "
+          f"{REMAT_REL_TOL}); peak full < none: "
+          f"{remat['full']['peak_memory_bytes'] < remat['none']['peak_memory_bytes']}")
+    if worst > REMAT_REL_TOL:
+        raise AssertionError(f"remat: modes disagree by {worst:.3e}: {remat}")
+    if not remat["full"]["peak_memory_bytes"] < remat["none"]["peak_memory_bytes"]:
+        raise AssertionError(f"remat: full does not lower the peak: {remat}")
+    out["remat"] = dict(remat, max_rel_diff=worst)
+
+    # adamw_update alone, on the last gradient tree (consumes params and opt)
+    bytes_ = ADAMW_BYTES_PER_PARAM * n_params
+    bound = 1e3 * bytes_ / PEAK_BYTES_PER_S
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    adamw_update(grads, opt, params, opt_cfg)  # warm-up
+    torch.cuda.synchronize()
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        adamw_update(grads, opt, params, opt_cfg)
+    end.record()
+    torch.cuda.synchronize()
+    adamw_ms = start.elapsed_time(end) / reps
+    out.update(adamw_ms=adamw_ms, adamw_bound_ms=bound, adamw_bytes_counted=bytes_)
+    print(f"adamw_update: {adamw_ms:.3f} ms a call (CUDA events, {reps} calls) over {n_params} "
+          f"parameters; bytes floor {bytes_} B / {PEAK_BYTES_PER_S:.3e} B/s = {bound:.3f} ms "
+          f"({adamw_ms / bound:.2f}x)")
+    del params, opt, grads, first_batch, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_leg(seed: int) -> dict:
+    """(c) internlm2-1.8b FULL cut to 1 layer under ``kernel_impls="auto"``:
+    ``loss_fn`` with parameters that require grad raises ``RuntimeError``
+    before any launch; with the refusal bypassed, the backward returns and
+    leaves get no gradient (what the refusal prevents); under
+    ``torch.no_grad()`` it launches the forward's kernels as counted.
+    Returns those launches."""
+    from repro_torch.configs import with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+
+    cfg = with_kernel_impls(_train_cfg(n_layers=1), "auto")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed + 13))
+    batch = {"tokens": tokens, "labels": tokens}
+    grad_params = M.tree_map(lambda p: p.detach().requires_grad_(), params)
+    reset_launch_counts()
+    try:
+        M.loss_fn(grad_params, batch, cfg)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("guard: loss_fn differentiated through the kernels")
+    torch.cuda.synchronize()
+    if "reference" not in refused or any(launch_counts().values()):
+        raise AssertionError(f"guard: {refused!r}, launches {launch_counts()}")
+    print(f"guard: loss_fn with parameters that require grad under auto raised RuntimeError "
+          f"({refused[:90]}...), launches {launch_counts()}")
+    # what the refusal prevents: with it bypassed, the backward returns and
+    # the leaves upstream of the first kernel op get no gradient
+    from repro_torch.kernels import ops
+    refuse = ops._refuse_grad
+    ops._refuse_grad = lambda *a: None
+    try:
+        M.loss_fn(grad_params, batch, cfg)[0].backward()
+    finally:
+        ops._refuse_grad = refuse
+    leaves = M.tree_leaves(grad_params)
+    no_grad_leaves = sum(t.grad is None for t in leaves)
+    print(f"guard: with the refusal bypassed, backward returns and {no_grad_leaves} of "
+          f"{len(leaves)} parameter leaves get no gradient")
+    if no_grad_leaves == 0:
+        raise AssertionError("guard: the bypassed backward reached every leaf")
+    reset_launch_counts()
+    with torch.no_grad():
+        loss = float(M.loss_fn(grad_params, batch, cfg)[0])
+    counts = check_counts("guard no_grad loss_fn", cfg, launch_counts(), rmsnorm_form_counts(),
+                          forward_counts(cfg), 1)
+    if not np.isfinite(loss):
+        raise AssertionError(f"guard: loss {loss}")
+    del params, grad_params, leaves
+    torch.cuda.empty_cache()
+    return counts
+
+
+def restart_leg(seed: int) -> dict:
+    """(d) checkpoint and restart at full width cut to 2 layers: 8 steps
+    unbroken; then 4 steps, an async save at step 4, a restore that must
+    give the saved bits and pipeline step, and steps 5-8, which must equal
+    the unbroken run's (``RESUME_REL_TOL``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    steps, save_at, batch, seq, n_mb = 8, 4, 8, 512, 2
+    cfg = _train_cfg(n_layers=2)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg, n_mb)
+
+    def fresh():
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        return params, init_opt_state(params), DataPipeline(cfg, batch, seq, seed=seed)
+
+    def run(params, opt, pipe, n):
+        losses = []
+        for _ in range(n):
+            params, opt, m = step_fn(params, opt, _cuda_batch(pipe))
+            losses.append(float(m["loss"]))
+        return params, opt, losses
+
+    params, opt, pipe = fresh()
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    p_full, o_full, l_full = run(params, opt, pipe, steps)
+    params, opt, pipe = fresh()
+    params, opt, l_first = run(params, opt, pipe, save_at)
+    state = {"params": params, "opt": opt}
+    need = M.nbytes(params) + M.nbytes(opt["m"]) + M.nbytes(opt["v"])
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        if free < 1.1 * need:
+            raise RuntimeError(f"restart: the checkpoint needs {need} bytes (+10%) under {d}, "
+                               f"{free} bytes free")
+        t = time.perf_counter()
+        ckpt.save(state, d, save_at, extra={"pipeline": pipe.state_dict()}, async_save=True)
+        snapshot_s = time.perf_counter() - t
+        ckpt.wait_for_saves()
+        save_s = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        template = M.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), state)
+        t = time.perf_counter()
+        restored, manifest = ckpt.restore(template, d)  # device None: the card
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for a, b in zip(M.tree_leaves(restored), M.tree_leaves(state)):
+        check_bits("restart: restored leaf", a, b)
+    if manifest["step"] != save_at or manifest["extra"]["pipeline"] != pipe.state_dict():
+        raise AssertionError(f"restart: manifest {manifest['step']} {manifest['extra']}")
+    del state, params, opt  # "fail"
+    pipe = DataPipeline(cfg, batch, seq, seed=seed)
+    pipe.load_state_dict(manifest["extra"]["pipeline"])
+    p_res, o_res, l_rest = run(restored["params"], restored["opt"], pipe, steps - save_at)
+    loss_diff = max(_rel(a, b) for a, b in zip(l_first + l_rest, l_full))
+    param_diff = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)
+                      ).item() for a, b in zip(M.tree_leaves({"p": p_res, "o": o_res}),
+                                               M.tree_leaves({"p": p_full, "o": o_full})))
+    print(f"restart: {cfg.arch_id} cut to {cfg.n_layers} layers, {n_params} parameters; "
+          f"checkpoint of p + m + v at step {save_at}: {size} bytes on disk ({need} counted); "
+          f"async save returned after {snapshot_s:.3f} s (host snapshot), written after "
+          f"{save_s:.3f} s; restore {restore_s:.3f} s; restored tensors and pipeline step equal "
+          f"the saved ones bit for bit; losses unbroken {['%.6f' % x for x in l_full]}, resumed "
+          f"{['%.6f' % x for x in l_first + l_rest]}; largest relative difference: losses "
+          f"{loss_diff:.3e}, parameters and m, v {param_diff:.3e} (limit {RESUME_REL_TOL})")
+    if loss_diff > RESUME_REL_TOL or param_diff > RESUME_REL_TOL:
+        raise AssertionError(f"restart: the resumed run differs from the unbroken one "
+                             f"(losses {loss_diff:.3e}, parameters {param_diff:.3e})")
+    del p_full, o_full, p_res, o_res, restored
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bytes": size, "bytes_counted": need, "snapshot_s": snapshot_s,
+            "save_s": save_s, "restore_s": restore_s, "loss_max_rel_diff": loss_diff,
+            "param_max_rel_diff": param_diff}
+
+
+def launcher_leg(seed: int) -> dict:
+    """(e) ``repro_torch.launch.train.train()`` on the card at the smoke
+    config, 4 steps with a checkpoint, then to 8 resuming from it; the
+    ``train_lm`` twin; and 3 steps of ``make_train_step`` at smoke f32 on
+    the card against the CPU (5e-5/5e-4)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tc = TrainConfig(steps=8, global_batch=8, seq_len=128, n_microbatches=2, seed=seed,
+                         ckpt_dir=d, ckpt_every=4, log_every=2)
+        _, _, h1 = train(dataclasses.replace(tc, steps=4))
+        _, _, h2 = train(tc)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if h1[-1][0] != 4 or h2[0][0] != 6 or not np.isfinite([x for _, x in h1 + h2]).all():
+        raise AssertionError(f"launcher: histories {h1} {h2}")
+    first, last = train_lm.main(["--steps", "40"])
+    if not last < first:
+        raise AssertionError(f"train_lm: loss {first} -> {last}")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), dtype="float32")
+    step_fn = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    pc = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    pg = M.tree_map(lambda t: t.to("cuda"), pc)
+    oc, og = init_opt_state(pc), init_opt_state(pg)
+    pipe = DataPipeline(cfg, 4, 64, seed=seed)
+    err = 0.0
+    for _ in range(3):
+        b = {k: torch.from_numpy(v) for k, v in pipe.next_batch().items()}
+        pc, oc, mc = step_fn(pc, oc, b)
+        pg, og, mg = step_fn(pg, og, {k: v.to("cuda") for k, v in b.items()})
+        for k in mc:
+            err = max(err, check_close(f"launcher: cuda vs cpu {k}", mg[k].cpu(), mc[k],
+                                       TOL[torch.float32]))
+    for a, b in zip(M.tree_leaves(pg), M.tree_leaves(pc)):
+        err = max(err, check_close("launcher: cuda vs cpu params", a.cpu(), b, TOL[torch.float32]))
+    print(f"launcher: train() 4 steps then resumed to 8 on cuda (history {h1} then {h2}); "
+          f"train_lm loss {first:.4f} -> {last:.4f}; smoke f32 3 steps cuda vs cpu max abs err "
+          f"{err:.3e} (atol/rtol {TOL[torch.float32]})")
+    return {"history": h1 + h2, "train_lm": [first, last], "cuda_vs_cpu_max_abs_err": err}
+
+
+def training_phase(seed: int):
+    """(a)-(e) of the training phase; returns ((c)'s launches, results)."""
+    out = {"full": train_full_leg(seed)}
+    guard_counts = guard_leg(seed)
+    out["restart"] = restart_leg(seed)
+    out["launcher"] = launcher_leg(seed)
+    return guard_counts, out
+
+
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output: the
     kernel and its template arguments, registers, static shared memory and
@@ -2016,12 +2428,14 @@ def main(argv=None) -> int:
     frontend_counts, serving["frontend"] = phase("frontend", frontend_phase, args.seed)
     stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
     serving.update(stablelm_serving)
+    guard_counts, serving["training"] = phase("training", training_phase, args.seed)
     walls["total"] = time.perf_counter() - t0
     serving["phase_wall_s"] = walls
     print(f"phases: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
     # each kernel's launches summed over every path that drove it (each read
     # just after its path ran with the counts at 0): the serving phases, the
-    # platform runs, the score legs and the frontends' loss_fn
+    # platform runs, the score legs, the frontends' loss_fn and the training
+    # phase's no_grad loss_fn under auto (its training path launches none)
     paths = {"dense": counts, "paged": paged_counts,
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
@@ -2031,7 +2445,8 @@ def main(argv=None) -> int:
              "zamba2 score": serving["zamba2_score"]["launches"], "mla": mla_counts,
              "mla score": serving["mla_score"]["launches"],
              "hubert loss_fn": frontend_counts[0], "internvl2 loss_fn": frontend_counts[1],
-             "stablelm": stablelm_counts, "stablelm score": serving["stablelm_score"]["launches"]}
+             "stablelm": stablelm_counts, "stablelm score": serving["stablelm_score"]["launches"],
+             "training guard no_grad loss_fn": guard_counts}
     print("launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     counts = {name: sum(c["rmsnorm_forms"][form] for c in paths.values())
               for name, form in RMS_FORMS.items()}

@@ -1,1 +1,2 @@
-"""Launch tools of the port (``serve.py``; the rest come with a later slice)."""
+"""Launch tools of the port: ``serve.py``, ``harvest_serving.py``, ``train.py``
+and ``train_lm.py`` (the rest come with a later slice)."""

@@ -18,9 +18,11 @@ cache). Dense and moe blocks attend with GQA or, under ``use_mla``, MLA
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -76,6 +78,16 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` layers of a stacked-parameter tree, each leaf split once
+    with ``unbind`` (views, no copies). The same values as :func:`_layer`,
+    but a backward writes each stacked leaf's gradient with one ``stack``;
+    through ``v[i]`` it zero-fills a whole stacked leaf for every layer and
+    sums the ``n`` of them, ``n`` times the traffic of the leaf."""
+    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 # Every block takes the residual stream as (x, h): the stream is x + h, with
 # h the previous block's delta not yet added (None at the stack's start),
 # and returns its own (x, delta). The add happens in the next norm, and the
@@ -117,28 +129,70 @@ def _dense_forward(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: tor
                         cfg)
 
 
+# the products whose outputs ``"dots_saveable"`` keeps for the backward, as
+# ATen ops (what the selective-checkpoint policy sees): JAX's dots_saveable
+# keeps every dot_general, which the port's matmuls and einsums lower to
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``repro``'s ``_remat``: ``"none"`` runs ``fn`` as it is, ``"full"``
+    keeps only its inputs and recomputes the rest in the backward,
+    ``"dots_saveable"`` keeps the outputs of the products and recomputes the
+    rest. Anything else raises ``ValueError``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots_saveable":
+        context_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    raise ValueError(cfg.remat)
+
+
 def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Full-sequence forward, no cache. Returns (x, h, aux): the hidden
     state x + h as in :func:`stack_prefill`, and ``aux["lb_loss"]``, the
-    MoE load-balance loss summed over the moe layers (0 without any)."""
+    MoE load-balance loss summed over the moe layers (0 without any).
+
+    ``cfg.remat`` wraps each unit ``repro`` wraps (:func:`_remat`): every
+    dense, moe and ssm layer, and every hybrid group (its ``attn_every``
+    mamba layers and the shared block). A unit maps (x, h) to (x, h, lb),
+    so the residual delta carried to the next norm stays inside it."""
+    def dense(lp, x, h):
+        return _dense_forward(lp, x, h, positions, cfg)
+
+    def ssm(lp, x, h):
+        x, h, _, _ = _ssm_prefill(lp, x, h, cfg)
+        return x, h, None
+
+    def group(gp, shared, x, h):
+        for lp in _layers(gp, cfg.attn_every):
+            x, h, _, _ = _ssm_prefill(lp, x, h, cfg)
+        return _dense_forward(shared, x, h, positions, cfg)
+
     h = None
     lbs = []
     for seg in segments_for(cfg):
         p = params[seg.name]
-        if seg.kind in ("dense", "moe"):
-            for i in range(seg.n):
-                x, h, lb = _dense_forward(_layer(p, i), x, h, positions, cfg)
+        if seg.kind in ("dense", "moe", "ssm"):
+            unit = _remat(ssm if seg.kind == "ssm" else dense, cfg)
+            for lp in _layers(p, seg.n):
+                x, h, lb = unit(lp, x, h)
                 if lb is not None:
                     lbs.append(lb)
-        elif seg.kind == "ssm":
-            for i in range(seg.n):
-                x, h, _, _ = _ssm_prefill(_layer(p, i), x, h, cfg)
         else:  # hybrid_group
-            for i in range(seg.n):
-                group = _layer(p["mamba"], i)
-                for j in range(cfg.attn_every):
-                    x, h, _, _ = _ssm_prefill(_layer(group, j), x, h, cfg)
-                x, h, _ = _dense_forward(p["shared"], x, h, positions, cfg)
+            unit = _remat(group, cfg)
+            for gp in _layers(p["mamba"], seg.n):
+                x, h, _ = unit(gp, p["shared"], x, h)
     lb = (torch.stack(lbs).sum() if lbs
           else torch.zeros((), dtype=torch.float32, device=x.device))
     return x, h, {"lb_loss": lb}

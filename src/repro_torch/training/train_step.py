@@ -1,0 +1,85 @@
+"""Train step factory: loss, gradients and the AdamW update, with optional
+microbatch gradient accumulation, and remat selected through the model
+config (``cfg.remat``, applied in ``models/transformer.py``) — the port of
+``repro.training.train_step``.
+
+Parameters stay plain tensors at rest (``requires_grad=False``). Each
+microbatch differentiates ``loss_fn`` with respect to detached views of
+them (``p.detach().requires_grad_()``, no copy) through
+``torch.autograd.grad``, so the trained tree serves through the engines
+and the kernels afterwards with no ``torch.no_grad()`` around it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import loss_fn, tree_leaves, tree_map
+from repro_torch.training.optimizer import OptimizerConfig, adamw_update
+
+
+def _grads_of(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """(loss, metrics, grads): grads a tree like ``params``, in each
+    parameter's dtype; a leaf the loss does not reach gets zeros, as
+    ``jax.grad`` gives."""
+    with torch.enable_grad():
+        ps = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(ps)
+        loss, metrics = loss_fn(ps, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), ps))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, n_microbatches: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, metrics being ``loss_fn``'s ``ce`` and ``lb_loss``, the
+    ``grad_norm`` and ``lr`` of the update, and ``loss``.
+
+    With ``n_microbatches`` > 1 the batch is split along dim 0 in order, the
+    gradients are summed in float32 and divided by the count, ``loss`` is
+    the mean over the microbatches, and ``ce`` and ``lb_loss`` are the last
+    microbatch's: ``repro``'s ``lax.scan`` semantics. The update works in
+    place (see :func:`adamw_update`): ``params`` and ``opt_state`` are
+    consumed and returned.
+
+    Raises ``ValueError`` here when ``cfg.kernel_impls`` names a kernel: the
+    kernels have no backward. ``repro`` builds the step and fails at its
+    first call instead."""
+    kernels = sorted(site for site, impl in cfg.kernel_impls if impl == "kernel")
+    if kernels:
+        raise ValueError(
+            f"make_train_step: kernel_impls names kernels at {kernels}, which have no "
+            f"backward (repro's kernels define no VJP); train under "
+            f"kernel_impls=\"reference\"")
+    if n_microbatches < 1:
+        raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
+
+    def train_step(params, opt_state, batch) -> Tuple[Any, Any, Dict]:
+        if n_microbatches == 1:
+            loss, metrics, grads = _grads_of(params, batch, cfg)
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % n_microbatches:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"{n_microbatches} microbatches")
+            size = rows // n_microbatches
+            grads, loss = None, 0.0
+            for i in range(n_microbatches):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb_loss, metrics, mb_grads = _grads_of(params, mb, cfg)
+                if grads is None:  # 0 + g is g: start from the first microbatch's
+                    grads = tree_map(lambda g: g.to(torch.float32).contiguous(), mb_grads)
+                else:
+                    tree_map(lambda acc, g: acc.add_(g), grads, mb_grads)
+                del mb_grads
+                loss = loss + mb_loss
+            tree_map(lambda g: g.div_(n_microbatches), grads)
+            loss = loss / n_microbatches
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg)
+        return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
+
+    return train_step

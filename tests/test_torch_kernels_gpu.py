@@ -695,3 +695,97 @@ def test_ssd_kernel_raises_on_what_it_does_not_take(cuda):
         ops.ssd_op(*_ssd_case(cuda, 1, 16384, 1, 64, 1, 128, torch.float32), chunk=16384)
     with pytest.raises(ValueError, match="different devices"):
         ops.ssd_op(x, dt.cpu(), a, bm, cm, chunk=16)
+
+
+# --- training: no gradient through a kernel, the train step, checkpoints -----
+def _op_calls(cuda):
+    """Each kernel op on small CUDA inputs: name -> fn(requires_grad)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def t(*shape, rg=False):
+        return torch.randn(*shape, device=cuda, generator=g).requires_grad_(rg)
+    w = torch.ones(64, device=cuda)
+    tiles = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([5, 7], dtype=torch.int32, device=cuda)
+    return {
+        "rmsnorm_op": lambda rg: ops.rmsnorm_op(t(4, 64, rg=rg), w),
+        "add_rmsnorm_op": lambda rg: ops.add_rmsnorm_op(t(4, 64), t(4, 64, rg=rg), w),
+        "gated_rmsnorm_op": lambda rg: ops.gated_rmsnorm_op(t(4, 64), t(4, 64),
+                                                            w.clone().requires_grad_(rg)),
+        "flash_attention_op": lambda rg: ops.flash_attention_op(
+            t(1, 2, 64, 64, rg=rg), t(1, 2, 64, 64), t(1, 2, 64, 64)),
+        "paged_attention_op": lambda rg: ops.paged_attention_op(
+            t(2, 2, 64), t(4, 16, 2, 64, rg=rg), t(4, 16, 2, 64), tables, lens),
+        "moe_gmm_op": lambda rg: ops.moe_gmm_op(t(16, 64), t(1, 64, 64, rg=rg), tiles,
+                                                block_t=8),
+        "moe_gmm_capacity": lambda rg: ops.moe_gmm_capacity(t(2, 8, 64, rg=rg), t(2, 64, 64),
+                                                            block_t=8),
+        "ssd_op": lambda rg: ops.ssd_op(t(1, 64, 2, 64, rg=rg), t(1, 64, 2).abs(),
+                                        -torch.ones(2, device=cuda), t(1, 64, 1, 16),
+                                        t(1, 64, 1, 16), chunk=32),
+    }
+
+
+@pytest.mark.parametrize("op", ["rmsnorm_op", "add_rmsnorm_op", "gated_rmsnorm_op",
+                                "flash_attention_op", "paged_attention_op", "moe_gmm_op",
+                                "moe_gmm_capacity", "ssd_op"])
+def test_kernel_ops_refuse_cuda_inputs_that_require_grad(cuda, op):
+    """The kernels have no backward: on the card each op refuses a call
+    autograd would record, before any launch; under ``torch.no_grad()`` it
+    launches."""
+    call = _op_calls(cuda)[op]
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="kernel_impls=\"reference\""):
+        call(True)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        call(True)
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == sum(before.values()) + 1
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """3 steps of ``make_train_step`` at the smoke config, f32, on the card
+    and on the CPU from the same parameters and batches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), dtype="float32")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pc = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pg = M.tree_map(lambda t: t.to(cuda), pc)
+    oc, og = init_opt_state(pc), init_opt_state(pg)
+    step = make_train_step(cfg, opt, 2)
+    pipe = DataPipeline(cfg, 4, 32, seed=0)
+    for _ in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in pipe.next_batch().items()}
+        pc, oc, mc = step(pc, oc, batch)
+        pg, og, mg = step(pg, og, {k: v.to(cuda) for k, v in batch.items()})
+        for key in mc:
+            torch.testing.assert_close(mg[key].cpu(), mc[key], **F32_TOL)
+    for got, want in zip(tree_leaves(pg), tree_leaves(pc)):
+        torch.testing.assert_close(got.cpu(), want, **F32_TOL)
+
+
+def test_checkpoint_from_card_restores_on_card_bit_for_bit(cuda, tmp_path):
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tree = {"params": {"w": torch.randn(64, 32, device=cuda, generator=g),
+                       "b": torch.randn(32, device=cuda, generator=g).to(torch.bfloat16)},
+            "opt": {"step": torch.tensor(3, dtype=torch.int32, device=cuda)}}
+    ckpt.save(tree, str(tmp_path), step=3, async_save=True)
+    tree["params"]["w"].mul_(2)  # the snapshot was taken before save returned
+    ckpt.wait_for_saves()
+    restored, man = ckpt.restore(tree, str(tmp_path))
+    assert man["arrays"]["params/b"]["dtype"] == "bfloat16"
+    assert restored["params"]["w"].device.type == "cuda"
+    assert torch.equal(restored["params"]["w"] * 2, tree["params"]["w"])
+    assert torch.equal(restored["params"]["b"], tree["params"]["b"])
+    assert restored["opt"]["step"].dtype == torch.int32 and int(restored["opt"]["step"]) == 3
