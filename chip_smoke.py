@@ -46,6 +46,24 @@ Run from the root of a checkout on a machine with one CUDA card. It
    kernels' launch counts (rmsnorm's by form) against the prefills, waves
    and decode steps it counted, and profiles one batch through the
    executor;
+6b. runs elastic sharded serving on the same weights (the ``elastic``
+   phase): ``ElasticReplica`` gangs of full-width qwen2.5-3b (4 slots,
+   max_seq 256, 4 requests of 128 + 16 new) shrink 4 -> 2 after 4 decode
+   steps in each KV mode (``migrate`` then grows 2 -> 3), against an
+   unbroken gang of 2: ``migrate`` equal to it token for token, every
+   stream 16 long, each ``MigrationRecord``'s bytes equal to the counts
+   from the shapes, ``replay``'s wire the parameters only, the parameters
+   on ``cuda`` after each resize, the launches against the prefills and
+   steps counted; the walls, the peak device memory across each resize,
+   the decode step before and after and each stream's prefix that matches
+   the unbroken one print; then the port's ``Platform.build`` of
+   ``elastic_storm`` (600 virtual s, gang 3, migrating) with
+   ``ElasticServingExecutor`` over a full-width replica (the gang pool's
+   SIGTERM hook drives real resizes: migrations through the replica, at
+   least one success, launches as counted; outcomes, goodput, charged
+   p50/p95, migrations by kind, bytes and walls print), and the storm with
+   ``executor="sharded-serving"``, whose factory builds its smoke replica
+   on the card;
 7. frees those weights and serves 8 requests of full-width mixtral-8x22b
    cut to 4 of its 56 layers (bf16 weights from ``--seed``) through
    ``ContinuousEngine`` under ``kernel_impls="auto"``, checks the launch
@@ -1377,6 +1395,288 @@ def platform_phase(cfg, params, seed: int) -> dict:
     return out
 
 
+# The elastic phase: gangs of one full-width replica on the card. The gang
+# size is logical (it sets the migration bytes); the mesh is this one card
+ELASTIC_REQ, ELASTIC_PROMPT, ELASTIC_NEW, ELASTIC_SLOTS, ELASTIC_SEQ = 4, 128, 16, 4, 256
+ELASTIC_STORM_DURATION, ELASTIC_REGISTRY_DURATION = 600.0, 300.0
+
+
+class _CountPrefills:
+    """Counts ``ContinuousEngine._prefill`` calls on every engine, the fresh
+    engines a resize builds included, while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.serving.engine import ContinuousEngine
+        self.n, self._cls = 0, ContinuousEngine
+        self._orig = ContinuousEngine._prefill
+
+        def counted(engine, context):
+            self.n += 1
+            return self._orig(engine, context)
+        ContinuousEngine._prefill = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._prefill = self._orig
+
+
+def _common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def elastic_replica_leg(tag: str, cfg, params, prompts, kv_mode, n_members: int,
+                        resizes=()):
+    """One ``ElasticReplica`` on the card serving ``prompts`` with every
+    launch count at 0; ``resizes`` is ``[(steps before, new gang size),
+    ...]``. Returns the streams, the records, each resize's device memory
+    (allocated before, peak during), the decode step ms before the first
+    resize and after it, the launches checked against the passes counted,
+    and every parameter leaf's device after each resize."""
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serving.batching import GenRequest
+
+    rep = ElasticReplica(cfg, params, n_members, n_slots=ELASTIC_SLOTS, max_seq=ELASTIC_SEQ,
+                         kv_mode=kv_mode or "migrate", device="cuda")
+    torch.cuda.synchronize()
+    step_ms, phase, mem, devices = ([], []), 0, [], []
+
+    def timed_step():
+        t = time.perf_counter()
+        rep.step()   # ends in a host copy of the picked tokens
+        step_ms[phase].append(1e3 * (time.perf_counter() - t))
+
+    reset_launch_counts()
+    with _CountPrefills() as prefills:
+        for i, p in enumerate(prompts):
+            rep.add(GenRequest(id=i, prompt=p, max_new=ELASTIC_NEW))
+        for steps, n_after in resizes:
+            for _ in range(steps):
+                timed_step()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if n_after < rep.n_members:
+                rep.shrink(rep.n_members - n_after)
+            else:
+                rep.grow(n_after - rep.n_members)
+            torch.cuda.synchronize()
+            mem.append({"allocated_before_bytes": base,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "allocated_after_bytes": torch.cuda.memory_allocated()})
+            devices.append(sorted({str(t.device.type) for t in tree_leaves(rep.params)}))
+            phase = 1
+        while rep.batcher.active():
+            timed_step()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
+    done = rep.run()
+    steps = rep.engine.n_decode_steps
+    passes = prefills.n + steps
+    expect = dict(forward_counts(cfg, passes), flash_attention=cfg.n_layers * prefills.n)
+    print(f"{tag}: {prefills.n} prefills, {steps} decode steps")
+    # each request once; replay prefills every live request again at each resize
+    replayed = sum(r.n_requests_live for r in rep.migrations if r.kv_mode == "replay")
+    if prefills.n != len(prompts) + replayed:
+        raise AssertionError(f"{tag}: {prefills.n} prefills, expected {len(prompts)} + "
+                             f"{replayed} replayed")
+    counts = check_counts(tag, cfg, counts, forms, expect, passes)
+    streams = {r.id: list(r.generated) for r in done}
+    if sorted(streams) != list(range(len(prompts))) or any(
+            len(s) != ELASTIC_NEW for s in streams.values()):
+        raise AssertionError(f"{tag}: streams {({k: len(v) for k, v in streams.items()})}, "
+                             f"expected {len(prompts)} of {ELASTIC_NEW} tokens")
+    if any(d != ["cuda"] for d in devices):
+        raise AssertionError(f"{tag}: parameters on {devices} after the resizes")
+    out = {"streams": streams, "records": [dataclasses.asdict(r) for r in rep.migrations],
+           "memory": mem, "counts": counts, "prefills": prefills.n, "steps": steps,
+           "decode_ms_before": statistics.median(step_ms[0]) if step_ms[0] else None,
+           "decode_ms_after": statistics.median(step_ms[1]) if step_ms[1] else None,
+           "param_devices": devices}
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_shape_bytes(cfg, n_slots: int, max_seq: int) -> tuple:
+    """(parameter bytes at ``param_dtype``, KV bytes at the compute dtype,
+    the KV's int8 wire bytes) of a replica, reckoned from the config's
+    shapes: the parameter tree's shapes and the K and V of every layer, slot
+    and position."""
+    from repro_torch.models.model import param_specs, tree_leaves
+
+    n_params = sum(int(np.prod(s.shape)) for s in tree_leaves(param_specs(cfg)))
+    elem = torch.empty((), dtype=cfg.param_torch_dtype).element_size()
+    kv_elems = cfg.n_layers * n_slots * max_seq * cfg.n_kv_heads * cfg.head_dim
+    kv_elem = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    return n_params * elem, 2 * kv_elems * kv_elem, 2 * kv_elems + 2 * 4
+
+
+def elastic_phase(cfg, params, seed: int):
+    """Elastic sharded serving on the card over the full-width qwen2.5-3b
+    the dense phase built: (a) ``ElasticReplica`` gangs shrinking 4 -> 2 in
+    the middle of a stream in each KV mode (``migrate`` also grows 2 -> 3)
+    against an unbroken gang of 2; (b) the port's ``Platform.build`` of
+    ``elastic_storm`` (gang 3, migrating) with ``ElasticServingExecutor``
+    over a full-width replica, the gang pool's SIGTERM hook driving real
+    resizes; (c) the same storm with ``executor="sharded-serving"``, whose
+    factory builds its smoke replica on the card. Returns (launches by path,
+    the phase's numbers)."""
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.platform import ElasticServingExecutor, ScenarioConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    prompts = rng.integers(0, cfg.vocab_size, size=(ELASTIC_REQ, ELASTIC_PROMPT)).tolist()
+    param_total, kv_total, kv_int8 = elastic_shape_bytes(cfg, ELASTIC_SLOTS, ELASTIC_SEQ)
+    print(f"elastic: {cfg.arch_id} full width, {ELASTIC_REQ} requests of {ELASTIC_PROMPT} + "
+          f"{ELASTIC_NEW} new, {ELASTIC_SLOTS} slots, max_seq {ELASTIC_SEQ}; from the shapes: "
+          f"parameters {param_total} bytes at {cfg.param_dtype}, KV {kv_total} bytes at "
+          f"{cfg.dtype}, KV int8 wire {kv_int8} bytes")
+    counts, out = {}, {"shape_param_bytes": param_total, "shape_kv_bytes": kv_total,
+                       "shape_kv_int8_bytes": kv_int8}
+
+    # (a) the replica: golden unbroken gang of 2, then each KV mode
+    legs = {"golden": elastic_replica_leg("elastic golden", cfg, params, prompts, None, 2)}
+    golden = legs["golden"]["streams"]
+    for mode in ("migrate", "replay", "migrate_int8"):
+        resizes = [(4, 2), (4, 3)] if mode == "migrate" else [(4, 2)]
+        legs[mode] = elastic_replica_leg(f"elastic {mode}", cfg, params, prompts, mode, 4,
+                                         resizes)
+    for name, leg in legs.items():
+        counts[name] = leg["counts"]
+        match = {i: _common_prefix(s, golden[i]) for i, s in leg["streams"].items()}
+        summary = {k: leg[k] for k in ("records", "memory", "prefills", "steps",
+                                       "decode_ms_before", "decode_ms_after")}
+        summary["prefix_matching_golden"] = match
+        out[name] = summary
+        for rec, mem in zip(leg["records"], leg["memory"]):
+            n_b, n_a = rec["n_before"], rec["n_after"]
+            frac = abs(n_b - n_a) / max(n_b, n_a)
+            want = {"param_bytes": int(param_total * frac), "kv_bytes": int(kv_total * frac)}
+            kv_wire = {"migrate": want["kv_bytes"], "replay": 0,
+                       "migrate_int8": int(kv_int8 * frac)}[name]
+            want["wire_bytes"] = want["param_bytes"] + kv_wire
+            got = {k: rec[k] for k in want}
+            print(f"elastic {name}: {n_b} -> {n_a} members, {rec['n_requests_live']} live, "
+                  f"wall {rec['wall_s'] * 1e3:.3f} ms, bytes {got} (from the shapes {want}); "
+                  f"device memory allocated {mem['allocated_before_bytes']} -> "
+                  f"{mem['allocated_after_bytes']}, peak across the resize "
+                  f"{mem['peak_bytes']} (+{mem['peak_bytes'] - mem['allocated_before_bytes']})")
+            if got != want:
+                raise AssertionError(f"elastic {name}: record bytes {got} != {want}")
+        print(f"elastic {name}: decode step median {leg['decode_ms_before']} ms before, "
+              f"{leg['decode_ms_after']} ms after; prefix matching golden {match}")
+    if legs["migrate"]["streams"] != golden:
+        raise AssertionError(f"elastic migrate: streams {legs['migrate']['streams']} != "
+                             f"the unbroken run's {golden}")
+
+    # (b) the platform: the gang pool's hook drives real resizes of one replica
+    replica = ElasticReplica(cfg, params, 3, n_slots=ELASTIC_SLOTS, max_seq=ELASTIC_SEQ,
+                             device="cuda")
+    ex = ElasticServingExecutor(replica, prompt_len=ELASTIC_PROMPT, n_new=8)
+    sc = ScenarioConfig.elastic_storm(duration=ELASTIC_STORM_DURATION, gang_size=3,
+                                      migrate=True)
+    out["storm"], counts["storm"] = elastic_platform_run("elastic storm", sc, executor=ex)
+    del ex, replica
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the registry: the factory builds the smoke replica on the card
+    sc = ScenarioConfig.elastic_storm(duration=ELASTIC_REGISTRY_DURATION, gang_size=3)
+    sc.platform.executor, sc.platform.model, sc.platform.kernel_impls = (
+        "sharded-serving", "qwen2.5-3b", "auto")
+    out["registry"], counts["registry"] = elastic_platform_run("elastic registry", sc)
+    if out["registry"]["param_devices"] != ["cuda"]:
+        raise AssertionError(f"elastic registry: the factory's replica holds parameters on "
+                             f"{out['registry']['param_devices']}, not on cuda")
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"elastic: phase wall {out['phase_wall_s']:.2f} s")
+    return counts, out
+
+
+def elastic_platform_run(tag: str, sc, executor=None):
+    """Build and run ``sc`` (gangs of ``gang_size``) with every launch count
+    at 0; check every request terminal, at least one success, gang
+    migrations that went through ``replica.migrations`` (the real protocol),
+    every finished stream ``n_new`` long and the launches against the passes
+    counted."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.platform import Platform
+
+    t0 = time.perf_counter()
+    plat = Platform.build(sc, executor=executor)
+    ex = plat.executor
+    replica = ex.replica
+    charged, short = [], []
+    run_batch = ex.run_batch
+
+    def recorded(reqs):
+        times = run_batch(reqs)
+        charged.extend(times)
+        short.extend(rid for rid, t in ex._inner.last_results.items() if len(t) != ex._inner.n_new)
+        return times
+
+    ex.run_batch = recorded
+    steps0 = replica.engine.n_decode_steps
+    reset_launch_counts()
+    with _CountPrefills() as prefills:
+        res = plat.run()
+    counts, forms = launch_counts(), rmsnorm_form_counts()
+    wall = time.perf_counter() - t0
+    cfg = replica.cfg
+    steps = replica.engine.n_decode_steps - steps0
+    passes = prefills.n + steps
+    expect = dict(forward_counts(cfg, passes), flash_attention=cfg.n_attn_layers * prefills.n)
+    counts = check_counts(tag, cfg, counts, forms, expect, passes)
+    oc, m = res.outcome_counts, plat.metrics
+    by_kind = {dict(k)["kind"]: c.value for k, c in m.counters_matching("gang_migrations_total").items()}
+    walls = [r.wall_s for r in replica.migrations]
+    p50, p95 = (float(q) for q in np.percentile(charged, [50, 95])) if charged else (
+        float("nan"), float("nan"))
+    param_devices = sorted({t.device.type for t in tree_leaves(replica.params)})
+    out = {"submitted": res.n_submitted, "outcomes": oc, "goodput_s": res.goodput_s,
+           "executions": len(charged), "charged_p50_s": p50, "charged_p95_s": p95,
+           "migrations_by_kind": by_kind, "replica_migrations": len(replica.migrations),
+           "migrated_bytes": m.total("gang_migrated_bytes_total"),
+           "wire_bytes": m.total("gang_wire_bytes_total"),
+           "replica_losses": m.total("gang_replica_losses_total"),
+           "migration_wall_s_min": min(walls) if walls else None,
+           "migration_wall_s_max": max(walls) if walls else None,
+           "prefills": prefills.n, "decode_steps": steps, "launches": counts,
+           "param_devices": param_devices, "gang_members": replica.n_members, "wall_s": wall}
+    print(f"{tag}: {cfg.arch_id} (n_layers {cfg.n_layers}, d {cfg.d_model}), submitted "
+          f"{res.n_submitted}, outcomes {oc}, goodput {res.goodput_s} s, executions "
+          f"{len(charged)}, charged s p50 {p50:.4f} p95 {p95:.4f}, migrations by kind "
+          f"{by_kind} ({len(replica.migrations)} through the replica), migrated "
+          f"{out['migrated_bytes']:.0f} bytes, wire {out['wire_bytes']:.0f} bytes, "
+          f"migration wall {out['migration_wall_s_min']} - {out['migration_wall_s_max']} s, "
+          f"parameters on {param_devices}, wall {wall:.2f} s")
+    if any(r.outcome is None for r in res.requests) or sum(oc.values()) != res.n_submitted:
+        raise AssertionError(f"{tag}: a request without a terminal outcome: {oc}")
+    if oc.get("success", 0) < 1:
+        raise AssertionError(f"{tag}: no request succeeded: {oc}")
+    if short:
+        raise AssertionError(f"{tag}: streams of ids {short} are short")
+    if not m.total("gang_migrations_total") > 0 or not replica.migrations:
+        raise AssertionError(f"{tag}: gang migrations {by_kind}, replica migrations "
+                             f"{len(replica.migrations)}: the hook drove no real resize")
+    if replica.protocol.kv_mode != "replay" and prefills.n != len(charged):
+        raise AssertionError(f"{tag}: {prefills.n} prefills for {len(charged)} executions: "
+                             f"a {replica.protocol.kv_mode} resize prefilled again")
+    if len(replica.migrations) != m.total("gang_migrations_total"):
+        raise AssertionError(f"{tag}: {len(replica.migrations)} replica migrations != "
+                             f"{m.total('gang_migrations_total')} gang migrations")
+    return out, counts
+
+
 def moe_phase(seed: int):
     """Full-width mixtral-8x22b, 4 of its 56 layers (the only cut), bf16
     weights, served through ContinuousEngine under ``kernel_impls="auto"``:
@@ -2413,6 +2713,7 @@ def main(argv=None) -> int:
     paged_counts, paged_serving = phase("paged", paged_phase, cfg, params, args.seed)
     serving.update(paged_serving)
     serving["platform"] = phase("platform", platform_phase, cfg, params, args.seed)
+    elastic_counts, serving["elastic"] = phase("elastic", elastic_phase, cfg, params, args.seed)
     serving["slice_score"] = phase("dense score", score_leg, "slice", cfg, params, args.seed)
     del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
     gc.collect()
@@ -2439,6 +2740,7 @@ def main(argv=None) -> int:
     paths = {"dense": counts, "paged": paged_counts,
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
+             **{f"elastic {k}": v for k, v in elastic_counts.items()},
              "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
              "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
              "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,

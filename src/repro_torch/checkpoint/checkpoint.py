@@ -12,9 +12,11 @@ bfloat16 leaves: numpy has no bfloat16 without ``ml_dtypes``, so such a
 leaf is stored as float32 (lossless) and its manifest entry keeps
 ``"bfloat16"``; :func:`restore` casts it back to the template's dtype.
 
-``repro``'s ``restore`` also takes ``shardings`` to place leaves on a mesh;
-that belongs to the elastic-serving slice and is left out here: leaves go
-to one ``device``.
+``restore`` places leaves on one ``device``, or with ``shardings`` (a tree
+of :class:`repro_torch.distributed.sharding.NamedSharding` shaped like the
+template, as ``repro``'s) each on its sharding's mesh device: that is how a
+checkpoint moves between mesh shapes (elastic restore,
+``distributed.elastic.reshard_restore``).
 """
 from __future__ import annotations
 
@@ -105,14 +107,19 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(template: Any, directory: str, step: Optional[int] = None,
-            device: DeviceLike = None) -> Tuple[Any, Dict]:
+            device: DeviceLike = None, shardings: Optional[Any] = None
+            ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (nested dicts of tensors,
     ``meta`` ones too: only shapes and dtypes are read) on ``device``
-    (``None``: the card). Returns (tree, manifest). Raises
-    ``FileNotFoundError`` without a committed step, ``KeyError`` for a
-    missing array and ``ValueError`` for a shape other than the
-    template's, as ``repro`` does."""
-    dev = resolve_device(device)
+    (``None``: the card), or, given ``shardings`` (the same tree of
+    ``NamedSharding``), each leaf on its sharding's device, and ``device``
+    is not read. Returns (tree, manifest). Raises ``FileNotFoundError``
+    without a committed step, ``KeyError`` for a missing array and
+    ``ValueError`` for a shape other than the template's, as ``repro``
+    does; a sharding over several distinct devices raises
+    ``NotImplementedError``."""
+    shard_of = _flatten(shardings) if shardings is not None else None
+    dev = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -130,7 +137,8 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
             arr = data[key]
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(leaf.shape)}")
-            out[key] = torch.from_numpy(arr).to(device=dev, dtype=leaf.dtype)
+            target = dev if shard_of is None else shard_of[key].device
+            out[key] = torch.from_numpy(arr).to(device=target, dtype=leaf.dtype)
     return _unflatten(template, out), manifest
 
 

@@ -1,0 +1,262 @@
+"""Path-based sharding rules: TP over "model", parameter/optimizer FSDP over
+"data", pure DP over "pod" (multi-pod). MoE experts are expert-parallel over
+"model" when the expert count divides the axis (deepseek 64/16), else
+tensor-parallel inside each expert (mixtral 8 experts on a 16-way axis) —
+the port of ``repro.distributed.sharding``.
+
+Every rule degrades gracefully: if a dimension is not divisible by the mesh
+axis size, that axis is dropped (replicated) rather than failing to lower.
+
+torch has no GSPMD, so the port brings its own small mesh types in place of
+``jax.sharding``'s: :class:`PartitionSpec` (a tuple), :class:`Mesh` (a numpy
+object array of ``torch.device`` and its axis names), :class:`AbstractMesh`
+(axis sizes, no devices) and :class:`NamedSharding`. The rules and the spec
+functions are ``repro``'s line for line; a spec tree here equals ``repro``'s
+as tuples. Placement (``distributed.elastic``) puts a whole leaf on its
+mesh's one device: a mesh over more than one distinct device raises.
+
+``maybe_shard`` and ``ambient_mesh_sizes`` stay with the sharded-activation
+path, which needs ``chunked_mha`` and is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import tree_map
+
+
+class PartitionSpec(tuple):
+    """One entry per dimension: an axis name, a tuple of names, or None.
+    As ``jax.sharding.PartitionSpec`` does, an empty tuple becomes None and
+    a tuple of one name becomes that name."""
+
+    def __new__(cls, *axes):
+        def canon(ax):
+            if isinstance(ax, tuple) and len(ax) <= 1:
+                return ax[0] if ax else None
+            return ax
+        return super().__new__(cls, tuple(canon(ax) for ax in axes))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class AbstractMesh:
+    """Axis names and sizes without devices, as ``jax.sharding.AbstractMesh``:
+    enough to compute specs."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{len(axis_sizes)} axis sizes for axis names {axis_names}")
+        self.axis_sizes = tuple(int(n) for n in axis_sizes)
+        self.axis_names = tuple(axis_names)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({dict(zip(self.axis_names, self.axis_sizes))})"
+
+
+class Mesh(AbstractMesh):
+    """``devices``: an array of ``torch.device`` (any nesting), one axis of it
+    per name in ``axis_names``."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        arr = np.asarray(devices, dtype=object)
+        self.devices = np.vectorize(torch.device, otypes=[object])(arr)
+        super().__init__(arr.shape, axis_names)
+
+
+def _canonical(d: torch.device) -> Tuple[str, Optional[int]]:
+    """``d`` as (type, index); a bare ``cuda`` is the current card, so
+    ``cuda`` and ``cuda:0`` on card 0 are one device."""
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        return d.type, torch.cuda.current_device()
+    return d.type, d.index
+
+
+def mesh_device(mesh: AbstractMesh) -> torch.device:
+    """The one device that holds a whole leaf on ``mesh``. The port places a
+    leaf on a single card; a mesh over several distinct devices would need
+    tensor parallelism across cards, which it does not have, so that
+    raises."""
+    devices = getattr(mesh, "devices", None)
+    if devices is None:
+        raise ValueError(f"{mesh} has no devices to place a leaf on")
+    distinct = {_canonical(d) for d in devices.flat}
+    if len(distinct) > 1:
+        raise NotImplementedError(
+            f"a mesh over {len(distinct)} distinct devices "
+            f"({sorted(str(d) for d in devices.flat)}) needs tensor "
+            f"parallelism across cards, which the port does not have yet "
+            f"(ROADMAP.md, section 1: physical tensor parallelism across "
+            f"several cards); a gang on one card uses a mesh of that card")
+    return devices.flat[0]
+
+
+class NamedSharding:
+    """A leaf's spec over a mesh."""
+
+    def __init__(self, mesh: AbstractMesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec
+
+    @property
+    def device(self) -> torch.device:
+        return mesh_device(self.mesh)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh}, {self.spec})"
+
+
+def _axis(mesh: AbstractMesh, name: str) -> int:
+    return dict(zip(mesh.axis_names, mesh.axis_sizes)).get(name, 1)
+
+
+def _fit(spec: Tuple[Optional[str], ...], shape, mesh: AbstractMesh):
+    """Drop axes the mesh does not have (a 1-D serving gang mesh carries only
+    "model") and axes that do not divide the dimension; prepend None for
+    extras."""
+    spec = (None,) * (len(shape) - len(spec)) + tuple(spec)
+    out = []
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            out.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        axes = tuple(a for a in axes if a in mesh.axis_names)
+        n = int(np.prod([_axis(mesh, a) for a in axes]))
+        if not axes or dim % n != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    return P(*out)
+
+
+# trailing-dims rules per parameter name (see module docstring)
+_RULES: Dict[str, Tuple] = {
+    "tokens": ("model", "data"),
+    "wq": ("data", "model"), "wk": ("data", "model"), "wv": ("data", "model"),
+    "bq": ("model",), "bk": ("model",), "bv": ("model",),
+    "wo": ("model", "data"),
+    "w_gate": ("data", "model"), "w_up": ("data", "model"), "w_down": ("model", "data"),
+    "router": ("data", None),
+    "w_dkv": ("data", None), "w_krope": ("data", None),
+    "w_uk": (None, "model"), "w_uv": (None, "model"),
+    "in_proj": ("data", "model"),
+    "conv_w": ("model", None), "conv_b": ("model",),
+    "A_log": ("model",), "dt_bias": ("model",), "D_skip": ("model",),
+    "norm_w": ("model",),
+    "out_proj": ("model", "data"),
+    "lm_head": ("data", "model"),
+    "w": (None,), "b": (None,),  # norm scales/biases
+}
+
+_EXPERT_RULES_EP = {  # experts sharded over "model" (E % axis == 0)
+    "w_gate": ("model", "data", None), "w_up": ("model", "data", None),
+    "w_down": ("model", None, "data"),
+}
+_EXPERT_RULES_TP = {  # experts replicated, FFN dim tensor-parallel
+    "w_gate": (None, "data", "model"), "w_up": (None, "data", "model"),
+    "w_down": (None, "model", "data"),
+}
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over nested dicts; ``path`` is the tuple of keys
+    (``repro``'s ``_path_names`` of a ``tree_map_with_path`` path)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_specs(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
+    """PartitionSpec tree matching a params tree (tensors, ``meta`` tensors,
+    or anything with a ``shape``)."""
+    expert_parallel = cfg.n_experts > 0 and cfg.n_experts % _axis(mesh, "model") == 0
+    expert_rules = _EXPERT_RULES_EP if expert_parallel else _EXPERT_RULES_TP
+
+    def spec(names, leaf):
+        key = names[-1]
+        shape = tuple(leaf.shape)
+        if "moe" in names and "shared" not in names and key in expert_rules:
+            return _fit(expert_rules[key], shape, mesh)
+        rule = _RULES.get(key)
+        if rule is None:
+            return P()
+        return _fit(rule, shape, mesh)
+
+    return _map_with_path(spec, params_shape)
+
+
+def param_shardings(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
+    return tree_map(lambda s: NamedSharding(mesh, s), param_specs(params_shape, cfg, mesh))
+
+
+# --- activations / batch ---------------------------------------------------------
+def batch_axes(mesh: AbstractMesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if _axis(mesh, a) > 1)
+
+
+def batch_spec(global_batch: int, mesh: AbstractMesh, extra_dims: int = 1) -> P:
+    axes = batch_axes(mesh)
+    n = int(np.prod([_axis(mesh, a) for a in axes]))
+    # no shardable batch axes (e.g. 1x1 mesh) must yield None, not P(())
+    lead = axes if (axes and global_batch % n == 0) else None
+    return P(lead, *([None] * extra_dims))
+
+
+def input_shardings(batch_tree: Any, mesh: AbstractMesh) -> Any:
+    """Shard every input on its leading (batch) dim where divisible."""
+    def spec(leaf):
+        return NamedSharding(mesh, batch_spec(leaf.shape[0], mesh,
+                                              extra_dims=len(leaf.shape) - 1))
+    return tree_map(spec, batch_tree)
+
+
+def cache_specs(cache_shape: Any, cfg, mesh: AbstractMesh,
+                global_batch: int, seq_shard: bool = False) -> Any:
+    """Decode-cache shardings: batch over (pod,data) when divisible; for the
+    attention caches either the trailing feature dim over "model" (baseline)
+    or — with ``seq_shard``, the flash-decode layout — the SEQ dim over
+    "model" so attention reads its cache shard locally and only tiny softmax
+    stats cross the wire."""
+    baxes = batch_axes(mesh)
+    n = int(np.prod([_axis(mesh, a) for a in baxes]))
+    b_ax = baxes if (n > 0 and global_batch % n == 0) else None
+    m = _axis(mesh, "model")
+
+    def spec(names, leaf):
+        shape = tuple(leaf.shape)
+        # leading dims are scan stacks until the batch dim (== global_batch)
+        try:
+            b_idx = shape.index(global_batch)
+        except ValueError:
+            b_idx = 1
+        out = [None] * len(shape)
+        out[b_idx] = b_ax
+        key = names[-1]
+        if key in ("k", "v", "c"):
+            # k/v: (..., B, S, KV, dh); c: (..., B, S, r+rope)
+            if seq_shard and shape[b_idx + 1] % m == 0:
+                out[b_idx + 1] = "model"
+            elif shape[-1] % m == 0:
+                out[-1] = "model"
+        elif key == "state":  # (..., B, H, P, N): shard heads over model
+            h_idx = b_idx + 1
+            out[h_idx] = "model" if shape[h_idx] % m == 0 else None
+        elif key == "conv":  # (..., B, W, C): shard channels over model
+            out[-1] = "model" if shape[-1] % m == 0 else None
+        return P(*out)
+
+    return _map_with_path(spec, cache_shape)
+
+
+def cache_shardings(cache_shape: Any, cfg, mesh: AbstractMesh,
+                    global_batch: int, seq_shard: bool = False) -> Any:
+    return tree_map(lambda s: NamedSharding(mesh, s),
+                cache_specs(cache_shape, cfg, mesh, global_batch, seq_shard))

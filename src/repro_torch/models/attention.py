@@ -29,7 +29,9 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}, shard_activations="
             f"{cfg.shard_activations}: only the einsum path is ported; the "
-            f"chunked and sharded paths come with the elastic-serving slice")
+            f"chunked and sharded paths come with the slice that ports "
+            f"chunked_mha and the sharded activations (ROADMAP.md, section 1, "
+            f"item 6)")
 
 
 # --- masks ------------------------------------------------------------------

@@ -28,7 +28,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"shard_activations={cfg.shard_activations}, moe_dispatch_constraints="
             f"{cfg.moe_dispatch_constraints}: the sharded MoE dispatch comes with "
-            f"the elastic-serving slice")
+            f"the slice that ports chunked_mha and the sharded activations "
+            f"(ROADMAP.md, section 1, item 6)")
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:

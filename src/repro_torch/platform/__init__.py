@@ -10,9 +10,9 @@ composes both and is the only construction path the port's benchmarks and
 launchers use.
 
 The port's copy of ``repro.platform``, whose serving executors run the
-port's engines on the card. Elastic serving gangs (``GangMember``,
-``ElasticGangInvoker``, ``GangPool``, ``ElasticServingExecutor`` and the
-``sharded-serving`` executor) come with the elastic-serving slice.
+port's engines on the card, elastic serving gangs (``GangMember``,
+``ElasticGangInvoker``, ``GangPool``, and the ``sharded-serving`` executor
+``ElasticServingExecutor`` over an ``ElasticReplica``) included.
 """
 from repro_torch.platform.interfaces import (AdmissionPolicy, Executor, Router,
                                              Scaler, WorkloadSource)
@@ -27,6 +27,8 @@ from repro_torch.platform.scalers import AdaptiveJobManager, JobManager
 from repro_torch.platform.sources import SuiteLoad, UniformLoad
 from repro_torch.platform.executors import (BatchedServingExecutor,
                                             ServingExecutor, SimExecutor)
+from repro_torch.platform.elastic import (ElasticGangInvoker, ElasticServingExecutor,
+                                          GangMember, GangPool, build_sharded_serving)
 from repro_torch.platform import admission as _admission  # noqa: F401 (registers)
 from repro_torch.platform import reliability as _reliability  # noqa: F401 (registers)
 from repro_torch.platform.reliability import RetryPolicy
@@ -43,6 +45,8 @@ __all__ = [
     "JobManager", "AdaptiveJobManager",
     "UniformLoad", "SuiteLoad",
     "SimExecutor", "ServingExecutor", "BatchedServingExecutor",
+    "GangMember", "ElasticGangInvoker", "GangPool", "ElasticServingExecutor",
+    "build_sharded_serving",
     "HarvestConfig", "HarvestResult", "HarvestRuntime", "Platform",
     "nan_to_none",
 ]

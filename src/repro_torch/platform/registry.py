@@ -26,12 +26,6 @@ KINDS = ("router", "scaler", "admission", "workload", "executor", "suite",
 
 _REGISTRY: Dict[str, Dict[str, Any]] = {k: {} for k in KINDS}
 
-# components of ``repro.platform`` that a later slice of the port brings
-_LATER = {
-    ("executor", "sharded-serving"): "the elastic-serving slice "
-                                     "(tensor-parallel gangs, live migration)",
-}
-
 
 def register(kind: str, name: str) -> Callable[[Any], Any]:
     """Class/factory decorator: ``@register("router", "hash")``."""
@@ -53,10 +47,6 @@ def resolve(kind: str, name: str) -> Any:
     a typo in a scenario file fails loudly and helpfully."""
     if kind not in _REGISTRY:
         raise KeyError(f"unknown component kind {kind!r}; kinds: {KINDS}")
-    if (kind, name) in _LATER:
-        raise NotImplementedError(
-            f"{kind} {name!r} is not ported yet: it comes with "
-            f"{_LATER[kind, name]}; available: {available(kind)}")
     try:
         return _REGISTRY[kind][name]
     except KeyError:

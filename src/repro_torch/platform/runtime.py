@@ -11,9 +11,9 @@ Construction order (and therefore simulator event order and shared-RNG draw
 order) exactly mirrors the pre-seam ``HarvestRuntime``, so a seeded scenario
 with the ``hash`` router reproduces historical runs bit-for-bit.
 
-This is the port's copy of ``repro.platform.runtime``, line for line but for
-the gang branch: gangs (``gang_size > 1``) raise until the elastic-serving
-slice; any other seeded scenario runs here exactly as in ``repro``.
+This is the port's copy of ``repro.platform.runtime``, line for line: every
+seeded scenario, gangs (``gang_size > 1``, ``repro_torch.platform.elastic``)
+included, runs here exactly as in ``repro``.
 
 :class:`HarvestRuntime` survives as a thin façade over ``Platform`` for the
 paper-style call sites (`HarvestConfig` + kwargs); new code should build a
@@ -144,10 +144,9 @@ class Platform:
         # the plain Invoker constructor in SlurmSim's placement path
         self.gang_pool = None
         if sc.platform.gang_size > 1:
-            raise NotImplementedError(
-                f"gang_size={sc.platform.gang_size}: serving gangs are not "
-                f"ported yet; they come with the elastic-serving slice "
-                f"(tensor-parallel gangs, live migration)")
+            from repro_torch.platform.elastic import GangPool
+            self.gang_pool = GangPool(self, gang_size=sc.platform.gang_size,
+                                      **sc.platform.gang_params)
         sch = sc.scheduling
         self.slurm = SlurmSim(
             self.sim, self.windows, self.controller, self.rng,

@@ -102,8 +102,7 @@ class PlatformSection:
     kernel_impls: Any = "reference"
     # gang_size > 1 turns workers into gang members: the controller sees one
     # logical invoker per gang of concurrently-open idle windows, serving a
-    # model tensor-parallel across them (repro.platform.elastic; the port
-    # builds gangs with the elastic-serving slice and raises until then).
+    # model tensor-parallel across them (repro_torch.platform.elastic).
     # gang_params feeds GangPool (migrate / form_warmup / model_bytes / ...)
     gang_size: int = 1
     queue_depth_soft_limit: int = 64

@@ -789,3 +789,65 @@ def test_checkpoint_from_card_restores_on_card_bit_for_bit(cuda, tmp_path):
     assert torch.equal(restored["params"]["w"] * 2, tree["params"]["w"])
     assert torch.equal(restored["params"]["b"], tree["params"]["b"])
     assert restored["opt"]["step"].dtype == torch.int32 and int(restored["opt"]["step"]) == 3
+
+
+def test_elastic_replica_shrinks_mid_stream_on_card(cuda):
+    """A smoke ``ElasticReplica`` on the card under ``auto`` (rmsnorm and
+    flash launched): a gang of 4 shrunk to 2 after 4 decode steps in
+    ``migrate`` mode gives its own unbroken run's tokens, and every
+    parameter stays on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    cfg = with_kernel_impls(get_config("qwen2.5-3b", smoke=True), "auto")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+
+    def requests():
+        rng = np.random.default_rng(3)
+        return [GenRequest(id=i, prompt=rng.integers(0, cfg.vocab_size, size=9 + i).tolist(),
+                           max_new=8) for i in range(3)]
+
+    def run(n_members, shrink):
+        rep = ElasticReplica(cfg, params, n_members, n_slots=2, device=cuda)
+        for r in requests():
+            rep.add(r)
+        if shrink:
+            for _ in range(4):
+                rep.step()
+            rec = rep.shrink(2)
+            assert (rec.n_before, rec.n_after, rec.n_requests_live) == (4, 2, 3)
+            assert rec.wire_bytes == rec.param_bytes + rec.kv_bytes > 0
+        done = {r.id: list(r.generated) for r in rep.run()}
+        assert {t.device.type for t in M.tree_leaves(rep.params)} == {"cuda"}
+        return done
+
+    before = ops.launch_counts()
+    golden = run(2, False)
+    assert ops.launch_counts()["flash_attention"] > before["flash_attention"]
+    assert ops.launch_counts()["rmsnorm"] > before["rmsnorm"]
+    assert run(4, True) == golden
+    assert all(len(t) == 8 for t in golden.values())
+
+
+@pytest.mark.parametrize("names", [["cuda", "cuda:0"], ["cuda:0", "cuda"], ["cuda", "cuda"]])
+def test_a_bare_cuda_and_its_index_are_one_mesh_device(cuda, names):
+    """``cuda`` names the current card, so a mesh over it and ``cuda:0``
+    spans one device: placement goes there and nothing raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import reshard_in_place
+    from repro_torch.distributed.elastic_serving import serving_mesh
+    from repro_torch.distributed.sharding import mesh_device
+    from repro_torch.models import model as M
+
+    torch.cuda.set_device(0)
+    mesh = serving_mesh(2, names)
+    assert mesh.axis_sizes == (2,)
+    assert mesh_device(mesh).type == "cuda"
+    cfg = get_config("qwen2.5-3b", smoke=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    placed = reshard_in_place(params, cfg, mesh)
+    assert {(t.device.type, t.device.index) for t in M.tree_leaves(placed)} == {("cuda", 0)}

@@ -178,7 +178,7 @@ def test_apply_moe_policy_and_rejects():
     with pytest.raises(ValueError, match="allowed impls"):
         tmoe.apply_moe(pt, x, tc, impl="einsum")
     _, tsh = configs(ARCH, moe_dispatch_constraints=True, shard_activations=True)
-    with pytest.raises(NotImplementedError, match="elastic-serving slice"):
+    with pytest.raises(NotImplementedError, match="sharded activations"):
         tmoe.apply_moe(pt, x, tsh)
 
 

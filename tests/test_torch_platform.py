@@ -9,7 +9,8 @@ temperature 0 on the same parameters: prompts, batched decodes (dense and
 paged with a shared tenant prefix), drain and resume, the preemption
 hand-off, and whole platform runs with preemptions under equal charged
 seconds. Request ids come from a module-level counter in each package;
-every test that compares requests starts both counters at 0.
+every test that compares requests starts both counters at 0, and the gang
+counters too.
 """
 import ast
 import dataclasses
@@ -24,15 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-import repro.core.queues as jqueues
 import repro.platform as jplat
 import repro_torch.core.queues as tqueues
 import repro_torch.platform as tplat
-from _torch_parity import configs, params
+from _torch_parity import assert_same_result, configs, params, reset_ids
 from repro.platform import executors as jex
 from repro.serving.engine import ContinuousEngine as JaxContinuousEngine
 from repro.serving.engine import PagedContinuousEngine as JaxPagedEngine
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.models import model as tmodel
 from repro_torch.platform import executors as tex
 from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import (ContinuousEngine, PagedContinuousEngine,
@@ -42,40 +43,28 @@ pytestmark = pytest.mark.slow
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PRESETS = ["fib_day", "var_day", "multi_tenant", "multi_tenant_steady",
-           "multi_tenant_burst", "preemption_storm", "churn_day", "serving_burst"]
-RESULT_FIELDS = ["n_submitted", "outcome_counts", "invoked_share", "success_share",
-                 "response_p50", "response_p95", "slurm_coverage", "sim_upper_bound",
-                 "no_worker_time_share", "n_jobs_started", "n_evicted",
-                 "worker_samples", "n_throttled", "n_wasted_execs", "goodput_s",
-                 "reliability"]
+           "multi_tenant_burst", "preemption_storm", "churn_day", "serving_burst",
+           "elastic_storm", "elastic_storm_lose"]
 
 
 @pytest.fixture
 def fresh_ids(monkeypatch):
-    """Both packages number requests from 0 (their counters are per process)."""
-    monkeypatch.setattr(jqueues, "_REQ_IDS", itertools.count())
-    monkeypatch.setattr(tqueues, "_REQ_IDS", itertools.count())
+    reset_ids(monkeypatch)
 
 
-def _requests(res):
-    return [(r.id, r.fn, r.arrival, r.outcome, r.response_time) for r in res.requests]
-
-
-def assert_same_result(jres, tres):
-    """Exact equality (NaN equal to NaN) of every reported field and of
-    every request."""
-    for name in RESULT_FIELDS:
-        np.testing.assert_equal(getattr(tres, name), getattr(jres, name), err_msg=name)
-    np.testing.assert_equal([dataclasses.asdict(c) for c in tres.per_class],
-                            [dataclasses.asdict(c) for c in jres.per_class])
-    assert _requests(tres) == _requests(jres)
+def _preset(plat, preset: str):
+    """The preset at 1800 s; ``elastic_storm_lose`` is ``elastic_storm``'s
+    lose-whole-replica baseline (``migrate=False``)."""
+    if preset == "elastic_storm_lose":
+        return plat.ScenarioConfig.elastic_storm(duration=1800.0, migrate=False)
+    return getattr(plat.ScenarioConfig, preset)(duration=1800.0)
 
 
 # --- simulated scenarios ------------------------------------------------------------
 @pytest.mark.parametrize("preset", PRESETS)
 def test_preset_runs_equal_repro(preset, fresh_ids):
-    jres = jplat.Platform.build(getattr(jplat.ScenarioConfig, preset)(duration=1800.0)).run()
-    tres = tplat.Platform.build(getattr(tplat.ScenarioConfig, preset)(duration=1800.0)).run()
+    jres = jplat.Platform.build(_preset(jplat, preset)).run()
+    tres = tplat.Platform.build(_preset(tplat, preset)).run()
     assert tres.n_submitted > 0
     assert_same_result(jres, tres)
 
@@ -120,22 +109,43 @@ def test_facade_matches_platform_build_in_the_port(monkeypatch):
 
 
 # --- registry -------------------------------------------------------------------------
-def test_registry_has_repros_keys_but_sharded_serving():
+def test_registry_has_repros_keys():
     for kind in jplat.registry.KINDS:
-        want = set(jplat.available(kind)) - {"sharded-serving"}
-        assert set(tplat.available(kind)) == want, kind
+        assert set(tplat.available(kind)) == set(jplat.available(kind)), kind
     assert tplat.resolve("executor", "batched-serving") is tex.build_batched_serving
-
-
-def test_elastic_serving_names_its_slice():
-    before = set(sys.modules)
-    with pytest.raises(NotImplementedError, match="elastic-serving slice"):
-        tplat.resolve("executor", "sharded-serving")
-    with pytest.raises(NotImplementedError, match="elastic-serving slice"):
-        tplat.Platform.build(tplat.ScenarioConfig.elastic_storm(duration=600.0))
-    assert set(sys.modules) == before   # nothing was imported on the way
+    assert tplat.resolve("executor", "sharded-serving") is tplat.build_sharded_serving
     with pytest.raises(KeyError, match="available"):
         tplat.resolve("executor", "does-not-exist")
+
+
+def test_sharded_serving_builds_on_cpu_and_registers_its_gauges(fresh_ids):
+    """``elastic_storm`` with ``sharded-serving``: the factory's smoke
+    replica on the CPU, the gang pool's SIGTERM hook driving real resizes
+    of it, and the ``kv_*`` and ``replica_*`` gauges reading the replica."""
+    sc = tplat.ScenarioConfig.elastic_storm(duration=600.0)
+    sc.platform.executor = "sharded-serving"
+    sc.platform.executor_params = {"device": "cpu", "n_new": 4}
+    p = tplat.Platform.build(sc)
+    ex = p.executor
+    assert isinstance(ex, tplat.ElasticServingExecutor)
+    rep = ex.replica
+    assert rep.n_members == sc.platform.gang_size == 3
+    assert {t.device.type for t in tmodel.tree_leaves(rep.params)} == {"cpu"}
+    res = p.run()
+    assert res.outcome_counts.get("success", 0) > 0
+    assert len(rep.migrations) == p.metrics.total("gang_migrations_total") > 0
+    assert ex.engine is rep.engine          # re-pointed after every resize
+    st = ex.engine.kv_stats()
+    for name in tex._KV_GAUGES:
+        ((labels, gauge),) = p.metrics.gauges_matching(f"kv_{name}").items()
+        assert dict(labels) == {"layout": "dense"}
+        assert gauge.read() == st[name]
+    want = {"replica_mesh_size": rep.mesh_size, "replica_members": rep.n_members,
+            "replica_migrations": len(rep.migrations),
+            "replica_migrated_bytes": rep.migrated_bytes}
+    for name, value in want.items():
+        ((_, gauge),) = p.metrics.gauges_matching(name).items()
+        assert gauge.read() == value, name
 
 
 def test_core_imports_nothing_of_faas_or_platform():
@@ -322,11 +332,16 @@ def test_factories_reject_a_jax_engine(qwen):
 
 def test_factories_need_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for build in (tex.build_batched_serving, tex.build_serving):
+    for build in (tex.build_batched_serving, tex.build_serving,
+                  tplat.build_sharded_serving):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build(None)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tplat.Platform.build(_scenario("batched-serving"))
+    sc = tplat.ScenarioConfig.elastic_storm(duration=600.0)
+    sc.platform.executor = "sharded-serving"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tplat.Platform.build(sc)
 
 
 # --- the platform with real decodes, both packages --------------------------------------

@@ -182,7 +182,9 @@ def test_no_jax_or_repro_import_in_port_sources():
 def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
     _, tc, _, tp = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch.benchmarks import serving_batching
+    from repro_torch.benchmarks import elastic_serving, serving_batching
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.platform.elastic import build_sharded_serving
     from repro_torch.launch import harvest_serving, serve
     from repro_torch.models.weights import params_from_numpy
     from repro_torch.platform.executors import build_batched_serving, build_serving
@@ -202,6 +204,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
         lambda: build_serving(None),
         lambda: harvest_serving.main(["--minutes", "1"]),
         lambda: serving_batching.bench_serving(n_requests=1),
+        lambda: elastic_serving.torch_migration_cell(),
+        lambda: ElasticReplica(tc, tp, 2),
+        lambda: build_sharded_serving(None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
