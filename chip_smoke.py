@@ -117,6 +117,25 @@ Run from the root of a checkout on a machine with one CUDA card. It
    stablelm) also calls ``ServingEngine.score`` on (2, 512) tokens with the
    weights it holds, checks the forward's launches and a finite loss, and
    frees its weights before the next phase; each phase's wall prints;
+13b. on the dense phase's qwen2.5-3b, before it is freed, prefills one
+   prompt of ``prefill_32k``'s 32,768 tokens (its batch cut to 1) through
+   ``attn_impl="chunked"`` with the rmsnorm kernel and through ``auto``
+   (flash): walls, peaks, exact launches, device ms and idle share (the
+   chunked leg profiled on a 1-layer cut), the counted floors, and the
+   last-position logits of both legs held together within the bf16
+   tolerance and set beside a float32 witness (the chunked path on the
+   fp32 weights); the greedy picks are equal, or the witness scores them
+   apart by no more than the legs' measured logit disagreement; after the
+   training phase it times flash at 32k beside ``chunked_mha`` (its plain
+   twin: the plain version's scores do not fit) and SDPA, holding the
+   kernel against ``chunked_mha`` at float32 row block by row block
+   (relative L2 within ``FLASH_32K_REL_L2``), runs the four model-side
+   twins on the card (serving matrix ``--assert-equal``, paged KV
+   ``--assert-slot-ratio 2``, quickstart, elastic demo; each a path of
+   its own in the launch sums), and, after every timed phase, runs the
+   dry run of the 40 cells on ``meta`` (32 ok, 8 skipped; qwen2.5-3b's
+   parameter bytes on a 1 x 1 mesh equal to what the dense phase's
+   parameters took on the card);
 14. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
    form; each kernel's launches summed over every path above) and, last,
    the ``{"ok": true, ...}`` line.
@@ -131,18 +150,25 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor / fp32 CUDA cores
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W), from the
+# port's roofline (its one source); the import fails outside a checkout
+from repro_torch.launch import roofline as _roofline  # noqa: E402
+
+PEAK_BYTES_PER_S = _roofline.HBM_BW
+# bf16 tensor cores / fp32 CUDA cores
+PEAK_FLOPS = {torch.bfloat16: _roofline.PEAK_FLOPS, torch.float32: _roofline.PEAK_FLOPS_F32}
 
 # tests/test_kernels.py tolerances: (atol, rtol)
 TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (5e-2, 5e-2)}
@@ -295,6 +321,31 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
     return err.max().item()
 
 
+def check_row_blocks(name: str, got: torch.Tensor, want: torch.Tensor, limit: float,
+                     rows: int = 512) -> float:
+    """Hold (B, S, ...) outputs together block by block: each run of
+    ``rows`` consecutive positions of each batch row has a relative L2
+    error ||got - want|| / ||want|| within ``limit``. The limit scales with
+    each block's own size, where an element-wise atol does not: an
+    attention output row averages over its keys, so a late row's values
+    are far smaller than an atol that suits the early rows. Returns the
+    largest block error."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    b, s = want.shape[:2]
+    pad = (-s) % rows
+    num = torch.nn.functional.pad((got - want).pow(2).reshape(b, s, -1).sum(-1), (0, pad))
+    den = torch.nn.functional.pad(want.pow(2).reshape(b, s, -1).sum(-1), (0, pad))
+    rel = (num.reshape(b, -1, rows).sum(-1) / den.reshape(b, -1, rows).sum(-1)).sqrt()
+    worst = int(rel.argmax())
+    if not bool((rel <= limit).all()):
+        raise AssertionError(f"{name}: {int((rel > limit).sum())} of {rel.numel()} blocks of "
+                             f"{rows} rows beyond relative L2 {limit}; worst "
+                             f"{rel.max().item():.3e} at rows {worst % rel.shape[1] * rows}+")
+    return rel.max().item()
+
+
 def limit_share(got: torch.Tensor, want: torch.Tensor, tol) -> float:
     """The largest |got - want| / (atol + rtol |want|): 1.0 is at the limit."""
     atol, rtol = tol
@@ -360,16 +411,24 @@ def check_norm_forms(tag: str, cfg, passes: int, counts: dict, forms: dict) -> d
     return dict(counts, rmsnorm_forms=forms)
 
 
+def attention_pairs(s: int, causal: bool = True, window=None) -> int:
+    """The (query, key) pairs a mask of S positions allows, in closed form
+    (no S x S mask: at 32k that would be 1 GiB): causal, key <= query and,
+    with a window w, key > query - w; not causal, key > query - w only."""
+    if causal:
+        if window is None:
+            return s * (s + 1) // 2
+        m = min(s, window)
+        return m * (m + 1) // 2 + (s - m) * window
+    if window is None:
+        return s * s
+    n = max(s - window, 0)
+    return s * s - n * (n + 1) // 2
+
+
 def flash_bound(b, h, kv, s, d, dtype, causal=True, window=None):
     """(bound ms, 'bytes' | 'operations') for attention over this run's mask."""
-    q = np.arange(s)[:, None]
-    k = np.arange(s)[None, :]
-    mask = np.ones((s, s), bool)
-    if causal:
-        mask &= k <= q
-    if window is not None:
-        mask &= k > q - window
-    pairs = int(mask.sum())
+    pairs = attention_pairs(s, causal, window)
     flops = 4 * b * h * d * pairs                  # QK^T and PV, 2 flops a MAC
     elt = torch.empty((), dtype=dtype).element_size()
     bytes_ = (2 * b * h * s * d + 2 * b * kv * s * d) * elt
@@ -1008,7 +1067,9 @@ def slice_phase(seed: int):
           f"dtype={cfg.dtype} kernel_impls={dict(cfg.kernel_impls)}")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    mem0 = torch.cuda.memory_allocated()
     params = M.init_params(cfg, gen, "cuda")
+    param_bytes = torch.cuda.memory_allocated() - mem0   # the dry-run phase holds its count to it
     engine = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=max_seq, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in M.tree_leaves(params))
@@ -1050,6 +1111,7 @@ def slice_phase(seed: int):
           f"(limit atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]}), same argmax {same}, "
           f"logit scale {logits['reference'][:, :v].abs().max().item():.3f}")
     serving["f32_logits_max_abs_err"] = err
+    serving["param_bytes_on_card"] = param_bytes
     return counts, serving, cfg, params
 
 
@@ -2630,6 +2692,330 @@ def training_phase(seed: int):
     return guard_counts, out
 
 
+# --- long prompts, the dry run and the model-side twins ---------------------------------------
+LONG_PROMPT = 32_768   # prefill_32k's sequence (repro's SHAPES), one prompt
+# the chunked leg's profile runs on a cut of this many layers (every layer
+# does the same work at the same shapes): its whole-depth run launches about
+# 1.8 million kernels, and the profiler takes over a minute to process a
+# 4-layer cut's 200 thousand
+LONG_PROFILE_LAYERS = 1
+# flash at 32k against chunked_mha at float32: the relative L2 error of
+# every block of 512 rows (bf16 rounding of the output and of the softmax
+# weights gives a few 1e-3; a kernel that drops one 64-key tile of the
+# rows past 16k gives about 5e-2)
+FLASH_32K_REL_L2 = 1e-2
+
+
+def long_prompt_floors(cfg, n_params: int, s: int) -> dict:
+    """Counted floors of one (1, s) prefill at the bf16 peak: 2 FLOPs a
+    non-embedding parameter a token (the tied head runs on the last
+    position only), plus attention's QK^T and PV: every (512, 1024) block
+    for chunked_mha (repro computes the masked upper triangle too, over S
+    padded to the chunks), the causal pairs for flash."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    dense = 2.0 * (n_params - cfg.vocab_padded * cfg.d_model) * s
+    per_pair = 4.0 * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    s_pad = -(-s // 1024) * 1024
+    attn = {"chunked": per_pair * (-(-s // 512) * 512) * s_pad,
+            "flash": per_pair * s * (s + 1) / 2}
+    return {leg: {"flops": dense + a, "floor_s": (dense + a) / PEAK_FLOPS}
+            for leg, a in attn.items()}
+
+
+def long_prompt_phase(cfg, params, seed: int) -> tuple:
+    """Full-width, full-depth qwen2.5-3b (the dense phase's weights, bf16)
+    on one prompt of prefill_32k's 32,768 tokens (its batch of 32 cut to 1):
+    leg 1 ``attn_impl="chunked"`` with the rmsnorm kernel on, leg 2 ``auto``
+    (flash). Each leg: wall, peak memory and launches of one prefill, then
+    device ms and idle share from the profiler (leg 1 on a cut of
+    LONG_PROFILE_LAYERS layers). Then a float32 witness: the chunked path
+    on the fp32 weights, no kernel. The legs' last-position logits agree
+    within the bf16 tolerance, each leg's distance from the witness is
+    recorded, and the legs pick the same greedy token, or the witness
+    scores the two picks apart by no more than the legs' measured logit
+    disagreement."""
+    from repro_torch.configs import with_kernel_impls
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+
+    legs = {"chunked": with_kernel_impls(dataclasses.replace(cfg, attn_impl="chunked"),
+                                         {"rmsnorm": "kernel"}),
+            "flash": with_kernel_impls(cfg, "auto")}
+    s = LONG_PROMPT
+    toks = torch.as_tensor(np.random.default_rng(seed + 21).integers(0, cfg.vocab_size, (1, s)),
+                           device="cuda")
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    floors = long_prompt_floors(cfg, n_params, s)
+    bf16 = M.cast_params(params, cfg)   # one bf16 copy for both legs
+    out, counts, logits = {"reduced": "prefill_32k batch 32 -> 1", "seq": s}, {}, {}
+    v = cfg.vocab_size
+    with torch.no_grad():
+        M.prefill(bf16, {"tokens": toks[:, :1024]}, legs["flash"])   # warm-up, not counted
+        for name, c in legs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.perf_counter()
+            lg, cache = M.prefill(bf16, {"tokens": toks}, c)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts[name] = dict(launch_counts(), rmsnorm_forms=rmsnorm_form_counts())
+            peak = torch.cuda.max_memory_allocated()
+            logits[name] = lg[:, :v].float()
+            del cache
+            expect_flash = cfg.n_layers if name == "flash" else 0
+            forms = expected_norm_forms(cfg, 1)
+            if (counts[name]["flash_attention"] != expect_flash
+                    or counts[name]["rmsnorm_forms"] != forms
+                    or counts[name]["moe_gmm"] or counts[name]["ssd"]
+                    or counts[name]["paged_attention"]):
+                raise AssertionError(f"long prompt {name}: launches {counts[name]}, expected "
+                                     f"flash {expect_flash}, rmsnorm {forms}")
+            if name == "chunked":
+                cut = dataclasses.replace(c, n_layers=LONG_PROFILE_LAYERS)
+                stack = {seg: M.tree_map(lambda x: x[:LONG_PROFILE_LAYERS], tree)
+                         for seg, tree in bf16["stack"].items()}
+                cut_params = dict(bf16, stack=stack)
+                prof = profile_run(lambda: M.prefill(cut_params, {"tokens": toks}, cut),
+                                   f"long prompt chunked, {LONG_PROFILE_LAYERS}-layer cut "
+                                   f"({s} tokens, profiler on)", 1, "long", "prefill")
+                scale = cfg.n_layers / LONG_PROFILE_LAYERS
+                prof["profile_long_device_ms_full_depth_from_cut"] = (
+                    prof.get("profile_long_device_ms_per_prefill", float("nan")) * scale)
+            else:
+                prof = profile_run(lambda: M.prefill(bf16, {"tokens": toks}, c),
+                                   f"long prompt flash ({s} tokens, profiler on)", 1, "long",
+                                   "prefill")
+            out[name] = {"wall_s": wall, "peak_memory_bytes": peak,
+                         "peak_above_weights_bytes": peak - base, "launches": counts[name],
+                         "counted_flops": floors[name]["flops"],
+                         "counted_floor_s": floors[name]["floor_s"], **prof}
+            print(f"long prompt {name}: one ({1}, {s}) prefill in {wall:.3f} s (counted floor "
+                  f"{floors[name]['floor_s']:.3f} s at 989e12 FLOP/s, "
+                  f"{floors[name]['flops']:.4e} FLOPs), peak memory {peak} bytes "
+                  f"({peak - base} above the weights), launches {counts[name]}")
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the float32 witness: the chunked path on the fp32 weights with every
+    # op plain (no kernel), to say which leg's greedy pick is right
+    wcfg = with_kernel_impls(dataclasses.replace(cfg, attn_impl="chunked", dtype="float32"),
+                             "reference")
+    reset_launch_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        lg, cache = M.prefill(params, {"tokens": toks}, wcfg)
+    torch.cuda.synchronize()
+    out["witness_f32_wall_s"] = time.perf_counter() - t
+    if any(launch_counts().values()):
+        raise AssertionError(f"long prompt f32 witness launched kernels: {launch_counts()}")
+    witness = lg[:, :v].float()
+    del lg, cache
+    atol, rtol = TOL[torch.bfloat16]
+    err = check_close("long prompt last-position logits chunked vs flash", logits["chunked"],
+                      logits["flash"], TOL[torch.bfloat16])
+    # each bf16 leg against the witness is recorded, not held to the bf16
+    # tolerance: that tolerance is one kernel's, and a 36-layer bf16
+    # forward departs further from its float32 twin
+    if not bool(torch.isfinite(witness).all()):
+        raise AssertionError("long prompt: the f32 witness's logits are not finite")
+    err_w = {name: {"max_abs_err": (lg - witness).abs().max().item(),
+                    "rel_l2": ((lg - witness).norm() / witness.norm()).item()}
+             for name, lg in logits.items()}
+    picks = {name: int(lg.argmax(-1)) for name, lg in logits.items()}
+    picks["f32 witness"] = int(witness.argmax(-1))
+    top = {name: [round(float(x), 5) for x in lg[0].topk(3).values]
+           for name, lg in (*logits.items(), ("f32 witness", witness))}
+    same = picks["chunked"] == picks["flash"]
+    # where the legs pick apart, the witness must score the two picks apart
+    # by no more than the legs' own measured logit disagreement: a split
+    # that the exact logits do not make a tie is a fault
+    witness_gap = float(witness[0, picks["chunked"]] - witness[0, picks["flash"]])
+    tie = abs(witness_gap) <= err
+    out.update(max_abs_err=err, vs_f32_witness=err_w, same_greedy_token=same,
+               greedy_tokens=picks, top3_logits=top, witness_gap_between_picks=witness_gap,
+               tie_within_measured_disagreement=tie,
+               witness_agrees_with={name: picks[name] == picks["f32 witness"]
+                                    for name in logits})
+    print(f"long prompt: f32 witness (chunked, fp32 weights, no kernel) in "
+          f"{out['witness_f32_wall_s']:.3f} s; last-position logits chunked vs flash max abs err "
+          f"{err:.3e}, against the witness {err_w} (atol={atol} rtol={rtol}); greedy tokens "
+          f"{picks}, same in both legs {same}; top-3 logits {top}; the witness scores the "
+          f"chunked pick over the flash pick by {witness_gap:.5f}, within the legs' measured "
+          f"disagreement {err:.5f}: {tie}; logit scale {witness.abs().max().item():.3f}")
+    if not same and not tie:
+        raise AssertionError(f"long prompt: chunked and flash pick {picks}, and the f32 witness "
+                             f"scores them {witness_gap} apart, more than the legs' logit "
+                             f"disagreement {err}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def flash_32k_phase(gen: torch.Generator) -> dict:
+    """Flash at prefill_32k's length, qwen2.5-3b's heads (q (1,16,32768,128),
+    2 kv heads, causal, bf16), three ways: the kernel, ``chunked_mha`` (the
+    plain online softmax: the plain version's 68.7 GB score matrix does not
+    fit) and SDPA (the library call, K/V repeated). The kernel is held
+    against chunked_mha at float32 on the same values, element-wise within
+    the bf16 tolerance and block by block within ``FLASH_32K_REL_L2``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.models.attention import chunked_mha
+
+    b, h, kv, s, d = 1, 16, 2, LONG_PROMPT, 128
+    cfg = get_config("qwen2.5-3b")
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k_rep, v_rep = k.repeat_interleave(h // kv, dim=2), v.repeat_interleave(h // kv, dim=2)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kh_rep, vh_rep = k_rep.transpose(1, 2), v_rep.transpose(1, 2)
+
+    def kernel():
+        return flash_attention_op(qh, kh, vh, causal=True)
+
+    def chunked():
+        return chunked_mha(q, k_rep, v_rep, cfg)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh_rep, vh_rep, is_causal=True)
+
+    got = kernel().transpose(1, 2).reshape(b, s, h * d)
+    # the reference: chunked_mha at float32 on the same bf16 values
+    want = chunked_mha(q.float(), k_rep.float(), v_rep.float(), cfg)
+    err = check_close("flash 32k vs chunked_mha (f32)", got, want, TOL[torch.bfloat16])
+    print(f"check flash 32k vs chunked_mha (f32), element-wise: max abs err {err:.3e} "
+          f"(atol={TOL[torch.bfloat16][0]} rtol={TOL[torch.bfloat16][1]})")
+    rel = check_row_blocks("flash 32k vs chunked_mha (f32)", got, want, FLASH_32K_REL_L2)
+    del got, want
+    bound, by = flash_bound(b, h, kv, s, d, torch.bfloat16)
+    t = {"shape": f"q ({b},{h},{s},{d}) kv {kv} causal bf16; plain: chunked_mha (the plain "
+                  f"flash's {b * h * s * s * 4 / 1e9:.1f} GB of scores do not fit); library: "
+                  f"SDPA, K/V repeated", "bound_ms": bound, "bound_by": by, "err": err,
+         "rel_l2_max": rel}
+    t["ms"], t["eager_ms"] = cuda_ms(kernel, iters=10, reps=3)
+    t["library_ms"], t["eager_library_ms"] = cuda_ms(library, iters=10, reps=3)
+    t["plain_ms"] = t["eager_plain_ms"] = cuda_ms(chunked, iters=3, graph=False)[1]
+    report("flash_attention 32k", t)
+    t["plain_ms_note"] = ("chunked_mha, eager (host-bound); the plain flash version is not "
+                          "timed: it does not fit")
+    print(f"check flash 32k vs chunked_mha (f32): largest relative L2 error of a 512-row block "
+          f"{rel:.3e} (limit {FLASH_32K_REL_L2}); plain flash not timed: its score matrix does "
+          f"not fit")
+    del q, k, v, k_rep, v_rep
+    torch.cuda.empty_cache()
+    return t
+
+
+def dryrun_phase(param_bytes_on_card: int) -> dict:
+    """The dry run of the 40 cells on the single-pod mesh without probes
+    (host only, on ``meta``, after every timed phase so that its host work
+    overlaps none of theirs): one line a cell (bottleneck,
+    roofline_fraction, argument bytes a device), 32 ok, 8 skipped and 0
+    errors, and qwen2.5-3b's parameter bytes on a 1 x 1 mesh held against
+    what its fp32 parameters took on the card (the dense phase)."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=False)
+    recs = [D.run_cell(arch, shape.name, mesh, "single", probes=False)
+            for arch in ARCH_IDS for shape in SHAPES]
+    status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+    for r in recs:
+        if r["status"] == "ok":
+            rl, mem = r["roofline"], r["memory_analysis"]
+            print(f"dryrun {r['arch']} {r['shape']} single: {rl['bottleneck']}, roofline_fraction "
+                  f"{rl['roofline_fraction']:.4f}, t_compute {rl['t_compute_s']:.6f} s, t_memory "
+                  f"{rl['t_memory_s']:.6f} s, useful_ratio {rl['useful_ratio']:.3f}, argument "
+                  f"bytes/dev {mem['argument_bytes_per_dev']}, host {r['run_s']} s")
+        else:
+            print(f"dryrun {r['arch']} {r['shape']} single: {r['status']} "
+                  f"{r.get('reason') or r.get('error')}")
+    if status != {"ok": 32, "skipped": 8, "error": 0}:
+        raise AssertionError(f"dry run: {status}, expected 32 ok, 8 skipped, 0 errors")
+    cfg = get_config("qwen2.5-3b")
+    _, _, mem = D._build(cfg, SHAPES_BY_NAME["prefill_32k"], make_mesh((1, 1), ("data", "model")))
+    counted = mem["parts"]["params"]
+    bias = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    print(f"dryrun: qwen2.5-3b parameters on a 1 x 1 mesh {counted} bytes; the dense phase's "
+          f"fp32 parameters took {param_bytes_on_card} bytes on the card; param_count "
+          f"{cfg.param_count()} = {counted // 4} - {bias} (QKV biases, which param_count leaves "
+          f"out); H100 roofline {RL.CARD}; dry-run host {sum(r.get('run_s', 0) for r in recs):.1f} "
+          f"s over the cells")
+    if counted != param_bytes_on_card or counted // 4 - bias != cfg.param_count():
+        raise AssertionError(f"dry run: parameter bytes {counted} vs {param_bytes_on_card} on "
+                             f"the card, param_count {cfg.param_count()}")
+    return {"status": status, "param_bytes": counted,
+            "cells": {f"{r['arch']} {r['shape']}": r.get("roofline", r.get("reason"))
+                      for r in recs}}
+
+
+def twins_phase(seed: int) -> tuple:
+    """The model-side benchmark and example twins on the card at their
+    smoke configs, each writing under a temporary directory: the serving
+    matrix (every arch, f32, ``--assert-equal``), paged KV
+    (``--assert-slot-ratio 2``, the paged kernel leg), the quickstart and
+    the elastic demo. Each twin's launches are read with the counts at 0
+    just before it."""
+    from repro_torch.benchmarks import paged_kv, serving_matrix
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.launch import elastic_faas_demo, quickstart
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_twins_")
+    runs = {"serving_matrix": (serving_matrix.main, ["--assert-equal", "--out",
+                                                     f"{tmp}/BENCH_torch_serving_matrix.json"]),
+            "paged_kv": (paged_kv.main, ["--assert-slot-ratio", "2", "--out",
+                                         f"{tmp}/BENCH_torch_paged_kv.json"]),
+            "quickstart": (quickstart.main, []),
+            "elastic_faas_demo": (elastic_faas_demo.main, [])}
+    counts, out = {}, {}
+    try:
+        for name, (main, argv) in runs.items():
+            reset_launch_counts()
+            t = time.perf_counter()
+            try:
+                res = main(argv)
+            except SystemExit as e:   # a twin's failed assertion
+                raise AssertionError(f"twin {name} exited {e.code}") from e
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts[name] = dict(launch_counts(), rmsnorm_forms=rmsnorm_form_counts())
+            out[name] = {"wall_s": wall, "launches": counts[name]}
+            print(f"twin {name}: wall {wall:.2f} s, launches {counts[name]}")
+            if name == "serving_matrix":
+                d = res["serving_matrix"]
+                out[name]["tok_s"] = {a: [(p["reference"]["tok_s"], p["kernel"]["tok_s"])
+                                          for p in rec["points"]]
+                                      for a, rec in d["archs"].items()}
+                if not d["all_tokens_equal"] or d["n_archs"] != 5:
+                    raise AssertionError(f"serving matrix: {d['n_archs']} archs, tokens equal "
+                                         f"{d['all_tokens_equal']}")
+            elif name == "paged_kv":
+                d = res["paged_kv"]
+                out[name].update(slot_ratio=d["slot_ratio"],
+                                 kernel_token_agreement=d["kernel_token_agreement"],
+                                 share_hit_rate=d["paged"]["kv"]["share_hit_rate"])
+                if d["kernel_launches"]["paged_attention"] == 0:
+                    raise AssertionError("paged_kv: the kernel leg launched no paged attention")
+            elif not all(np.isfinite(x) for x in res.values() if isinstance(x, float)):
+                raise AssertionError(f"twin {name}: {res}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, kernel in (("serving_matrix", "moe_gmm"), ("serving_matrix", "ssd"),
+                         ("serving_matrix", "flash_attention"), ("paged_kv", "paged_attention")):
+        if counts[name][kernel] == 0:
+            raise AssertionError(f"twin {name} launched no {kernel}")
+    return counts, out
+
+
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output: the
     kernel and its template arguments, registers, static shared memory and
@@ -2715,6 +3101,8 @@ def main(argv=None) -> int:
     serving["platform"] = phase("platform", platform_phase, cfg, params, args.seed)
     elastic_counts, serving["elastic"] = phase("elastic", elastic_phase, cfg, params, args.seed)
     serving["slice_score"] = phase("dense score", score_leg, "slice", cfg, params, args.seed)
+    long_counts, serving["long_prompt"] = phase("long prompt", long_prompt_phase, cfg, params,
+                                                args.seed)
     del params  # free qwen2.5-3b before mixtral's 20.8 GB of weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -2730,6 +3118,9 @@ def main(argv=None) -> int:
     stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
     serving.update(stablelm_serving)
     guard_counts, serving["training"] = phase("training", training_phase, args.seed)
+    serving["flash_32k"] = phase("flash 32k", flash_32k_phase, gen(5))
+    twin_counts, serving["twins"] = phase("twins", twins_phase, args.seed)
+    serving["dryrun"] = phase("dryrun", dryrun_phase, serving["param_bytes_on_card"])
     walls["total"] = time.perf_counter() - t0
     serving["phase_wall_s"] = walls
     print(f"phases: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
@@ -2748,7 +3139,9 @@ def main(argv=None) -> int:
              "mla score": serving["mla_score"]["launches"],
              "hubert loss_fn": frontend_counts[0], "internvl2 loss_fn": frontend_counts[1],
              "stablelm": stablelm_counts, "stablelm score": serving["stablelm_score"]["launches"],
-             "training guard no_grad loss_fn": guard_counts}
+             "training guard no_grad loss_fn": guard_counts,
+             **{f"long prompt {k}": v for k, v in long_counts.items()},
+             **{f"twin {k}": v for k, v in twin_counts.items()}}
     print("launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     counts = {name: sum(c["rmsnorm_forms"][form] for c in paths.values())
               for name, form in RMS_FORMS.items()}

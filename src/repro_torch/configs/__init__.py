@@ -1,10 +1,14 @@
-"""Registry of the ten architectures of ``repro.configs``."""
+"""Registry of the ten architectures of ``repro.configs`` (+ shapes)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (
+    SHAPES,
+    SHAPES_BY_NAME,
     ModelConfig,
+    ShapeConfig,
+    cell_is_runnable,
     kernel_impl,
     supported_kernel_sites,
     torch_dtype,
@@ -34,9 +38,23 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.FULL
 
 
+def all_cells():
+    """Yield (arch_id, shape, runnable, skip_reason) for the 40 assigned cells."""
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape in SHAPES:
+            ok, why = cell_is_runnable(cfg, shape)
+            yield arch_id, shape, ok, why
+
+
 __all__ = [
     "ARCH_IDS",
+    "SHAPES",
+    "SHAPES_BY_NAME",
     "ModelConfig",
+    "ShapeConfig",
+    "all_cells",
+    "cell_is_runnable",
     "get_config",
     "kernel_impl",
     "supported_kernel_sites",

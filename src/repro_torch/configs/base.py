@@ -1,8 +1,9 @@
 """Model/config schema: the port's own copy of ``repro.configs.base``.
 
-The fields, their defaults and the kernel-dispatch policy are the same as in
-``repro`` field for field (the tests hold them equal), so a configuration
-means the same thing on both sides. Dtypes stay strings here; the port maps
+The fields, their defaults, the kernel-dispatch policy, the analytic
+``param_count``, the four input shapes and the dry-run skip matrix
+(``cell_is_runnable``) are the same as in ``repro`` (the tests hold them
+equal), so a configuration means the same thing on both sides. Dtypes stay strings here; the port maps
 them to torch dtypes with :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -172,12 +173,60 @@ class ModelConfig:
         return not self.encoder_only
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (SSM/hybrid/sliding-window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
     @property
     def param_torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
+
+    # --- parameter count (for roofline MODEL_FLOPS) ------------------------
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytic parameter count; active_only counts top-k experts only."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_padded
+        n = 0
+        # embeddings (+ untied head)
+        if self.frontend != "audio":
+            n += v * d
+        if not self.tie_embeddings:
+            n += d * v if self.is_autoregressive else d * self.vocab_padded
+        per_attn = 0
+        if self.use_mla:
+            per_attn += d * self.q_dim  # wq
+            per_attn += d * (self.kv_lora_rank + self.qk_rope_dim)  # down
+            per_attn += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
+            per_attn += self.n_heads * self.v_head_dim * d  # wo
+        else:
+            hd, kv = self.head_dim, self.n_kv_heads
+            per_attn += d * self.n_heads * hd + 2 * d * kv * hd + self.n_heads * hd * d
+        per_dense_ffn = 3 * d * f if self.act == "silu" else 2 * d * f
+        per_moe_ffn = 0
+        if self.n_experts:
+            e = self.top_k if active_only else self.n_experts
+            per_moe_ffn = 3 * d * self.moe_d_ff * e + d * self.n_experts
+            per_moe_ffn += 3 * d * self.moe_d_ff * self.n_shared_experts
+        per_ssm = 0
+        if self.ssm_state:
+            di, cd = self.d_inner, self.conv_dim
+            per_ssm = d * (2 * di + 2 * self.ssm_ngroups * self.ssm_state + self.n_ssm_heads)
+            per_ssm += cd * self.d_conv + di * d + 3 * self.n_ssm_heads + di
+        if self.family in ("dense", "vlm", "audio"):
+            n += self.n_layers * (per_attn + per_dense_ffn)
+        elif self.family == "moe":
+            n += self.first_dense_layers * (per_attn + per_dense_ffn)
+            n += (self.n_layers - self.first_dense_layers) * (per_attn + per_moe_ffn)
+        elif self.family == "ssm":
+            n += self.n_layers * per_ssm
+        elif self.family == "hybrid":
+            n += self.n_layers * per_ssm
+            n += per_attn + per_dense_ffn  # ONE shared block
+        n += 2 * self.n_layers * d + d  # norms (approximate)
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -225,3 +274,37 @@ def with_kernel_impls(
     else:
         mapping = dict(impls)
     return dataclasses.replace(cfg, kernel_impls=tuple(sorted(mapping.items())))
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper (LM-family): every arch gets all four.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a runnable dry-run cell, else the skip reason.
+
+    Skips are mandated by the assignment: encoder-only archs have no decode
+    step; long_500k needs a sub-quadratic attention path.
+    """
+    if shape.kind == "decode" and not cfg.is_autoregressive:
+        return False, "encoder-only: no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: no sub-quadratic path at 500k"
+    return True, ""

@@ -15,11 +15,17 @@ functions are ``repro``'s line for line; a spec tree here equals ``repro``'s
 as tuples. Placement (``distributed.elastic``) puts a whole leaf on its
 mesh's one device: a mesh over more than one distinct device raises.
 
-``maybe_shard`` and ``ambient_mesh_sizes`` stay with the sharded-activation
-path, which needs ``chunked_mha`` and is not ported yet.
+The sharded-activation path (``cfg.shard_activations``) calls
+:func:`maybe_shard` at ``repro``'s sites with ``repro``'s axes. torch has no
+GSPMD and so no ambient mesh of its own: ``with mesh:`` on one of the port's
+meshes makes it ambient (a ``contextvars`` stack), as ``with mesh:`` does in
+JAX. :func:`shard_spec` computes ``repro``'s cleaned constraint axis for
+axis; :func:`maybe_shard` computes it and returns its input unchanged, since
+a leaf lives whole on its mesh's one device.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +65,20 @@ class AbstractMesh:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({dict(zip(self.axis_names, self.axis_sizes))})"
+
+    def __enter__(self) -> "AbstractMesh":
+        """Make this mesh the ambient one (``with mesh:``), as
+        :func:`maybe_shard` reads it."""
+        _AMBIENT.set(_AMBIENT.get() + (self,))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _AMBIENT.set(_AMBIENT.get()[:-1])
+
+
+# the ``with mesh:`` stack; the innermost mesh is the ambient one
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_ambient_mesh",
+                                                          default=())
 
 
 class Mesh(AbstractMesh):
@@ -115,6 +135,52 @@ class NamedSharding:
 
 def _axis(mesh: AbstractMesh, name: str) -> int:
     return dict(zip(mesh.axis_names, mesh.axis_sizes)).get(name, 1)
+
+
+def ambient_mesh() -> Optional[AbstractMesh]:
+    """The innermost mesh entered with ``with mesh:``, or None."""
+    stack = _AMBIENT.get()
+    return stack[-1] if stack else None
+
+
+def ambient_mesh_sizes() -> Optional[Dict[str, int]]:
+    """Axis-name -> size of the ambient mesh, or None when no mesh is
+    active."""
+    mesh = ambient_mesh()
+    return None if mesh is None else dict(zip(mesh.axis_names, mesh.axis_sizes))
+
+
+def shard_spec(shape, *axes, sizes: Dict[str, int]) -> PartitionSpec:
+    """``repro``'s cleaned activation constraint for a tensor of ``shape``
+    over a mesh of axis ``sizes``: axes unknown to the mesh or larger than
+    the dimension are dropped (None); dimensions past ``axes`` get none."""
+    clean = []
+    for dim, ax in zip(shape, axes):
+        cand = ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+        keep = tuple(a for a in cand if a in sizes)
+        n = int(np.prod([sizes[a] for a in keep])) if keep else 1
+        if not keep or dim < n:
+            clean.append(None)
+        else:
+            clean.append(keep if len(keep) > 1 else keep[0])
+    return P(*clean)
+
+
+def maybe_shard(x, *axes):
+    """Best-effort activation sharding constraint against the ambient mesh,
+    as ``repro``'s: with no ambient mesh this is the identity, so model code
+    calls it unconditionally. Under a mesh it computes the cleaned spec
+    (:func:`shard_spec`) and returns ``x`` unchanged: the port keeps a
+    tensor whole on the mesh's one device, and a mesh over several distinct
+    devices raises (:func:`mesh_device`). A mesh without devices (an
+    :class:`AbstractMesh`, as the dry run uses) only computes the spec."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return x
+    if getattr(mesh, "devices", None) is not None:
+        mesh_device(mesh)
+    shard_spec(x.shape, *axes, sizes=dict(zip(mesh.axis_names, mesh.axis_sizes)))
+    return x
 
 
 def _fit(spec: Tuple[Optional[str], ...], shape, mesh: AbstractMesh):

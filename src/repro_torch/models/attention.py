@@ -3,13 +3,17 @@
 attention: a compressed latent cache, decoded with the up-projections
 absorbed).
 
-GQA full-sequence paths dispatch to the flash-attention kernel under
-``kernel_impls['attention'] == 'kernel'``, else run the einsum reference.
+GQA full-sequence paths take ``repro``'s precedence: the flash-attention
+kernel under ``kernel_impls['attention'] == 'kernel'``, then
+``attn_impl="chunked"`` (:func:`chunked_mha`, the online-softmax twin of
+flash that never materialises the S^2 scores), then ``shard_activations``
+(the head-parallel core :func:`_mha_core`), else the einsum reference.
 Dense-cache decode attention is the plain einsum over the cache, as in
 ``repro``; paged decode (:func:`paged_gqa_decode`) always goes through the
 paged-attention kernel, as in ``repro``. MLA has no kernel in ``repro``
 (``supported_kernel_sites`` leaves its attention site out), so its products
-stay plain PyTorch here too.
+stay plain PyTorch here too. Under ``shard_activations`` every site calls
+:func:`repro_torch.distributed.sharding.maybe_shard` with ``repro``'s axes.
 """
 from __future__ import annotations
 
@@ -17,21 +21,22 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
 
+BATCH_AXES = ("pod", "data")
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_impl != "einsum" or cfg.shard_activations:
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}, shard_activations="
-            f"{cfg.shard_activations}: only the einsum path is ported; the "
-            f"chunked and sharded paths come with the slice that ports "
-            f"chunked_mha and the sharded activations (ROADMAP.md, section 1, "
-            f"item 6)")
+
+def _shard(cfg: ModelConfig, x: torch.Tensor, *axes) -> torch.Tensor:
+    """Activation constraint, active only in shard_activations mode."""
+    if not cfg.shard_activations:
+        return x
+    from repro_torch.distributed.sharding import maybe_shard
+    return maybe_shard(x, *axes)
 
 
 # --- masks ------------------------------------------------------------------
@@ -78,6 +83,102 @@ def _flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(b, s, h * d)
 
 
+def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                chunk_q: int = 512, chunk_k: int = 1024) -> torch.Tensor:
+    """Memory-efficient (online-softmax) attention in plain PyTorch, the twin
+    of the flash kernel: q and kv go in blocks with running (m, l, acc)
+    statistics in fp32, so the S^2 score matrix is never materialised.
+    Causal and sliding-window masks apply per block. Every block is
+    computed, as in ``repro`` (its ``lax.scan`` cannot skip the masked upper
+    triangle), so the numbers and the counted FLOPs equal ``repro``'s. The
+    two Python loops are ``repro``'s two scans; ``cfg.unroll`` (a scan's
+    unrolling for XLA's cost model) changes nothing here, since a Python
+    loop runs, and is counted, block by block.
+
+    q, k, v: (B,S,H,D) post-RoPE, KV already repeated to H. Returns
+    (B,S,H*D)."""
+    b, s, h, d = q.shape
+    cq = min(chunk_q, s)
+    ck = min(chunk_k, s)
+    pad_q = (-s) % cq
+    pad_k = (-s) % ck
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    dt = q.dtype
+    scale = d ** -0.5
+    causal = cfg.is_autoregressive
+    window = cfg.sliding_window
+    ar_q = torch.arange(cq, device=q.device)
+    ar_k = torch.arange(ck, device=q.device)
+    blocks = []
+    for iq in range(nq):
+        qc = _shard(cfg, q[:, iq * cq:(iq + 1) * cq], BATCH_AXES, None, "model", None)
+        q_pos = iq * cq + ar_q
+        m = torch.full((b, h, cq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, cq, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, cq, d), dtype=torch.float32, device=q.device)
+        for ik in range(nk):
+            kc, vc = k[:, ik * ck:(ik + 1) * ck], v[:, ik * ck:(ik + 1) * ck]
+            sc = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+            sc = _shard(cfg, sc, BATCH_AXES, "model", None, None)
+            k_pos = ik * ck + ar_k
+            mask = (k_pos < s)[None, :]
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            sc = sc.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(dt), vc).float()
+            m = m_new
+        out = (acc / l.clamp_min(1e-30)).to(dt)           # (b,h,cq,d)
+        blocks.append(out.transpose(1, 2))                # (b,cq,h,d)
+    out = torch.cat(blocks, dim=1).reshape(b, nq * cq, h * d)
+    return out[:, :s]
+
+
+def _mha_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Head-parallel attention core: q, k, v all (B,S,H,Dh), H over "model"
+    in shard_activations mode (the classic TP layout; GQA KV heads repeated
+    to H). Returns (B,S,H*Dh)."""
+    dt = q.dtype
+    b, sq = q.shape[0], q.shape[1]
+    q = _shard(cfg, q, BATCH_AXES, None, "model", None)
+    k = _shard(cfg, k, BATCH_AXES, None, "model", None)
+    v = _shard(cfg, v, BATCH_AXES, None, "model", None)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    scores = _shard(cfg, scores, BATCH_AXES, "model", None, None)
+    mask = _attn_mask(positions, positions, causal=cfg.is_autoregressive,
+                      window=cfg.sliding_window)
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    return torch.einsum("bhqs,bshd->bqhd", w, v).reshape(b, sq, -1)
+
+
+def _full_seq_core(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence GQA core by ``repro``'s precedence: the flash
+    kernel, then ``chunked``, then the head-parallel core under
+    ``shard_activations``, else the einsum reference. Returns (B,S,H*Dh)."""
+    if kernel_impl(cfg, "attention") == "kernel":
+        return _flash_mha(q, k, v, cfg)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if cfg.attn_impl == "chunked":
+        return chunked_mha(q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2), cfg)
+    if cfg.shard_activations:
+        return _mha_core(q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2),
+                         positions, cfg)
+    return _einsum_mha(q, k, v, positions, cfg)
+
+
 def _einsum_mha(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
     """Reference GQA core, scores materialised. Returns (B,S,H*Dh)."""
     b, s = q.shape[0], q.shape[1]
@@ -97,30 +198,20 @@ def _einsum_mha(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
 def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence attention. x: (B,S,D)."""
-    _check_supported(cfg)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if kernel_impl(cfg, "attention") == "kernel":
-        out = _flash_mha(q, k, v, cfg)
-    else:
-        out = _einsum_mha(q, k, v, positions, cfg)
-    return out @ p["wo"].to(x.dtype)
+    return _full_seq_core(q, k, v, positions, cfg) @ p["wo"].to(x.dtype)
 
 
 def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Full-seq attention that also returns (k, v) for the cache. x: (B,S,D).
     With a sliding window only the last ``sliding_window`` positions of K/V
     are returned (the ring the decode path addresses)."""
-    _check_supported(cfg)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if kernel_impl(cfg, "attention") == "kernel":
-        out = _flash_mha(q, k, v, cfg)
-    else:
-        out = _einsum_mha(q, k, v, positions, cfg)
-    out = out @ p["wo"].to(x.dtype)
+    out = _full_seq_core(q, k, v, positions, cfg) @ p["wo"].to(x.dtype)
     if cfg.sliding_window:
         k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
     return out, k, v
@@ -137,10 +228,15 @@ def init_kv_cache_shape(cfg: ModelConfig, batch: int, seq_len: int):
 
 
 def _positions(pos, b: int, dev: torch.device):
-    """(per_row, pos_t, positions (B,1)) from a scalar or (B,) position."""
+    """(per_row, pos_t, positions (B,1)) from a scalar or (B,) position. A
+    0-d tensor stays on its device (no host read: the dry run passes one on
+    ``meta``)."""
     if isinstance(pos, (np.ndarray, torch.Tensor)) and np.ndim(pos) > 0:
         pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
         return True, pos_t, pos_t[:, None]
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.to(device=dev, dtype=torch.int64)
+        return False, pos_t, pos_t.expand(b, 1)
     pos_i = int(pos)
     return (False, torch.tensor(pos_i, dtype=torch.int64, device=dev),
             torch.full((b, 1), pos_i, dtype=torch.int64, device=dev))
@@ -162,6 +258,20 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> N
     cache[rows, idx] = torch.where(ok, new.to(cache.dtype), old)
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos, pos_t: torch.Tensor,
+                ring: bool) -> None:
+    """cache[:, slot] = new[:, 0] in place for a scalar position, the slot
+    clamped into the cache as ``dynamic_update_slice`` clamps (taken modulo
+    the cache first for a ring). A 0-d tensor position stays on its device."""
+    s_cache = cache.shape[1]
+    if isinstance(pos, torch.Tensor):
+        slot = (pos_t % s_cache if ring else pos_t).clamp(0, s_cache - 1)
+        cache.index_copy_(1, slot.reshape(1), new.to(cache.dtype))
+        return
+    slot = int(pos) % s_cache if ring else int(pos)
+    cache[:, min(max(slot, 0), s_cache - 1)] = new[:, 0].to(cache.dtype)
+
+
 def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: Union[int, np.ndarray, torch.Tensor], cfg: ModelConfig):
     """One-token decode. x: (B,1,D); caches: (B,Sc,KV,Dh); pos: a scalar
@@ -169,7 +279,6 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     Returns (out, k_cache, v_cache). The caches are updated in place (saves
     a copy of every layer's cache per token); for SWA they are rings of
     width ``sliding_window``."""
-    _check_supported(cfg)
     b = x.shape[0]
     dt = x.dtype
     dev = x.device
@@ -183,10 +292,10 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         _write_rows(k_cache, k[:, 0], slot)
         _write_rows(v_cache, v[:, 0], slot)
     else:
-        slot = int(pos) % s_cache if cfg.sliding_window else int(pos)
-        slot = min(max(slot, 0), s_cache - 1)  # dynamic_update_slice clamps
-        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        _write_slot(k_cache, k, pos, pos_t, bool(cfg.sliding_window))
+        _write_slot(v_cache, v, pos, pos_t, bool(cfg.sliding_window))
+    k_cache = _shard(cfg, k_cache, BATCH_AXES, "model", None, None)
+    v_cache = _shard(cfg, v_cache, BATCH_AXES, "model", None, None)
     # positions held in each cache slot, per batch row when pos is a vector
     idx = torch.arange(s_cache, device=dev)
     row_pos = pos_t[:, None] if per_row else pos_t
@@ -201,6 +310,7 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     qh = q.reshape(b, 1, cfg.n_kv_heads, g, cfg.head_dim)
     scale = cfg.head_dim ** -0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k_cache.to(dt)).float() * scale
+    scores = _shard(cfg, scores, BATCH_AXES, None, None, None, "model")
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.to(dt))
@@ -222,7 +332,6 @@ def paged_gqa_decode(p, x: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Ten
     all write to the same null slot: which of them lands there is undefined,
     and that slot is always masked."""
     from repro_torch.kernels.ops import paged_attention_op
-    _check_supported(cfg)
     b = x.shape[0]
     dt = x.dtype
     q, k, v = _project_qkv(p, x, cfg)
@@ -263,8 +372,12 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim)
     v = (c_kv @ p["w_uv"].to(dt)).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    q_nope = _shard(cfg, q_nope, BATCH_AXES, None, "model", None)
+    k_nope = _shard(cfg, k_nope, BATCH_AXES, None, "model", None)
+    v = _shard(cfg, v, BATCH_AXES, None, "model", None)
     scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)).float() * scale
+    scores = _shard(cfg, scores, BATCH_AXES, "model", None, None)
     mask = _attn_mask(positions, positions, causal=True, window=None)
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
@@ -275,14 +388,12 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
 def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence MLA (forward / scoring). x: (B,S,D)."""
-    _check_supported(cfg)
     return _mla_full(p, x, positions, cfg)[0]
 
 
 def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Full-sequence MLA that also returns the latent cache entries
     (B,S,r+rope): c_kv ++ rope'd k_rope."""
-    _check_supported(cfg)
     out, c_kv, k_rope = _mla_full(p, x, positions, cfg)
     return out, torch.cat([c_kv, k_rope], dim=-1)
 
@@ -294,7 +405,6 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig)
     ``mode="drop"``). W_uk is absorbed into the query and W_uv into the
     output, so scores and context stay in the r-wide latent space.
     Returns (out, c_cache)."""
-    _check_supported(cfg)
     b = x.shape[0]
     dt = x.dtype
     r = cfg.kv_lora_rank
@@ -306,8 +416,8 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig)
     if per_row:
         _write_rows(c_cache, entry[:, 0], pos_t)
     else:
-        slot = min(max(int(pos), 0), s_cache - 1)             # dynamic_update_slice clamps
-        c_cache[:, slot] = entry[:, 0].to(c_cache.dtype)
+        _write_slot(c_cache, entry, pos, pos_t, False)
+    c_cache = _shard(cfg, c_cache, BATCH_AXES, "model", None)
     cache_c = c_cache[..., :r].to(dt)                         # (B,S,r)
     cache_rope = c_cache[..., r:].to(dt)                      # (B,S,rope)
     w_uk = p["w_uk"].to(dt).reshape(r, cfg.n_heads, cfg.qk_nope_dim)
@@ -315,6 +425,7 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, cache_c)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, cache_rope)).float() * scale
+    scores = _shard(cfg, scores, BATCH_AXES, None, None, "model")
     row_pos = pos_t[:, None] if per_row else pos_t
     valid = (torch.arange(s_cache, device=x.device) <= row_pos).expand(b, s_cache)
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)

@@ -64,17 +64,27 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
     return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
 
 
+def _shard(cfg: ModelConfig, x: torch.Tensor, *axes) -> torch.Tensor:
+    """Activation constraint, active only in shard_activations mode."""
+    if not cfg.shard_activations:
+        return x
+    from repro_torch.distributed.sharding import maybe_shard
+    return maybe_shard(x, *axes)
+
+
 # --- dense / SwiGLU MLP -----------------------------------------------------
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU (``act="silu"``) or the plain gelu MLP (``act="gelu"``, the
     tanh approximation, as ``jax.nn.gelu``'s default)."""
     dt = x.dtype
+    x = _shard(cfg, x, ("pod", "data"), None, None)
     up = x @ p["w_up"].to(dt)
     if cfg.act == "silu":
         h = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    h = _shard(cfg, h, ("pod", "data"), None, "model")
+    return _shard(cfg, h @ p["w_down"].to(dt), ("pod", "data"), None, None)
 
 
 # --- rotary embeddings ------------------------------------------------------
@@ -103,7 +113,8 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def logits_from_hidden(head_w: torch.Tensor, hidden: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     """hidden (B,S,D) -> logits (B,S,Vpad) fp32 with padded columns masked."""
-    logits = (hidden @ head_w.to(hidden.dtype)).float()
+    logits = _shard(cfg, (hidden @ head_w.to(hidden.dtype)).float(),
+                    ("pod", "data"), None, "model")
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9  # in place: logits is a fresh tensor
     return logits

@@ -254,6 +254,9 @@ def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
     else:
         x = embed_tokens(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[0], x.shape[1]
+    if cfg.shard_activations:
+        from repro_torch.distributed.sharding import maybe_shard
+        x = maybe_shard(x, ("pod", "data"), None, None)
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
@@ -279,7 +282,14 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.
         logits = logits[:, :-1]
         labels = labels[:, 1:]
     logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    if cfg.shard_activations:
+        # repro's partition-friendly CE: a masked reduction over the vocab
+        # instead of a gather (it stays sharded on batch and vocab there)
+        onehot = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+        ll = torch.where(onehot, logp, torch.zeros((), dtype=logp.dtype,
+                                                   device=logp.device)).sum(dim=-1)
+    else:
+        ll = logp.gather(-1, labels[..., None].long())[..., 0]
     ce = -ll.mean()
     total = ce + lb_coef * aux["lb_loss"]
     return total, {"ce": ce, "lb_loss": aux["lb_loss"], "loss": total}

@@ -23,15 +23,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, kernel_impl
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.shard_activations or cfg.moe_dispatch_constraints:
-        raise NotImplementedError(
-            f"shard_activations={cfg.shard_activations}, moe_dispatch_constraints="
-            f"{cfg.moe_dispatch_constraints}: the sharded MoE dispatch comes with "
-            f"the slice that ports chunked_mha and the sharded activations "
-            f"(ROADMAP.md, section 1, item 6)")
-
-
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     """One-hot by comparison: no bounds check, so no host sync on the card."""
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
@@ -114,11 +105,36 @@ def _capacity_combine(h, slot, keep, weights, t: int, cap: int, cfg: ModelConfig
     return y_rep.reshape(t, cfg.top_k, d).sum(dim=1)
 
 
+def _shard(cfg: ModelConfig, x: torch.Tensor, *axes) -> torch.Tensor:
+    if not cfg.shard_activations:
+        return x
+    from repro_torch.distributed.sharding import maybe_shard
+    return maybe_shard(x, *axes)
+
+
+def _expert_parallel(cfg: ModelConfig) -> bool:
+    """True when experts shard over the ambient mesh's "model" axis."""
+    from repro_torch.distributed.sharding import ambient_mesh_sizes
+    sizes = ambient_mesh_sizes()
+    if sizes is None:
+        return False
+    m = sizes.get("model", 1)
+    return m > 1 and cfg.n_experts % m == 0
+
+
 def _moe_scatter(p, x, weights, idx, cfg: ModelConfig):
     t = x.shape[0]
     cap = _capacity(t, cfg)
     buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
-    h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf3)
+    # repro's dispatch-buffer constraints (its M1-M3 notes): under
+    # moe_dispatch_constraints with expert parallelism the capacity buffer
+    # and the expert outputs are constrained to the experts' "model" axis
+    if cfg.moe_dispatch_constraints and cfg.shard_activations and _expert_parallel(cfg):
+        buf3 = _shard(cfg, buf3, "model", None, None)
+        h = _shard(cfg, _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf3),
+                   "model", None, None)
+    else:
+        h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf3)
     return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
 
 
@@ -223,7 +239,6 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
               impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,S,D) -> (y, aux). The per-config ``kernel_impls['moe']`` policy
     swaps in the ``moe_gmm`` kernel path unless ``impl`` overrides it."""
-    _check_supported(cfg)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     weights, idx, aux = route(p["router"], xt, cfg)

@@ -7,7 +7,8 @@ no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances are those of ``tests/test_kernels.py``: 5e-5/5e-4 at float32,
 5e-2 at bfloat16; the bf16 flash kernel is also held against the plain
-mirror of its own tiles at ``TILES_TOL`` (as ``chip_smoke.py`` holds it).
+mirror of its own tiles at ``TILES_TOL`` (as ``chip_smoke.py`` holds it),
+and at 32k also block by block within ``FLASH_32K_REL_L2``.
 """
 import pytest
 import torch
@@ -23,6 +24,8 @@ F32_TOL = dict(atol=5e-5, rtol=5e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 # bf16 flash kernel vs ref.flash_attention_tiles_ref: chip_smoke.TILES_TOL
 TILES_TOL = dict(atol=1e-2, rtol=2 ** -7)
+# flash at 32k vs chunked_mha at f32, per 512-row block: chip_smoke.FLASH_32K_REL_L2
+FLASH_32K_REL_L2 = 1e-2
 
 
 @pytest.fixture
@@ -851,3 +854,59 @@ def test_a_bare_cuda_and_its_index_are_one_mesh_device(cuda, names):
     params = M.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
     placed = reshard_in_place(params, cfg, mesh)
     assert {(t.device.type, t.device.index) for t in M.tree_leaves(placed)} == {("cuda", 0)}
+
+
+# --- long prompts: flash against the chunked online softmax ----------------------------------
+def _chunked_cfg(causal=True, window=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2.5-3b"), encoder_only=not causal,
+                               sliding_window=window)
+
+
+def _row_block_rel_l2(got, want, rows=512):
+    """||got - want|| / ||want|| of each block of ``rows`` positions (dim 1)."""
+    b, s = want.shape[:2]
+    num = (got.float() - want.float()).pow(2).reshape(b, s // rows, -1).sum(-1)
+    return (num / want.float().pow(2).reshape(b, s // rows, -1).sum(-1)).sqrt()
+
+
+def test_flash_kernel_at_32k_matches_chunked_mha_on_card(cuda):
+    """qwen2.5-3b's attention at a 32,768-token prefill, bf16: the plain
+    version would need a 68.7 GB score matrix, so the kernel is held against
+    ``chunked_mha``, the plain online softmax over (512, 1024) blocks, at
+    float32 on the same values: element-wise within the bf16 tolerance and,
+    since a late row's output (an average over its many keys) is far smaller
+    than that atol, block by block within a relative L2 error of
+    ``FLASH_32K_REL_L2`` (chip_smoke.py's limit)."""
+    from repro_torch.models.attention import chunked_mha
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, h, kv, s, d = 1, 16, 2, 32768, 128
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, d, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, d, device=cuda, generator=g).to(torch.bfloat16)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = chunked_mha(q.float(), k.float().repeat_interleave(h // kv, dim=2),
+                       v.float().repeat_interleave(h // kv, dim=2), _chunked_cfg())
+    got = out.transpose(1, 2).reshape(b, s, h * d)
+    torch.testing.assert_close(got.float(), want, **BF16_TOL)
+    rel = _row_block_rel_l2(got, want)
+    assert rel.max().item() <= FLASH_32K_REL_L2, (rel.max().item(), int(rel.argmax()))
+
+
+@pytest.mark.parametrize("causal,window,s", [(True, None, 1500), (True, 300, 1500),
+                                             (False, None, 1100)])
+def test_chunked_mha_on_card_matches_the_cpu_at_f32(cuda, causal, window, s):
+    from repro_torch.models.attention import chunked_mha
+    cfg = _chunked_cfg(causal, window)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, s, 4, 64, generator=g) for _ in range(3))
+    want = chunked_mha(q, k, v, cfg)
+    got = chunked_mha(q.to(cuda), k.to(cuda), v.to(cuda), cfg)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, **F32_TOL)

@@ -28,6 +28,7 @@ from repro.models import model as jmodel
 from repro.models import moe as jmoe
 from repro.serving.batching import GenRequest as JaxGenRequest
 from repro.serving.engine import ContinuousEngine as JaxContinuousEngine
+from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
@@ -177,9 +178,20 @@ def test_apply_moe_policy_and_rejects():
     close(tmoe.apply_moe(pt, x, tc)[0], tmoe.apply_moe(pt, x, tc, impl="gmm")[0], dict(atol=0, rtol=0))
     with pytest.raises(ValueError, match="allowed impls"):
         tmoe.apply_moe(pt, x, tc, impl="einsum")
-    _, tsh = configs(ARCH, moe_dispatch_constraints=True, shard_activations=True)
-    with pytest.raises(NotImplementedError, match="sharded activations"):
-        tmoe.apply_moe(pt, x, tsh)
+    # the sharded dispatch: under an ambient mesh whose "model" axis divides
+    # the experts the port takes repro's constrained branch (its constraints
+    # move no number), and its output equals repro's, which has no mesh here
+    jsh, tsh = configs(ARCH, moe_dispatch_constraints=True, shard_activations=True)
+    pj, pt = _moe_params(jsh)
+    xs = _x(2, 5, tc.d_model, seed=5)
+    mesh = AbstractMesh((2, tc.n_experts), ("data", "model"))
+    with mesh:
+        assert tmoe._expert_parallel(tsh)
+        yt, at = tmoe.apply_moe(pt, torch.from_numpy(xs), tsh)
+    assert not tmoe._expert_parallel(tsh)
+    yj, aj = jmoe.apply_moe(pj, jnp.asarray(xs), jsh)
+    close(yt, yj)
+    close(at["lb_loss"], aj["lb_loss"])
 
 
 # --- whole model ----------------------------------------------------------------------------
