@@ -10,7 +10,9 @@ Run from the root of a checkout on a machine with one CUDA card. It
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (flash and paged attention also at head_dim 8 and
-   160, flash not causal at hubert-xlarge's head_dim 80, ``moe_gmm`` at
+   160, flash not causal at hubert-xlarge's head_dim 80 and at one tensor-
+   parallel rank's shape of qwen2.5-3b, 8 query heads on one KV head,
+   ``moe_gmm`` at
    deepseek-v2-lite-16b's 64 experts of 1408) and times kernel, plain
    version and a library yardstick (CUDA events); the rmsnorm kernel's three forms (plain, residual add, Mamba2
    gate) at rows 1 to 777 of every width the configs norm, the residual
@@ -64,6 +66,23 @@ Run from the root of a checkout on a machine with one CUDA card. It
    p50/p95, migrations by kind, bytes and walls print), and the storm with
    ``executor="sharded-serving"``, whose factory builds its smoke replica
    on the card;
+6c. runs tensor parallelism on the same weights (the ``tp`` phase): two
+   ranks on the one card (``spawn_tp``; gloo, as ``backend_for`` rules for
+   ranks that share a card) each build full-width, full-depth qwen2.5-3b in
+   bf16 from ``--seed`` and keep half (query heads, the replicated KV head,
+   ``d_ff``, the vocabulary); rank 0 serves 4 requests of 128 + 16 new at
+   TP 2 with the collectives timed, then again shrinking 2 -> 1 after 4
+   steps and growing 1 -> 2 after 4 more (``migrate``); held against the
+   one-rank ``ElasticReplica`` on the same weights in this process: the
+   float32 prefills of the served bf16 values within ``SLICE_TOL``, each
+   admission's bf16 logits no farther from them than the one-rank leg's
+   (``tp_bf16_logits``), the streams equal or split only where the
+   one-rank leg's top-2 margin is within the legs' logit disagreement
+   (``near_tie_rule``), each rank's launches as counted, the records'
+   bytes as counted from the shapes, both ranks' peak memory under
+   ``TP_PEAK_LIMIT``; the steps' walls, the collectives' share, each
+   resize's wall and bytes gathered or shipped print; then a group of one
+   rank takes NCCL and runs an all-reduce and a broadcast;
 7. frees those weights and serves 8 requests of full-width mixtral-8x22b
    cut to 4 of its 56 layers (bf16 weights from ``--seed``) through
    ``ContinuousEngine`` under ``kernel_impls="auto"``, checks the launch
@@ -913,6 +932,10 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
     cases += [(1, 48, 8, 512, 128, True, None, torch.bfloat16)]
     # hubert-xlarge's encoder: 16 heads of 80, not causal
     cases += [(1, 16, 16, 512, 80, False, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    # one rank of qwen2.5-3b on 2 ranks (the tp phase): 8 query heads on its
+    # one KV head
+    cases += [(1, 8, 1, s, 128, True, None, dt) for s in (128, 512)
+              for dt in (torch.float32, torch.bfloat16)]
     for b, h, kv, s, dd, causal, window, dtype in cases:
         q, k, v = qkv(b, h, kv, s, dd, dtype)
         name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
@@ -931,12 +954,14 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
         print(f"check {name}: max abs err {err:.3e} (atol={TOL[dtype][0]} "
               f"rtol={TOL[dtype][1]}){tiles}")
         results["flash_attention"]["err"] = max(results["flash_attention"]["err"], err)
+    timed = {}
     # timing at the prefill shapes of zamba2's shared block (32 heads of 80),
-    # of hubert's encoder (16 heads of 80, not causal) and, for the kernels
-    # line, of qwen2.5-3b
+    # of hubert's encoder (16 heads of 80, not causal), of one rank of
+    # qwen2.5-3b on 2 ranks and, for the kernels line, of qwen2.5-3b
     for label, (b, h, kv, s, dd), causal in (
             ("flash_attention head_dim 80", (1, 32, 32, 512, 80), True),
             ("flash_attention non-causal head_dim 80", (1, 16, 16, 512, 80), False),
+            ("flash_attention tp rank", (1, 8, 1, 512, 128), True),
             ("flash_attention", (1, 16, 2, 512, 128), True)):
         q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
         k_rep = k.repeat_interleave(h // kv, dim=1)
@@ -950,7 +975,9 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
                  shape=f"q ({b},{h},{s},{dd}) kv {kv} {'causal' if causal else 'not causal'} "
                        f"bf16; library: SDPA, K/V repeated")
         report(label, t)
+        timed[label] = t
     results["flash_attention"].update(t)
+    results["flash_attention"]["tp_rank"] = timed["flash_attention tp rank"]
     return results["flash_attention"]
 
 
@@ -1464,22 +1491,27 @@ ELASTIC_STORM_DURATION, ELASTIC_REGISTRY_DURATION = 600.0, 300.0
 
 
 class _CountPrefills:
-    """Counts ``ContinuousEngine._prefill`` calls on every engine, the fresh
-    engines a resize builds included, while the block runs."""
+    """Counts ``ContinuousEngine._prefill`` calls (``n``) and decode steps
+    (``steps``) on every engine, the fresh engines a resize builds
+    included, while the block runs."""
 
     def __enter__(self):
         from repro_torch.serving.engine import ContinuousEngine
-        self.n, self._cls = 0, ContinuousEngine
-        self._orig = ContinuousEngine._prefill
+        self.n, self.steps, self._cls = 0, 0, ContinuousEngine
+        self._orig = ContinuousEngine._prefill, ContinuousEngine._decode_active
 
         def counted(engine, context):
             self.n += 1
-            return self._orig(engine, context)
-        ContinuousEngine._prefill = counted
+            return self._orig[0](engine, context)
+
+        def stepped(engine, pos):
+            self.steps += 1
+            return self._orig[1](engine, pos)
+        ContinuousEngine._prefill, ContinuousEngine._decode_active = counted, stepped
         return self
 
     def __exit__(self, *exc):
-        self._cls._prefill = self._orig
+        self._cls._prefill, self._cls._decode_active = self._orig
 
 
 def _common_prefix(a, b) -> int:
@@ -1737,6 +1769,337 @@ def elastic_platform_run(tag: str, sc, executor=None):
         raise AssertionError(f"{tag}: {len(replica.migrations)} replica migrations != "
                              f"{m.total('gang_migrations_total')} gang migrations")
     return out, counts
+
+
+TP_REQ, TP_PROMPT, TP_NEW, TP_SLOTS, TP_SEQ = 4, 128, 16, 4, 256
+TP_SHRINK_AFTER, TP_GROW_AFTER = 4, 4   # decode steps before the shrink, then before the grow
+TP_PEAK_LIMIT = 40e9                    # both ranks' peak device memory together
+
+
+def record_rows(engine, rows: dict) -> None:
+    """Keep every logits row ``engine`` picks a token from, keyed (request
+    id, index of the token in its stream), on the host at float32."""
+    vocab = engine.cfg.vocab_size
+    into_slot, decode = engine._context_into_slot, engine._decode_active
+
+    def admitted(slot, req, context):
+        logits = into_slot(slot, req, context)
+        if logits is not None:
+            rows[req.id, len(req.generated)] = logits[0, :vocab].float().cpu()
+        return logits
+
+    def stepped(pos):
+        logits = decode(pos)
+        for slot, req in engine.batcher.active().items():
+            rows[req.id, len(req.generated)] = logits[slot, :vocab].float().cpu()
+        return logits
+
+    engine._context_into_slot, engine._decode_active = admitted, stepped
+
+
+def near_tie_rule(tag: str, got: dict, ref: dict, got_rows: dict, ref_rows: dict) -> dict:
+    """Streams ``got`` against the one-rank leg's ``ref``: equal, or each
+    request diverging only where the one-rank leg's top-2 margin is within
+    the legs' measured logit disagreement (the largest difference of two
+    rows picked after the same context). Returns the disagreement and the
+    divergences."""
+    same_context = [k for k in ref_rows if k in got_rows
+                    and got[k[0]][:k[1]] == ref[k[0]][:k[1]]]
+    disagreement = max(float((got_rows[k] - ref_rows[k]).abs().max()) for k in same_context)
+    divergences = []
+    for rid, want in ref.items():
+        i = _common_prefix(got[rid], want)
+        if i == len(want) and len(got[rid]) == len(want):
+            continue
+        top2 = torch.topk(ref_rows[rid, i], 2).values
+        margin = float(top2[0] - top2[1])
+        divergences.append({"request": rid, "index": i, "got": got[rid][i], "one_rank": want[i],
+                            "one_rank_margin": margin,
+                            "got_logit_gap": float(got_rows[rid, i][got[rid][i]]
+                                                   - got_rows[rid, i][want[i]])})
+        if margin > disagreement:
+            raise AssertionError(f"{tag}: request {rid} diverges at token {i} ({got[rid][i]} "
+                                 f"against {want[i]}) where the one-rank leg's top-2 margin "
+                                 f"{margin} exceeds the legs' disagreement {disagreement}")
+    print(f"{tag}: rows of the same context {len(same_context)}, largest logit difference "
+          f"{disagreement:.4e}; divergences {divergences or 'none'}")
+    return {"disagreement": disagreement, "divergences": divergences}
+
+
+def tp_bf16_logits(tag: str, tp: torch.Tensor, one: torch.Tensor, f32: torch.Tensor) -> dict:
+    """One admission's bf16 logits of the TP leg and of the one-rank leg,
+    each beside the float32 prefill on the same (bf16) weights. Two bf16
+    programs that round in other places (cuBLAS picks its kernels by the
+    per-rank shapes) part by bf16 noise amplified over 36 layers: the legs
+    differ element-wise by up to ~6e-2, beyond the one-kernel bf16
+    tolerance at a few logits near 0 (recorded, not gated; ROADMAP §3),
+    while each is ~1.5% (relative L2) from float32. The gate: the TP leg no
+    farther from float32 than the one-rank leg, but for the bf16
+    tolerance's 5e-2 of that distance."""
+    d = (tp - one).abs()
+    tol = TOL[torch.bfloat16]
+    beyond = int((d > tol[0] + tol[1] * one.abs()).sum())
+    out = {"max_abs": float(d.max()), "beyond_bf16_tol": beyond,
+           "rel_l2": float(d.norm() / one.norm()),
+           "tp_to_f32_rel_l2": float((tp - f32).norm() / f32.norm()),
+           "one_to_f32_rel_l2": float((one - f32).norm() / f32.norm()),
+           "tp_to_f32_max_abs": float((tp - f32).abs().max()),
+           "one_to_f32_max_abs": float((one - f32).abs().max())}
+    print(f"{tag} admission logits bf16: TP 2 against one rank max abs {out['max_abs']:.4e} "
+          f"({out['beyond_bf16_tol']} of {d.numel()} beyond atol={tol[0]} rtol={tol[1]}), rel "
+          f"L2 {out['rel_l2']:.4e}; against the float32 prefill: TP 2 "
+          f"{out['tp_to_f32_max_abs']:.4e} / rel L2 {out['tp_to_f32_rel_l2']:.4e}, one rank "
+          f"{out['one_to_f32_max_abs']:.4e} / "
+          f"rel L2 {out['one_to_f32_rel_l2']:.4e}; |logit| max {float(f32.abs().max()):.3f}")
+    if out["tp_to_f32_rel_l2"] > out["one_to_f32_rel_l2"] * (1 + tol[1]):
+        raise AssertionError(f"{tag}: the TP leg's bf16 logits are farther from float32 "
+                             f"({out['tp_to_f32_rel_l2']:.4e}) than the one-rank leg's "
+                             f"({out['one_to_f32_rel_l2']:.4e}) allow")
+    return out
+
+
+def tp_rank(tp, seed: int, prompts) -> dict:
+    """One rank of the tp phase (started by ``spawn_tp``): full-width,
+    full-depth qwen2.5-3b from the seeded ``init_params`` (bf16, the values
+    of the one-rank leg's bf16 copy), this rank's shard kept, the rest
+    freed. Rank 0 drives the replica: leg A serves the requests at 2
+    ranks with the collectives timed (a synchronisation around each), leg
+    B serves them again, shrinking 2 -> 1 after ``TP_SHRINK_AFTER`` steps
+    and growing 1 -> 2 ``TP_GROW_AFTER`` steps later; rank 1 follows. Each
+    rank returns its launches (read just after the legs), passes and peak
+    memory; rank 0 also the streams, the logits rows and the resizes."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(with_kernel_impls(get_config("qwen2.5-3b"), "auto"),
+                              param_dtype="bfloat16")
+    out = {"rank": tp.rank, "backend": tp.backend, "device": str(tp.device)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), tp.device)
+    rep = ElasticReplica(cfg, full, 2, n_slots=TP_SLOTS, max_seq=TP_SEQ, tp=tp)
+    del full
+    gc.collect()
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, init_peak_bytes=torch.cuda.max_memory_allocated(),
+               shard_bytes=M.nbytes(rep.params), whole_bytes=rep.param_bytes)
+    reset_launch_counts()
+    tpar.reset_stats()
+    peak = [out["init_peak_bytes"]]
+    with _CountPrefills() as passes:
+        if tp.rank != 0:
+            rep.follow()
+        else:
+            legs = {}
+            for leg in ("A", "B"):
+                rows, walls, coll, resizes = {}, [], [], []
+                tpar.time_collectives(leg == "A")
+                record_rows(rep.engine, rows)
+                reqs = [GenRequest(id=i, prompt=p, max_new=TP_NEW) for i, p in enumerate(prompts)]
+                for r in reqs:
+                    rep.add(r)
+                plan = ({TP_SHRINK_AFTER: 1, TP_SHRINK_AFTER + TP_GROW_AFTER: 2}
+                        if leg == "B" else {})
+                steps = 0
+                while rep.batcher.active():
+                    if steps in plan:
+                        torch.cuda.synchronize()
+                        mem0 = torch.cuda.memory_allocated()
+                        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+                        torch.cuda.reset_peak_memory_stats()
+                        rec = rep.resize(plan.pop(steps))
+                        torch.cuda.synchronize()
+                        resizes.append({"record": dataclasses.asdict(rec), **rep.last_resize,
+                                        "allocated_before_bytes": mem0,
+                                        "allocated_after_bytes": torch.cuda.memory_allocated(),
+                                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                                        "param_devices": sorted({str(t.device) for t in
+                                                                 M.tree_leaves(rep.params)})})
+                        record_rows(rep.engine, rows)
+                    c0 = tpar.STATS["seconds"]
+                    t = time.perf_counter()
+                    rep.step()   # ends in a host copy of the picked tokens
+                    walls.append((rep.mesh_size, 1e3 * (time.perf_counter() - t)))
+                    coll.append(1e3 * (tpar.STATS["seconds"] - c0))
+                    steps += 1
+                legs[leg] = {"streams": {r.id: list(r.generated) for r in rep.run()}, "rows": rows,
+                             "step_ms": walls, "collective_ms": coll, "resizes": resizes}
+            tpar.time_collectives(False)
+            rep.close()
+            out["legs"] = legs
+        out["counts"], out["forms"] = launch_counts(), rmsnorm_form_counts()
+    out["passes"] = {"prefills": passes.n, "steps": passes.steps}
+    out["collectives"] = dict(tpar.STATS)
+    out["peak_bytes"] = max(peak[0], torch.cuda.max_memory_allocated())
+    # float32 prefills on the same (bf16-valued) shards, every rank: the
+    # logits the one-rank leg's float32 prefill is held against
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    out["f32_logits"] = [M.prefill(rep.params, {"tokens": torch.tensor([p], device=tp.device)},
+                                   c32, rep.mesh.tp)[0][0, :cfg.vocab_size].cpu()
+                         for p in prompts]
+    if tp.rank == 0:
+        # the flash kernel at this rank's prefill shape against its plain
+        # version (after the counts: a comparison is no launch of the path)
+        from repro_torch.kernels.ops import flash_attention_op
+        from repro_torch.kernels.ref import flash_attention_ref
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+        q, k, v = (torch.randn(1, TP_PROMPT, n, 128, device="cuda", generator=gen)
+                   .to(torch.bfloat16).transpose(1, 2) for n in (8, 1, 1))
+        out["flash_err"] = check_close("tp rank flash (b=1,h=8,kv=1,s=128,d=128) bf16",
+                                       flash_attention_op(q, k, v, causal=True),
+                                       flash_attention_ref(q, k, v, causal=True),
+                                       TOL[torch.bfloat16])
+    del rep
+    return out
+
+
+def nccl_rank(tp) -> dict:
+    """A group of one rank with a card of its own: ``backend_for`` picks
+    NCCL; one all-reduce and one broadcast on the card through it."""
+    import torch.distributed as dist
+    x = torch.arange(8, dtype=torch.float32, device=tp.device)
+    dist.all_reduce(x, group=tp.group)
+    dist.broadcast(x, src=0, group=tp.group)
+    torch.cuda.synchronize()
+    return {"backend": tp.backend, "devices": [str(d) for d in tp.devices],
+            "nccl_version": str(torch.cuda.nccl.version()),
+            "sum": float(x.sum())}
+
+
+def tp_phase(cfg, params, seed: int):
+    """Physical tensor parallelism on the card: two ranks on the one card
+    (gloo, by ``backend_for``) serve full-width, full-depth qwen2.5-3b at
+    TP 2 (leg A), and again shrinking 2 -> 1 and growing 1 -> 2 mid-stream
+    with ``migrate`` (leg B), against the one-rank replica on the same
+    weights in this process: the admission logits within the bf16
+    tolerance, the streams equal or split only at a near tie
+    (:func:`near_tie_rule`); the kernels' launches on each rank as
+    counted; both ranks' peak memory together at most ``TP_PEAK_LIMIT``;
+    then a group of one rank over NCCL. Returns (launches by path, the
+    phase's numbers)."""
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    prompts = rng.integers(0, cfg.vocab_size, size=(TP_REQ, TP_PROMPT)).tolist()
+    print(f"tp: {cfg.arch_id} full width and depth, {TP_REQ} requests of {TP_PROMPT} + "
+          f"{TP_NEW} new, {TP_SLOTS} slots, max_seq {TP_SEQ}; 2 ranks on one card, a rank "
+          f"{cfg.n_heads // 2} query heads on {max(1, cfg.n_kv_heads // 2)} KV head, d_ff "
+          f"{cfg.d_ff // 2}, vocabulary {cfg.vocab_padded // 2}")
+
+    # the one-rank leg: the existing replica in this process, same weights
+    rows, walls = {}, []
+    rep = ElasticReplica(cfg, params, 1, n_slots=TP_SLOTS, max_seq=TP_SEQ, device="cuda")
+    record_rows(rep.engine, rows)
+    reset_launch_counts()
+    with _CountPrefills() as prefills:
+        for i, p in enumerate(prompts):
+            rep.add(GenRequest(id=i, prompt=p, max_new=TP_NEW))
+        while rep.batcher.active():
+            t = time.perf_counter()
+            rep.step()
+            walls.append(1e3 * (time.perf_counter() - t))
+    counts, forms = launch_counts(), rmsnorm_form_counts()
+    one = {r.id: list(r.generated) for r in rep.run()}
+    steps = rep.engine.n_decode_steps
+    # float32 prefills on the bf16 values the engine serves
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    one32 = [M.prefill(rep.engine.params, {"tokens": torch.tensor([p], device="cuda")},
+                       c32)[0][0, :cfg.vocab_size].cpu() for p in prompts]
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {"tp one rank": check_counts(
+        "tp one rank", cfg, counts, forms,
+        dict(forward_counts(cfg, prefills.n + steps), flash_attention=cfg.n_layers * prefills.n),
+        prefills.n + steps)}
+
+    t1 = time.perf_counter()
+    ranks = spawn_tp(tp_rank, 2, device="cuda:0", args=(seed, prompts), timeout=300)
+    spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    for r in ranks:
+        n = r["passes"]["prefills"] + r["passes"]["steps"]
+        paths[f"tp rank {r['rank']}"] = check_counts(
+            f"tp rank {r['rank']}", cfg, r["counts"], r["forms"],
+            dict(forward_counts(cfg, n), flash_attention=cfg.n_layers * r["passes"]["prefills"]),
+            n)
+        print(f"tp rank {r['rank']}: backend {r['backend']} on {r['device']}, init "
+              f"{r['init_s']:.2f} s, shard {r['shard_bytes']} of {r['whole_bytes']} parameter "
+              f"bytes, peak {r['peak_bytes']} bytes (init {r['init_peak_bytes']}), passes "
+              f"{r['passes']}, collectives {r['collectives']}")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"tp: two ranks on one card took {r['backend']}, not gloo")
+    peak = sum(r["peak_bytes"] for r in ranks)
+    print(f"tp: both ranks' peak device memory {peak} bytes (limit {TP_PEAK_LIMIT:.0f})")
+    if peak > TP_PEAK_LIMIT:
+        raise AssertionError(f"tp: the ranks' peaks {peak} bytes exceed {TP_PEAK_LIMIT:.0f}")
+
+    kv_total = elastic_shape_bytes(cfg, TP_SLOTS, TP_SEQ)[1]
+    out = {"one_rank_step_ms": statistics.median(walls), "spawn_s": spawn_s, "peak_bytes": peak,
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks], "flash_err": r0["flash_err"],
+           "shard_bytes": [r["shard_bytes"] for r in ranks]}
+    f32_err = [check_close(f"tp f32 prefill request {rid}, 2 ranks against one",
+                           r0["f32_logits"][rid], one32[rid], SLICE_TOL) for rid in range(TP_REQ)]
+    print(f"tp: float32 prefill logits on the served bf16 values, 2 ranks against one: max abs "
+          f"err {max(f32_err):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
+    for leg, label in (("A", "tp 2"), ("B", "tp 2 -> 1 -> 2")):
+        got = r0["legs"][leg]
+        bf16 = [tp_bf16_logits(f"tp leg {leg} request {rid}", got["rows"][rid, 0], rows[rid, 0],
+                               one32[rid]) for rid in range(TP_REQ)]
+        rule = near_tie_rule(f"tp leg {leg} ({label})", got["streams"], one, got["rows"], rows)
+        tp2 = [ms for size, ms in got["step_ms"] if size == 2]
+        tp1 = [ms for size, ms in got["step_ms"] if size == 1]
+        summary = {"streams_equal": got["streams"] == one, **rule, "admission_logits": bf16,
+                   "step_ms_tp2": statistics.median(tp2),
+                   "step_ms_tp1": statistics.median(tp1) if tp1 else None,
+                   "resizes": got["resizes"]}
+        if leg == "A":
+            summary["collective_ms_per_step"] = statistics.median(got["collective_ms"])
+            summary["collective_share"] = sum(got["collective_ms"]) / sum(tp2)
+        out[f"leg_{leg}"] = summary
+        print(f"tp leg {leg} ({label}): decode step median {summary['step_ms_tp2']:.2f} ms at "
+              f"2 ranks, {summary['step_ms_tp1']} ms at 1 (the one-rank leg "
+              f"{out['one_rank_step_ms']:.2f} ms)" + (
+                  f"; collectives {summary['collective_ms_per_step']:.2f} ms a step, "
+                  f"{summary['collective_share']:.3f} of the steps (a synchronisation "
+                  f"around each)" if leg == "A" else ""))
+        if any(len(t) != TP_NEW for t in (*got["streams"].values(), *one.values())):
+            raise AssertionError(f"tp leg {leg}: a stream is not {TP_NEW} long")
+        for rz in got["resizes"]:
+            rec = rz["record"]
+            frac = abs(rec["n_before"] - rec["n_after"]) / max(rec["n_before"], rec["n_after"])
+            want = {"param_bytes": int(r0["whole_bytes"] * frac), "kv_bytes": int(kv_total * frac)}
+            if {k: rec[k] for k in want} != want:
+                raise AssertionError(f"tp leg {leg}: record bytes {rec} against the shapes' {want}")
+            print(f"tp leg {leg}: {rec['n_before']} -> {rec['n_after']} ranks, wall "
+                  f"{rec['wall_s'] * 1e3:.1f} ms, gathered {rz['gathered_bytes']} bytes, "
+                  f"shipped {rz['shipped_bytes']} bytes, record bytes {rec['param_bytes']} + "
+                  f"{rec['kv_bytes']}, allocated {rz['allocated_before_bytes']} -> "
+                  f"{rz['allocated_after_bytes']} (peak {rz['peak_bytes']}), parameters on "
+                  f"{rz['param_devices']}")
+            if rz["param_devices"] != ["cuda:0"]:
+                raise AssertionError(f"tp: parameters on {rz['param_devices']} after a resize")
+
+    nccl = spawn_tp(nccl_rank, 1, device="cuda:0", timeout=120)[0]
+    print(f"tp: a group of one rank on {nccl['devices']} took {nccl['backend']} (NCCL "
+          f"{nccl['nccl_version']}), all-reduce and broadcast sum {nccl['sum']}")
+    if nccl["backend"] != "nccl" or nccl["sum"] != 28.0:
+        raise AssertionError(f"tp: the NCCL group of one rank gave {nccl}")
+    out["nccl"] = nccl
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"tp: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s)")
+    return paths, out
 
 
 def moe_phase(seed: int):
@@ -3100,6 +3463,9 @@ def main(argv=None) -> int:
     serving.update(paged_serving)
     serving["platform"] = phase("platform", platform_phase, cfg, params, args.seed)
     elastic_counts, serving["elastic"] = phase("elastic", elastic_phase, cfg, params, args.seed)
+    tp_counts, serving["tp"] = phase("tp", tp_phase, cfg, params, args.seed)
+    serving["tp"]["flash_rank_shape"] = {k: kern["flash_attention"]["tp_rank"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")}
     serving["slice_score"] = phase("dense score", score_leg, "slice", cfg, params, args.seed)
     long_counts, serving["long_prompt"] = phase("long prompt", long_prompt_phase, cfg, params,
                                                 args.seed)
@@ -3131,7 +3497,7 @@ def main(argv=None) -> int:
     paths = {"dense": counts, "paged": paged_counts,
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
-             **{f"elastic {k}": v for k, v in elastic_counts.items()},
+             **{f"elastic {k}": v for k, v in elastic_counts.items()}, **tp_counts,
              "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
              "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
              "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,

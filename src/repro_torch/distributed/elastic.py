@@ -8,10 +8,14 @@ fault-tolerance story for losing (or gaining) members mid-run: write, resize,
 restore, continue; the deterministic data pipeline guarantees identical batch
 order afterwards.
 
-The port places each leaf whole on its mesh's one device
-(:func:`repro_torch.distributed.sharding.mesh_device`); a mesh over
-more than one distinct device raises ``NotImplementedError`` rather than
-fall back to anything.
+Placement follows the mesh. A mesh that a tensor-parallel group covers
+(``distributed.tensor_parallel``, one rank a device) gives each rank its
+head-aligned shard of every leaf
+(:func:`repro_torch.distributed.sharding.local_shard`) on the rank's
+device; a mesh without a group places each leaf whole on its one device
+(:func:`repro_torch.distributed.sharding.mesh_device`), and one over
+several distinct devices that no group covers raises
+``NotImplementedError`` rather than fall back to anything.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import mesh_device, param_shardings
+from repro_torch.distributed.sharding import (local_shard, map_with_names, mesh_device,
+                                             param_shardings)
 from repro_torch.models.model import tree_map
 
 
@@ -45,11 +50,17 @@ def reshard_in_place(params: Any, cfg: ModelConfig, mesh) -> Any:
     device. This is the elastic *serving* resize — a gang losing (or
     gaining) a member inside its SIGTERM grace reshards the full parameter
     set onto the survivors instead of writing and re-reading a
-    checkpoint. Every leaf's sharding names the mesh's one device, so the
-    port moves each leaf there; the spec rules matter only once a mesh
-    spans several cards, which raises here before any copy."""
+    checkpoint. ``params`` is the whole tree. Over a mesh that a group
+    covers, each rank keeps its own :func:`local_shard` of every leaf, on its
+    device (a sliced leaf is a copy of its own, so the whole one can be
+    freed); without a group every leaf moves whole to the mesh's one
+    device."""
     dev = mesh_device(mesh)
-    return tree_map(lambda leaf: _place(leaf, dev), params)
+    tp = getattr(mesh, "tp", None)
+    if tp is None or tp.size == 1:
+        return tree_map(lambda leaf: _place(leaf, dev), params)
+    return map_with_names(lambda names, leaf: _place(local_shard(leaf, names, cfg, tp), dev),
+                          params)
 
 
 def dp_degree(mesh) -> int:

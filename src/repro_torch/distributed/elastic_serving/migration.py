@@ -26,6 +26,18 @@ every wire leaf is a copy: ``.cpu()`` of a CPU tensor is the tensor itself,
 which would leave the transplanted cache sharing storage with the old
 engine's. The sampling stream crosses the resize as the engine's
 ``torch.Generator`` object.
+
+Over a tensor-parallel group (a replica built with ``tp``) the resize is
+physical inside a fixed world of ranks, the active gang being the first
+``min(n, world)`` of them. A shrink gathers every sharded parameter and
+cache leaf over the old gang (``sharding.gather_shards``), the survivors cut
+their new shards from the whole leaves and the leaving ranks drop
+everything. A grow gathers the same way, then rank 0 sends each joining
+rank its shards (a broadcast over the new gang), with the decode state it
+adopts. ``migrate_int8`` rounds the gathered, whole cache through the wire
+format, as ``repro`` rounds its global cache. The :class:`MigrationRecord`
+keeps ``repro``'s logical accounting (its bytes equal ``repro``'s records);
+the bytes that crossed the group are the replica's ``last_resize``.
 """
 from __future__ import annotations
 
@@ -35,9 +47,12 @@ from typing import Any, List
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.distributed.compression import dequantize, quantize
 from repro_torch.distributed.elastic_serving.mesh import tree_bytes
-from repro_torch.models.model import tree_leaves, tree_map
+from repro_torch.distributed.sharding import (gather_shards, local_shard, map_with_names,
+                                             tp_split)
+from repro_torch.models.model import cache_spec, tree_leaves, tree_map
 
 KV_MODES = ("replay", "migrate", "migrate_int8")
 
@@ -105,6 +120,8 @@ class MigrationProtocol:
         self.kv_mode = kv_mode
 
     def migrate(self, replica, n_after: int) -> MigrationRecord:
+        if replica.tp is not None:
+            return self._migrate_group(replica, n_after)
         from repro_torch.distributed.elastic import reshard_in_place
         from repro_torch.distributed.elastic_serving.mesh import serving_mesh
         t0 = time.perf_counter()
@@ -175,3 +192,131 @@ class MigrationProtocol:
             wire_bytes=param_bytes + kv_wire,
             n_requests_live=len(live) + len(waiting),
             wall_s=time.perf_counter() - t0)
+
+    def _migrate_group(self, replica, n_after: int) -> MigrationRecord:
+        """The physical resize of a replica over a tensor-parallel group;
+        every rank of the world calls it (see the module docstring)."""
+        t0 = time.perf_counter()
+        cfg, world = replica.cfg, replica.tp
+        old_tp, engine, first_joiner = replica.mesh.tp, replica.engine, replica.mesh_size
+        n_before = replica.n_members
+        frac = abs(n_before - n_after) / max(n_before, n_after, 1)
+        spec = cache_spec(cfg, replica.n_slots, replica.max_seq)   # the whole cache
+        param_bytes = int(replica.param_bytes * frac)
+        kv_bytes = int(tree_bytes(spec) * frac)
+        kv_wire = {"replay": 0, "migrate": kv_bytes,
+                   "migrate_int8": int(int8_wire_bytes(spec) * frac)}[self.kv_mode]
+        transplant = self.kv_mode != "replay"
+
+        # --- pause: the old gang snapshots its (equal) decode state, gathers
+        # every leaf whole and lets go of its shards
+        state, whole, gathered = None, (None, None), 0
+        if engine is not None:
+            b = engine.batcher
+            state = {"finished": list(b.finished), "live": len(b.active()) + len(b.waiting),
+                     "counters": (engine.n_decode_steps, engine.n_emitted,
+                                  engine.n_slot_steps, engine.prefill_tokens)}
+            if transplant:
+                state.update(slots=list(b.slots), waiting=list(b.waiting),
+                             positions=engine.positions.copy(), last_tok=engine.last_tok.copy(),
+                             gen_state=engine._gen.get_state())
+            else:
+                state["replay"] = engine.drain()
+            trees = (replica.params, engine.cache if transplant else None)
+            gathered = (old_tp.size - 1) * sum(_split_bytes(t, cfg, c)
+                                               for t, c in zip(trees, (False, True)) if t)
+            whole = tuple(None if t is None else
+                          map_with_names(lambda n, x, c=c: gather_shards(x, n, cfg, old_tp, c), t)
+                          for t, c in zip(trees, (False, True)))
+            if self.kv_mode == "migrate_int8":
+                whole = (whole[0], tree_map(lambda c: c.to(old_tp.device), _through_int8(whole[1])))
+            rng = engine._gen
+        replica.engine = replica.params = engine = trees = None
+
+        # --- the new gang: every rank makes the subgroup; rank 0's state and
+        # the leaves' shapes go to every rank, for the ones that join
+        new_mesh = replica._mesh(n_after)
+        new_tp = new_mesh.tp
+        shipped = None
+        if world.rank == 0:
+            shipped = dict(state, skeleton=tuple(
+                None if t is None else map_with_names(lambda n, x: (tuple(x.shape), x.dtype), t)
+                for t in whole))
+        shipped = tpar.broadcast_object(shipped)
+        was_out = state is None   # this rank held no shard before the resize
+        if was_out:
+            state = shipped
+        replica.mesh, replica.n_members = new_mesh, n_after
+        sent = 0
+        if new_tp is not None:
+            shards = []
+            for tree, skel, c in zip(whole, shipped["skeleton"], (False, True)):
+                got, n = (None, 0) if skel is None else _ship(tree, skel, cfg, new_tp, c,
+                                                               first_joiner)
+                shards.append(got)
+                sent += n
+            replica.params = shards[0]
+            new_engine = replica._fresh_engine()
+            new_engine.batcher.finished = state["finished"]
+            if transplant:
+                new_engine.cache = tree_map(lambda z, x: x.to(device=z.device, dtype=z.dtype),
+                                            new_engine.cache, shards[1])
+                new_engine.batcher.slots = state["slots"]
+                new_engine.batcher.waiting = state["waiting"]
+                new_engine.positions = state["positions"]
+                new_engine.last_tok = state["last_tok"]
+                if was_out:
+                    new_engine._gen.set_state(state["gen_state"])
+                else:
+                    new_engine._gen = rng
+            else:
+                for req in state["replay"]:
+                    new_engine.add(req)
+            (new_engine.n_decode_steps, new_engine.n_emitted,
+             new_engine.n_slot_steps, new_engine.prefill_tokens) = state["counters"]
+            replica.engine = new_engine
+        replica.last_resize = {"gathered_bytes": gathered, "shipped_bytes": sent}
+        return MigrationRecord(
+            n_before=n_before, n_after=n_after, kv_mode=self.kv_mode,
+            param_bytes=param_bytes, kv_bytes=kv_bytes, wire_bytes=param_bytes + kv_wire,
+            n_requests_live=state["live"], wall_s=time.perf_counter() - t0)
+
+
+def _split_bytes(tree: Any, cfg, cache: bool) -> int:
+    """Bytes of the leaves of ``tree`` that are split over the ranks."""
+    return sum(tree_leaves(map_with_names(
+        lambda n, t: t.numel() * t.element_size() if tp_split(n, cache) else 0, tree)))
+
+
+def _at(tree: Any, names) -> Any:
+    for k in names:
+        tree = tree[k]
+    return tree
+
+
+def _ship(whole: Any, skeleton: Any, cfg, tp, cache: bool, first_joiner: int):
+    """(this rank's shards of the new gang ``tp``, the bytes rank 0 sent to
+    the joining ranks). A rank of the old gang (``whole`` not None) cuts its
+    own from the whole leaves; rank 0 sends every rank from ``first_joiner``
+    on its shard of each leaf, one broadcast over ``tp`` a leaf and joining
+    rank, in the order of ``skeleton`` ((shape, dtype) of every whole leaf)
+    on every rank."""
+    shipped = [0]
+
+    def one(names, meta):
+        shape, dtype = meta
+        mine = None if whole is None else local_shard(_at(whole, names), names, cfg, tp, cache)
+        for j in range(first_joiner, tp.size):
+            if tp.rank == 0:
+                buf = local_shard(_at(whole, names), names, cfg, tp, cache, rank=j).contiguous()
+            else:
+                like = local_shard(torch.empty(shape, dtype=dtype, device="meta"), names, cfg,
+                                   tp, cache, rank=j)
+                buf = torch.empty(like.shape, dtype=dtype, device=tp.device)
+            tpar.broadcast_(buf, tp, src=0)
+            shipped[0] += buf.numel() * buf.element_size()
+            if tp.rank == j:
+                mine = buf
+        return mine
+
+    return map_with_names(one, skeleton), shipped[0]

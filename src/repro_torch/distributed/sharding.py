@@ -12,16 +12,34 @@ torch has no GSPMD, so the port brings its own small mesh types in place of
 object array of ``torch.device`` and its axis names), :class:`AbstractMesh`
 (axis sizes, no devices) and :class:`NamedSharding`. The rules and the spec
 functions are ``repro``'s line for line; a spec tree here equals ``repro``'s
-as tuples. Placement (``distributed.elastic``) puts a whole leaf on its
-mesh's one device: a mesh over more than one distinct device raises.
+as tuples.
+
+Placement. A mesh that a :class:`~repro_torch.distributed.tensor_parallel.TPGroup`
+covers (``Mesh(..., tp=group)``, one rank a device) places each rank's
+shard on that rank's device (:func:`mesh_device`); the ranks run the model
+SPMD and meet at explicit collectives. The shard is head-aligned
+(:func:`local_shard`): the columns of ``wq``/``bq`` of the rank's query
+heads, the columns of ``wk``/``wv``/``bk``/``bv`` of its KV heads, the rows
+of ``wo`` of its query heads, the columns of ``w_gate``/``w_up`` and the rows
+of ``w_down`` of its slice of ``d_ff``, the vocabulary rows of ``tokens`` and
+columns of ``lm_head``, and the cache's KV heads; norm scales stay whole.
+That is ``repro``'s spec on every leaf where a whole number of heads falls
+to each rank. Where there are fewer KV heads than ranks (qwen2.5-3b's one
+KV head at smoke size on 2 or 4 ranks, its two at full size on 4), ``repro``
+splits the KV head's columns across the ranks and GSPMD regathers them for
+the attention; the port replicates the KV head instead (rank ``r`` holds
+head ``r * n_kv_heads // size``), as Megatron does. The maths is the same.
+:func:`param_specs` and :func:`cache_specs` stay ``repro``'s, as the
+layout GSPMD would take. A mesh over several distinct devices that no
+group covers raises: there is nothing to run the shards.
 
 The sharded-activation path (``cfg.shard_activations``) calls
 :func:`maybe_shard` at ``repro``'s sites with ``repro``'s axes. torch has no
 GSPMD and so no ambient mesh of its own: ``with mesh:`` on one of the port's
 meshes makes it ambient (a ``contextvars`` stack), as ``with mesh:`` does in
 JAX. :func:`shard_spec` computes ``repro``'s cleaned constraint axis for
-axis; :func:`maybe_shard` computes it and returns its input unchanged, since
-a leaf lives whole on its mesh's one device.
+axis; :func:`maybe_shard` computes it and returns its input unchanged: it
+constrains nothing, and the tensor-parallel path splits its tensors itself.
 """
 from __future__ import annotations
 
@@ -30,7 +48,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
+from repro_torch.distributed.tensor_parallel import all_gather, device_key
 from repro_torch.models.model import tree_map
 
 
@@ -83,38 +103,36 @@ _AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_ambient_m
 
 class Mesh(AbstractMesh):
     """``devices``: an array of ``torch.device`` (any nesting), one axis of it
-    per name in ``axis_names``."""
+    per name in ``axis_names``. ``tp``: the tensor-parallel group whose
+    ranks, one a device, hold the mesh's shards (None: no group)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], tp=None):
         arr = np.asarray(devices, dtype=object)
         self.devices = np.vectorize(torch.device, otypes=[object])(arr)
+        self.tp = tp
         super().__init__(arr.shape, axis_names)
 
 
-def _canonical(d: torch.device) -> Tuple[str, Optional[int]]:
-    """``d`` as (type, index); a bare ``cuda`` is the current card, so
-    ``cuda`` and ``cuda:0`` on card 0 are one device."""
-    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
-        return d.type, torch.cuda.current_device()
-    return d.type, d.index
-
-
 def mesh_device(mesh: AbstractMesh) -> torch.device:
-    """The one device that holds a whole leaf on ``mesh``. The port places a
-    leaf on a single card; a mesh over several distinct devices would need
-    tensor parallelism across cards, which it does not have, so that
-    raises."""
+    """The device that holds this process's leaves on ``mesh``: this rank's
+    device when an initialised tensor-parallel group covers the mesh (one
+    rank a device), else the mesh's one device. A mesh over several
+    distinct devices that no group covers raises: a process holds one
+    device's shards, and without a group nothing runs the others."""
     devices = getattr(mesh, "devices", None)
     if devices is None:
         raise ValueError(f"{mesh} has no devices to place a leaf on")
-    distinct = {_canonical(d) for d in devices.flat}
+    tp = getattr(mesh, "tp", None)
+    if tp is not None and torch.distributed.is_initialized() and tp.size == devices.size:
+        return tp.device
+    distinct = {device_key(d) for d in devices.flat}
     if len(distinct) > 1:
         raise NotImplementedError(
             f"a mesh over {len(distinct)} distinct devices "
-            f"({sorted(str(d) for d in devices.flat)}) needs tensor "
-            f"parallelism across cards, which the port does not have yet "
-            f"(ROADMAP.md, section 1: physical tensor parallelism across "
-            f"several cards); a gang on one card uses a mesh of that card")
+            f"({sorted(str(d) for d in devices.flat)}) needs tensor parallelism across "
+            f"cards: an initialised TPGroup (repro_torch.distributed.tensor_parallel.init_tp) "
+            f"with one rank a device must cover it, and none does (ROADMAP.md, section 1, "
+            f"item 8); a gang on one card uses a mesh of that card")
     return devices.flat[0]
 
 
@@ -170,10 +188,11 @@ def maybe_shard(x, *axes):
     """Best-effort activation sharding constraint against the ambient mesh,
     as ``repro``'s: with no ambient mesh this is the identity, so model code
     calls it unconditionally. Under a mesh it computes the cleaned spec
-    (:func:`shard_spec`) and returns ``x`` unchanged: the port keeps a
-    tensor whole on the mesh's one device, and a mesh over several distinct
-    devices raises (:func:`mesh_device`). A mesh without devices (an
-    :class:`AbstractMesh`, as the dry run uses) only computes the spec."""
+    (:func:`shard_spec`) and returns ``x`` unchanged: a constraint moves no
+    tensor here (the tensor-parallel path splits its own), and a mesh over
+    several distinct devices that no group covers raises
+    (:func:`mesh_device`). A mesh without devices (an :class:`AbstractMesh`,
+    as the dry run uses) only computes the spec."""
     mesh = ambient_mesh()
     if mesh is None:
         return x
@@ -232,11 +251,11 @@ _EXPERT_RULES_TP = {  # experts replicated, FFN dim tensor-parallel
 }
 
 
-def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+def map_with_names(fn, tree, path: Tuple[str, ...] = ()):
     """``fn(path, leaf)`` over nested dicts; ``path`` is the tuple of keys
     (``repro``'s ``_path_names`` of a ``tree_map_with_path`` path)."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+        return {k: map_with_names(fn, v, path + (str(k),)) for k, v in tree.items()}
     return fn(path, tree)
 
 
@@ -256,7 +275,7 @@ def param_specs(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
             return P()
         return _fit(rule, shape, mesh)
 
-    return _map_with_path(spec, params_shape)
+    return map_with_names(spec, params_shape)
 
 
 def param_shardings(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
@@ -319,10 +338,89 @@ def cache_specs(cache_shape: Any, cfg, mesh: AbstractMesh,
             out[-1] = "model" if shape[-1] % m == 0 else None
         return P(*out)
 
-    return _map_with_path(spec, cache_shape)
+    return map_with_names(spec, cache_shape)
 
 
 def cache_shardings(cache_shape: Any, cfg, mesh: AbstractMesh,
                     global_batch: int, seq_shard: bool = False) -> Any:
     return tree_map(lambda s: NamedSharding(mesh, s),
                 cache_specs(cache_shape, cfg, mesh, global_batch, seq_shard))
+
+
+# --- the head-aligned shards of the tensor-parallel path ---------------------------------
+# leaf name -> (what splits, axis): q / kv heads in columns or rows of head_dim,
+# d_ff, the padded vocabulary; the cache's KV heads. Every other leaf is whole.
+_TP_SPLITS: Dict[str, Tuple[str, int]] = {
+    "wq": ("q", -1), "bq": ("q", -1), "wo": ("q", -2),
+    "wk": ("kv", -1), "bk": ("kv", -1), "wv": ("kv", -1), "bv": ("kv", -1),
+    "w_gate": ("ff", -1), "w_up": ("ff", -1), "w_down": ("ff", -2),
+    "tokens": ("vocab", -2), "lm_head": ("vocab", -1),
+}
+_TP_CACHE_SPLITS: Dict[str, Tuple[str, int]] = {"k": ("kv_heads", -2), "v": ("kv_heads", -2)}
+
+
+def tp_split(names: Sequence[str], cache: bool = False) -> Optional[Tuple[str, int]]:
+    """(what splits, axis) of the leaf at ``names`` under tensor
+    parallelism, or None for a leaf every rank holds whole."""
+    return (_TP_CACHE_SPLITS if cache else _TP_SPLITS).get(names[-1])
+
+
+def tp_span(kind: str, cfg, rank: int, size: int) -> Tuple[int, int]:
+    """[start, stop) of rank ``rank``'s slice of ``size`` along the split
+    axis of a ``kind`` leaf of the global ``cfg``: whole query heads, whole
+    KV heads (each rank its own, or with fewer KV heads than ranks head
+    ``rank * n_kv_heads // size``), an even slice of ``d_ff`` or of the
+    padded vocabulary. ``"q"``/``"kv"`` count columns (heads x head_dim),
+    ``"kv_heads"`` heads."""
+    if kind == "q":
+        per = cfg.n_heads // size * cfg.head_dim
+        return rank * per, (rank + 1) * per
+    if kind in ("kv", "kv_heads"):
+        kv = cfg.n_kv_heads
+        first, n = (rank * (kv // size), kv // size) if kv >= size else (rank * kv // size, 1)
+        unit = cfg.head_dim if kind == "kv" else 1
+        return first * unit, (first + n) * unit
+    total = {"ff": cfg.d_ff, "vocab": cfg.vocab_padded}[kind]
+    return rank * total // size, (rank + 1) * total // size
+
+
+def _tp_global_dim(kind: str, cfg) -> int:
+    return {"q": cfg.n_heads * cfg.head_dim, "kv": cfg.n_kv_heads * cfg.head_dim,
+            "kv_heads": cfg.n_kv_heads, "ff": cfg.d_ff, "vocab": cfg.vocab_padded}[kind]
+
+
+def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool = False,
+                rank: Optional[int] = None) -> torch.Tensor:
+    """Rank ``rank``'s (default: ``tp.rank``'s) head-aligned slice of the
+    whole ``leaf`` at ``names`` of the global ``cfg`` (a cache leaf with
+    ``cache``), as a tensor of its own so the whole leaf can be freed; the
+    leaf itself for a whole leaf, no group or a group of one."""
+    split = tp_split(names, cache)
+    size = 1 if tp is None else tp.size
+    if split is None or size == 1:
+        return leaf
+    kind, axis = split
+    start, stop = tp_span(kind, cfg, tp.rank if rank is None else rank, size)
+    return leaf.narrow(axis, start, stop - start).clone(memory_format=torch.contiguous_format)
+
+
+def gather_shards(local: torch.Tensor, names: Sequence[str], cfg, tp,
+                  cache: bool = False) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`local_shard` of it (a
+    collective over ``tp``: every rank calls it and every rank gets the
+    whole leaf); ``local`` itself for a whole leaf, no group or a group of
+    one. A replicated KV head is written once per rank that holds it, with
+    the same values."""
+    split = tp_split(names, cache)
+    size = 1 if tp is None else tp.size
+    if split is None or size == 1:
+        return local
+    kind, axis = split
+    parts = all_gather(local, tp)
+    shape = list(local.shape)
+    shape[axis] = _tp_global_dim(kind, cfg)
+    whole = torch.empty(shape, dtype=local.dtype, device=local.device)
+    for r, part in enumerate(parts):
+        start, stop = tp_span(kind, cfg, r, size)
+        whole.narrow(axis, start, stop - start).copy_(part)
+    return whole

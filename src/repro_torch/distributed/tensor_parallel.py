@@ -1,0 +1,326 @@
+"""Physical tensor parallelism over a ``torch.distributed`` group.
+
+``repro`` spreads a serving replica over the devices of a 1-D ``"model"``
+mesh and lets GSPMD place the shards and insert the collectives. torch has
+no GSPMD, so the port runs the same program on every rank of a process
+group (SPMD): each rank holds only its shard of every weight and of the KV
+cache, and the model code meets at two explicit collectives, a sum over the
+group after each row-parallel product and a gather of the vocabulary's
+columns after the head. This module is that plumbing:
+
+- :class:`TPGroup`: a process group, this rank, the group's size and this
+  rank's device, with the first ``n`` ranks as subgroups of their own (an
+  elastic gang is always the first ``n`` ranks of a fixed world);
+- :func:`init_tp`, :func:`spawn_tp`: start the ranks (``spawn``, a
+  ``file://`` store) and join them;
+- :func:`backend_for`: ``"nccl"`` when every rank has a card of its own,
+  ``"gloo"`` for ranks that share a card or run on the CPU. This is a rule,
+  not a fallback: NCCL refuses two ranks on one card, and gloo's
+  collectives take CUDA tensors through host memory;
+- :func:`tp_local`: the config one rank runs, at its local head and
+  feed-forward counts;
+- the collectives :func:`all_sum` (with :func:`row_parallel`, the product
+  it follows), :func:`gather_last` and :func:`broadcast_`, each the identity
+  for no group or a group of one, and :func:`broadcast_object` for the
+  replica's commands.
+
+The default process group is always gloo: it carries the small control
+messages (the replica's commands, each rank's device). The data group is
+the default group under gloo, or an NCCL group over the same ranks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+ROADMAP_ITEM = "ROADMAP.md, section 1, item 8"
+
+# what the collectives moved since the last reset_stats(): calls, bytes this
+# rank sent into them, and their host seconds (see time_collectives)
+STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+_SYNC = [False]
+
+
+def reset_stats() -> None:
+    STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def time_collectives(on: bool) -> None:
+    """With ``on``, every collective on a CUDA tensor synchronises the card
+    before its clock starts and after it ends, so ``STATS["seconds"]`` holds
+    the collectives alone and not the kernels queued before them. That
+    costs two synchronisations a collective; off (the default) the seconds
+    are host time around each call."""
+    _SYNC[0] = bool(on)
+
+
+@dataclasses.dataclass(eq=False)
+class TPGroup:
+    """``group`` is the data process group (None for a group of one),
+    ``rank`` this rank's place in it, ``devices`` every rank's device by
+    rank, ``backend`` the data group's backend."""
+    group: Any
+    rank: int
+    size: int
+    device: torch.device
+    devices: tuple
+    backend: str
+    _subgroups: Dict[int, Optional["TPGroup"]] = dataclasses.field(default_factory=dict,
+                                                                   repr=False)
+
+    def subgroup(self, n: int) -> Optional["TPGroup"]:
+        """The first ``n`` ranks as a group of their own, or None on a rank
+        outside it. Every rank of this group calls it with the same ``n`` in
+        the same order (``new_group`` is collective); each size is made
+        once."""
+        if not 1 <= n <= self.size:
+            raise ValueError(f"a subgroup of {n} ranks of a group of {self.size}")
+        if n == self.size:
+            return self
+        if n not in self._subgroups:
+            group = None
+            if n > 1:
+                group = dist.new_group(list(range(n)), backend=self.backend)
+            self._subgroups[n] = (TPGroup(group, self.rank, n, self.device, self.devices[:n],
+                                          self.backend) if self.rank < n else None)
+        return self._subgroups[n]
+
+
+def device_key(d: torch.device) -> tuple:
+    """``d`` as (type, index); a bare ``cuda`` is the current card, so
+    ``cuda`` and ``cuda:0`` on card 0 are one device."""
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        return d.type, torch.cuda.current_device()
+    return d.type, d.index
+
+
+def backend_for(devices: Sequence[DeviceLike]) -> str:
+    """``"nccl"`` when every rank has a CUDA card of its own, else
+    ``"gloo"`` (ranks that share a card, or run on the CPU)."""
+    devs = [torch.device(d) for d in devices]
+    own_cards = len({device_key(d) for d in devs}) == len(devs)
+    return "nccl" if devs and own_cards and all(d.type == "cuda" for d in devs) else "gloo"
+
+
+def init_tp(world_size: int, rank: int, init_method: str,
+            device: DeviceLike = None) -> TPGroup:
+    """Join a group of ``world_size`` ranks at ``init_method`` (``file://``
+    or ``tcp://``) and return its :class:`TPGroup`. ``device=None`` is this
+    rank's card, ``cuda:{rank % cards}``, raising without CUDA (pass
+    ``device="cpu"``). The default group is gloo; the data group follows
+    :func:`backend_for` over every rank's device."""
+    if device is None:
+        resolve_device(None)
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world_size, rank=rank)
+    devices: List[Any] = [None] * world_size
+    dist.all_gather_object(devices, str(dev))
+    devices = tuple(torch.device(d) for d in devices)
+    backend = backend_for(devices)
+    group = None
+    if world_size > 1 or backend == "nccl":
+        group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="nccl")
+    return TPGroup(group, rank, world_size, dev, devices, backend)
+
+
+def tp_size(tp: Optional[TPGroup]) -> int:
+    return 1 if tp is None else tp.size
+
+
+def tp_local(cfg: ModelConfig, tp: Optional[TPGroup]) -> ModelConfig:
+    """The config one rank of ``tp`` runs: ``n_heads / size`` query heads,
+    ``max(1, n_kv_heads / size)`` KV heads (with fewer KV heads than ranks
+    each KV head is replicated, as Megatron does: rank ``r`` holds head
+    ``r * n_kv_heads // size``), ``d_ff / size``. The vocabulary stays
+    whole in the config: the embedding and the head split it themselves.
+    ``cfg`` itself for no group or a group of one. Only the dense GQA
+    family is covered; every other architecture raises
+    ``NotImplementedError``."""
+    n = tp_size(tp)
+    if n == 1:
+        return cfg
+    if cfg.family != "dense" or cfg.use_mla or cfg.frontend is not None or cfg.n_experts:
+        raise NotImplementedError(
+            f"tensor parallelism over {n} ranks covers the dense GQA family on the "
+            f"serving path; {cfg.arch_id} (family {cfg.family!r}, mla {cfg.use_mla}, "
+            f"frontend {cfg.frontend!r}, experts {cfg.n_experts}) is queued in {ROADMAP_ITEM}")
+    bad = _unsplit(cfg, n)
+    if bad:
+        raise ValueError(f"{cfg.arch_id}: {', '.join(bad)} do not split over {n} ranks")
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
+                               n_kv_heads=max(1, cfg.n_kv_heads // n), d_ff=cfg.d_ff // n)
+
+
+def _unsplit(cfg: ModelConfig, n: int) -> List[str]:
+    kv = cfg.n_kv_heads
+    return [what for what, ok in (
+        (f"n_heads {cfg.n_heads}", cfg.n_heads % n == 0),
+        (f"n_kv_heads {kv}", kv % n == 0 or n % kv == 0),
+        (f"d_ff {cfg.d_ff}", cfg.d_ff % n == 0),
+        (f"vocab_padded {cfg.vocab_padded}", cfg.vocab_padded % n == 0)) if not ok]
+
+
+def gang_ranks(cfg: ModelConfig, n_members: int, tp: TPGroup) -> int:
+    """How many ranks of ``tp`` a gang of ``n_members`` spans: the most, up
+    to ``min(n_members, tp.size)``, that ``cfg`` splits over. A gang the
+    heads do not divide (3 members of a 4-head model) leaves its last
+    members idle, as ``repro``'s rules drop an axis that does not divide."""
+    return max(k for k in range(1, min(max(int(n_members), 1), tp.size) + 1)
+               if not _unsplit(cfg, k))
+
+
+# --- collectives ------------------------------------------------------------------------
+def _run(op, t: torch.Tensor, *args, **kw) -> None:
+    sync = _SYNC[0] and t.is_cuda
+    if sync:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    op(*args, **kw)
+    if sync:
+        torch.cuda.synchronize(t.device)
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+
+
+def all_sum(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """The sum of ``x`` over the group (after a row-parallel product); ``x``
+    itself for no group or a group of one."""
+    if tp_size(tp) == 1:
+        return x
+    x = x.contiguous()
+    _run(dist.all_reduce, x, x, group=tp.group)
+    return x
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """``x @ w`` for a row-parallel ``w`` (this rank's rows, ``x`` this
+    rank's columns), summed over the group. Below float32 each rank's
+    partial product leaves its GEMM at float32 (its accumulator, not
+    rounded to ``x``'s dtype), the sum runs at float32 and is rounded once,
+    as the one-device GEMM rounds its accumulator once: a rounding of each
+    partial would add one rounding error per product and layer. ``x @ w``
+    for no group or a group of one."""
+    if tp_size(tp) == 1:
+        return x @ w
+    if x.dtype == torch.float32:
+        return all_sum(x @ w, tp)
+    flat = x.reshape(-1, x.shape[-1])
+    part = (torch.mm(flat, w, out_dtype=torch.float32) if flat.is_cuda
+            else flat.float() @ w.float())
+    return all_sum(part, tp).to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def gather_last(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """Every rank's ``x`` side by side on the last dim, by rank (the
+    vocab-parallel logits); ``x`` itself for no group or a group of one."""
+    return x if tp_size(tp) == 1 else torch.cat(all_gather(x, tp), dim=-1)
+
+
+def all_gather(x: torch.Tensor, tp: Optional[TPGroup]) -> List[torch.Tensor]:
+    """Every rank's ``x`` (all of one shape), by rank."""
+    if tp_size(tp) == 1:
+        return [x]
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    _run(dist.all_gather, x, parts, x, group=tp.group)
+    return parts
+
+
+def broadcast_(x: torch.Tensor, tp: Optional[TPGroup], src: int = 0) -> torch.Tensor:
+    """``x`` of rank ``src`` into ``x`` on every rank of the group, in
+    place (``x`` contiguous); ``x`` itself for no group or a group of
+    one."""
+    if tp_size(tp) == 1:
+        return x
+    _run(dist.broadcast, x, x, src=src, group=tp.group)
+    return x
+
+
+def broadcast_object(obj: Any = None, src: int = 0) -> Any:
+    """``obj`` of rank ``src`` on every rank of the default (gloo) group,
+    pickled: the replica's commands and the decode state a joining rank
+    adopts."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+# --- starting ranks -------------------------------------------------------------------------
+def _rank_main(fn, rank: int, world_size: int, init_method: str, device, args, out: str):
+    try:
+        tp = init_tp(world_size, rank, init_method, device)
+        try:
+            result = fn(tp, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(("ok", result), f)
+    except BaseException:
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(("error", traceback.format_exc()), f)
+        raise SystemExit(1)
+
+
+def spawn_tp(fn: Callable, world_size: int, device: DeviceLike = None, args: tuple = (),
+             timeout: Optional[float] = None) -> list:
+    """Run ``fn(tp, *args)`` on ``world_size`` new processes (the ``spawn``
+    start method, which CUDA needs), each joined to one group through a
+    ``file://`` store in a temporary directory, and return each rank's
+    result by rank. ``fn`` and ``args`` must pickle (``fn`` defined at a
+    module's top level). A rank that raises, or ``timeout`` seconds passing
+    before every rank ends, stops every rank and raises ``RuntimeError``
+    with the rank's traceback."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tp_") as tmp:
+        init, out = f"file://{os.path.join(tmp, 'store')}", os.path.join(tmp, "result")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, world_size, init, device, args, out))
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                if deadline is not None and time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results, errors = [], []
+        for r in range(world_size):
+            try:
+                with open(f"{out}.{r}", "rb") as f:
+                    status, value = pickle.load(f)
+            except FileNotFoundError:
+                status, value = "error", f"rank {r} ended with exit code {procs[r].exitcode}"
+            (results if status == "ok" else errors).append(value)
+        if errors:
+            late = "" if deadline is None or time.monotonic() <= deadline else \
+                f" (stopped after {timeout} s)"
+            raise RuntimeError(f"spawn_tp: {len(errors)} of {world_size} ranks failed{late}:\n"
+                               + "\n".join(errors))
+        return results

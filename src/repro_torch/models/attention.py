@@ -14,6 +14,14 @@ paged-attention kernel, as in ``repro``. MLA has no kernel in ``repro``
 (``supported_kernel_sites`` leaves its attention site out), so its products
 stay plain PyTorch here too. Under ``shard_activations`` every site calls
 :func:`repro_torch.distributed.sharding.maybe_shard` with ``repro``'s axes.
+
+Under a tensor-parallel group ``tp`` the GQA paths take the rank's config
+(``distributed.tensor_parallel.tp_local``: its query and KV heads) and its
+shard of the weights: the projections and the attention core run at the
+local head counts (the flash kernel at the per-rank shape, e.g. q (B, 8,
+S, 128) with one KV head for qwen2.5-3b on 2 ranks), and the row-parallel
+``wo`` is followed by a float32 sum over the group
+(``distributed.tensor_parallel.row_parallel``).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
+from repro_torch.distributed.tensor_parallel import row_parallel
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
@@ -196,22 +205,22 @@ def _einsum_mha(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
 
 
 def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Full-sequence attention. x: (B,S,D)."""
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return _full_seq_core(q, k, v, positions, cfg) @ p["wo"].to(x.dtype)
+    return row_parallel(_full_seq_core(q, k, v, positions, cfg), p["wo"].to(x.dtype), tp)
 
 
-def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Full-seq attention that also returns (k, v) for the cache. x: (B,S,D).
     With a sliding window only the last ``sliding_window`` positions of K/V
     are returned (the ring the decode path addresses)."""
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _full_seq_core(q, k, v, positions, cfg) @ p["wo"].to(x.dtype)
+    out = row_parallel(_full_seq_core(q, k, v, positions, cfg), p["wo"].to(x.dtype), tp)
     if cfg.sliding_window:
         k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
     return out, k, v
@@ -273,7 +282,7 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos, pos_t: torch.Tensor
 
 
 def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-               pos: Union[int, np.ndarray, torch.Tensor], cfg: ModelConfig):
+               pos: Union[int, np.ndarray, torch.Tensor], cfg: ModelConfig, tp=None):
     """One-token decode. x: (B,1,D); caches: (B,Sc,KV,Dh); pos: a scalar
     current position, or a (B,) vector giving each row its own position.
     Returns (out, k_cache, v_cache). The caches are updated in place (saves
@@ -315,7 +324,7 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.to(dt))
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"].to(dt), k_cache, v_cache
+    return row_parallel(out, p["wo"].to(dt), tp), k_cache, v_cache
 
 
 def paged_gqa_decode(p, x: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -5,6 +5,12 @@ embedding and the vocabulary head — the port of ``repro.models.layers``.
 Params are nested dicts of tensors with the same keys and shapes as in
 ``repro``; every function takes and returns tensors, with the same dtype
 casts at the same places so float32 results agree with the JAX twin.
+
+Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``) each
+rank holds its shard: the MLP is column-parallel in ``w_gate``/``w_up`` and
+row-parallel in ``w_down`` (a float32 sum over the group follows), the embedding
+and the head are vocab-parallel (a masked local lookup and a sum; the local
+columns of the logits and a gather). ``tp=None`` is the one-device path.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
+from repro_torch.distributed.tensor_parallel import (all_sum, gather_last, row_parallel,
+                                                      tp_size)
 
 
 # --- norms ------------------------------------------------------------------
@@ -73,9 +81,11 @@ def _shard(cfg: ModelConfig, x: torch.Tensor, *axes) -> torch.Tensor:
 
 
 # --- dense / SwiGLU MLP -----------------------------------------------------
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """SwiGLU (``act="silu"``) or the plain gelu MLP (``act="gelu"``, the
-    tanh approximation, as ``jax.nn.gelu``'s default)."""
+    tanh approximation, as ``jax.nn.gelu``'s default). Under ``tp`` the
+    rank's columns of ``d_ff``, then the sum of the row-parallel
+    ``w_down``'s partial products over the group."""
     dt = x.dtype
     x = _shard(cfg, x, ("pod", "data"), None, None)
     up = x @ p["w_up"].to(dt)
@@ -84,7 +94,7 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     h = _shard(cfg, h, ("pod", "data"), None, "model")
-    return _shard(cfg, h @ p["w_down"].to(dt), ("pod", "data"), None, None)
+    return _shard(cfg, row_parallel(h, p["w_down"].to(dt), tp), ("pod", "data"), None, None)
 
 
 # --- rotary embeddings ------------------------------------------------------
@@ -106,14 +116,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # --- embeddings -------------------------------------------------------------
-def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tokens"].to(cfg.compute_dtype)[tokens]
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Token embeddings. Under ``tp`` each rank holds a contiguous slice of
+    the vocabulary's rows: it looks up the tokens that fall in it, zeros
+    the rest, and the sum over the group gives every token its row."""
+    table = p["tokens"].to(cfg.compute_dtype)
+    if tp_size(tp) == 1:
+        return table[tokens]
+    local = tokens - tp.rank * table.shape[0]
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return all_sum(torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                    device=rows.device)), tp)
 
 
 def logits_from_hidden(head_w: torch.Tensor, hidden: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """hidden (B,S,D) -> logits (B,S,Vpad) fp32 with padded columns masked."""
-    logits = _shard(cfg, (hidden @ head_w.to(hidden.dtype)).float(),
+                       cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """hidden (B,S,D) -> logits (B,S,Vpad) fp32 with padded columns masked.
+    Under ``tp`` ``head_w`` holds the rank's vocabulary columns: their
+    logits, gathered over the group by rank, then the mask."""
+    logits = _shard(cfg, gather_last((hidden @ head_w.to(hidden.dtype)).float(), tp),
                     ("pod", "data"), None, "model")
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9  # in place: logits is a fresh tensor

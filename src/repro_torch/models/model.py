@@ -9,6 +9,13 @@ Batch conventions follow ``repro`` (tensors on the model's device):
   prefill       : the same inputs minus labels -> (last-position logits
                   (B,Vpad) fp32, cache)
   decode        : a (B,1) token, the cache and a scalar or (B,) position
+
+``prefill``, ``decode_step``, ``cache_spec`` and ``init_cache`` take a
+tensor-parallel group ``tp`` (``distributed.tensor_parallel``; None: one
+device): each rank passes its shard of the parameters
+(``distributed.sharding.local_shard``, or ``weights.params_from_numpy``
+with ``tp``) and of the cache, runs the same call, and gets the whole
+logits.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.tensor_parallel import tp_local
 from repro_torch.models import transformer
 from repro_torch.models.attention import init_kv_cache_shape, paged_gqa_decode
 from repro_torch.models.layers import embed_tokens, logits_from_hidden
@@ -243,16 +251,17 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
-def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """(hidden (B,S,D), positions (B,S)): token embeddings, the audio
-    frames, or the vision patches followed by the text's embeddings."""
+def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
+    """(hidden (B,S,D), positions (B,S)): token embeddings (vocab-parallel
+    under ``tp``), the audio frames, or the vision patches followed by the
+    text's embeddings."""
     if cfg.frontend == "audio":
         x = batch["frames"].to(cfg.compute_dtype)
     elif cfg.frontend == "vision":
         tok = embed_tokens(params["embed"], batch["tokens"], cfg)
         x = torch.cat([batch["vision_embeds"].to(cfg.compute_dtype), tok], dim=1)
     else:
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = embed_tokens(params["embed"], batch["tokens"], cfg, tp)
     b, s = x.shape[0], x.shape[1]
     if cfg.shard_activations:
         from repro_torch.distributed.sharding import maybe_shard
@@ -295,22 +304,25 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.
     return total, {"ce": ce, "lb_loss": aux["lb_loss"], "loss": total}
 
 
-def prefill(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Forward + cache. Returns (last-position logits (B,Vpad) fp32, cache)."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, h, cache = transformer.stack_prefill(params["stack"], x, positions, cfg)
+def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
+    """Forward + cache. Returns (last-position logits (B,Vpad) fp32, cache);
+    under ``tp`` the rank's cache shard and the whole logits."""
+    local = tp_local(cfg, tp)   # raises first for an architecture tp does not cover
+    x, positions = _embed_inputs(params, batch, cfg, tp)
+    x, h, cache = transformer.stack_prefill(params["stack"], x, positions, local, tp)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
-    logits = logits_from_hidden(_head_weight(params, cfg), x[:, -1:], cfg)
+    logits = logits_from_hidden(_head_weight(params, cfg), x[:, -1:], cfg, tp)
     return logits[:, 0], cache
 
 
-def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig):
+def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
     """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
     Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
-    x = embed_tokens(params["embed"], token, cfg)
-    x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, cfg)
+    local = tp_local(cfg, tp)
+    x = embed_tokens(params["embed"], token, cfg, tp)
+    x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, local, tp)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
-    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
+    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg, tp)
     return logits[:, 0], cache
 
 
@@ -348,11 +360,13 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
 
 
 # --- cache construction ---------------------------------------------------------
-def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, tp=None) -> Dict[str, Any]:
     """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage):
     K/V per attention layer (the latent ``c`` under MLA), the SSM state
     (fp32) and conv window per mamba layer, with ``repro``'s stacked lead
-    axes."""
+    axes; under ``tp`` the rank's KV heads."""
+    cfg = tp_local(cfg, tp)
+
     def meta(shape, dtype=None):
         return torch.empty(shape, dtype=dtype or cfg.compute_dtype, device="meta")
 
@@ -375,11 +389,12 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
-    """Zero-filled decode cache on ``device``."""
+               device: DeviceLike = None, tp=None) -> Dict[str, Any]:
+    """Zero-filled decode cache on ``device`` (the rank's shard under
+    ``tp``)."""
     dev = resolve_device(device)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-                    cache_spec(cfg, batch, seq_len))
+                    cache_spec(cfg, batch, seq_len, tp))
 
 
 def tree_map(fn, *trees):

@@ -140,7 +140,16 @@ def _moe_scatter(p, x, weights, idx, cfg: ModelConfig):
 
 def _ragged_dot(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """``jax.lax.ragged_dot``'s plain twin: rows ``[off_e, off_e + n_e)`` times
-    ``w[e]``, one product per group (reference path: reads the sizes on the host)."""
+    ``w[e]``. On real tensors one product per group, the sizes read on the
+    host. On ``meta`` (the dry run) no size can be read: each row's product
+    with its expert's weight, through a per-row expert index, gives the same
+    shape and the same ``2 * rows * d * f`` FLOPs. The per-row form is not
+    the real tensors' path, because a row's float32 bits from the CPU's GEMM
+    depend on how many rows share its product."""
+    if xs.device.type == "meta":
+        experts = torch.arange(w.shape[0], device=xs.device)
+        row_expert = torch.repeat_interleave(experts, group_sizes, output_size=xs.shape[0])
+        return torch.bmm(xs[:, None, :], w[row_expert])[:, 0]
     out = torch.zeros((xs.shape[0], w.shape[2]), dtype=xs.dtype, device=xs.device)
     start = 0
     for e, n in enumerate(group_sizes.tolist()):

@@ -14,6 +14,11 @@ Each segment runs in three modes: forward (full sequence, no cache),
 prefill (forward + cache emission) and decode (one token against the
 cache). Dense and moe blocks attend with GQA or, under ``use_mla``, MLA
 (a latent cache ``{"c": ...}`` in place of ``{"k", "v"}``).
+
+Prefill and decode take a tensor-parallel group ``tp`` (None: one device)
+with the rank's config (``distributed.tensor_parallel.tp_local``) and its
+shard of the weights and the cache; every rank runs the same loop and the
+dense block's attention and MLP meet at a sum over the group.
 """
 from __future__ import annotations
 
@@ -92,27 +97,33 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
 # h the previous block's delta not yet added (None at the stack's start),
 # and returns its own (x, delta). The add happens in the next norm, and the
 # stack's last delta goes into the final norm.
-def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig):
+def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig,
+                 tp=None):
     """A dense or moe block: ``attend`` maps the normed input to (attention
     output, *rest). Returns (x, feed-forward delta, the MoE load-balance
     loss or None, *rest). The feed-forward is the MLP of a dense layer, the
     MoE of a moe layer (prefill and decode run it too, as ``repro``'s
-    bodies do)."""
+    bodies do); under ``tp`` the MLP is tensor-parallel."""
     x, y = _add_norm(x, h, p["ln1"], cfg)
     a, *rest = attend(y)
     x, y = _add_norm(x, a, p["ln2"], cfg)
     if "mlp" in p:
-        return (x, apply_mlp(p["mlp"], y, cfg), None, *rest)
+        return (x, apply_mlp(p["mlp"], y, cfg, tp), None, *rest)
     out, aux = moe_mod.apply_moe(p["moe"], y, cfg)
     return (x, out, aux["lb_loss"], *rest)
 
 
 def _dense_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, tp=None):
     """A dense or moe block at prefill: (x, delta, lb, k, v), or (x, delta,
     lb, latent) under MLA."""
-    prefill = attn_mod.mla_prefill if cfg.use_mla else attn_mod.gqa_prefill
-    return _dense_block(p, x, h, lambda y: prefill(p["attn"], y, positions, cfg), cfg)
+    if cfg.use_mla:
+        def attend(y):
+            return attn_mod.mla_prefill(p["attn"], y, positions, cfg)
+    else:
+        def attend(y):
+            return attn_mod.gqa_prefill(p["attn"], y, positions, cfg, tp)
+    return _dense_block(p, x, h, attend, cfg, tp)
 
 
 def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig):
@@ -198,7 +209,7 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     return x, h, {"lb_loss": lb}
 
 
-def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Returns (x, h, cache dict): the hidden state is x + h, h the last
     block's delta, which the final norm adds. Cache leaves carry the stacked
     layer axes first, as in ``repro``."""
@@ -209,7 +220,7 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
         if seg.kind in ("dense", "moe"):
             entries = []
             for i in range(seg.n):
-                x, h, _, *kv = _dense_prefill(_layer(p, i), x, h, positions, cfg)
+                x, h, _, *kv = _dense_prefill(_layer(p, i), x, h, positions, cfg, tp)
                 entries.append(kv)
             keys = ("c",) if cfg.use_mla else ("k", "v")
             cache[seg.name] = {key: torch.stack([e[j] for e in entries])
@@ -240,7 +251,8 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     return x, h, cache
 
 
-def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: ModelConfig):
+def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: ModelConfig,
+                  tp=None):
     """A dense or moe block at decode: (x, delta); writes the token's K/V
     (or its latent entry under MLA) into ``c``, one layer's cache leaves,
     in place."""
@@ -249,8 +261,8 @@ def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: Mo
             return attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg)
     else:
         def attend(y):
-            return attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg)
-    x, delta, *_ = _dense_block(p, x, h, attend, cfg)
+            return attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg, tp)
+    x, delta, *_ = _dense_block(p, x, h, attend, cfg, tp)
     return x, delta
 
 
@@ -267,7 +279,7 @@ def _ssm_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], state: torch.Tens
     return x, delta
 
 
-def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
+def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
     """One-token decode. x: (B,1,D); pos: scalar or (B,) per-row positions.
     Returns (x, h, cache), the hidden state x + h as in
     :func:`stack_prefill`; the cache is updated in place (saves a copy of
@@ -277,7 +289,7 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
         p, c = params[seg.name], cache[seg.name]
         if seg.kind in ("dense", "moe"):
             for i in range(seg.n):
-                x, h = _dense_decode(_layer(p, i), x, h, _layer(c, i), pos, cfg)
+                x, h = _dense_decode(_layer(p, i), x, h, _layer(c, i), pos, cfg, tp)
         elif seg.kind == "ssm":
             for i in range(seg.n):
                 x, h = _ssm_decode(_layer(p, i), x, h, c["state"][i], c["conv"][i], cfg)

@@ -279,6 +279,8 @@ class ElasticServingExecutor:
         from repro_torch.platform.executors import BatchedServingExecutor
         self.replica = replica
         self._inner = BatchedServingExecutor(replica.engine, **kw)
+        # over a group, rank 0's handle that sends each call to every rank
+        self._inner.engine = replica.serving_engine
 
     @property
     def engine(self):
@@ -300,7 +302,7 @@ class ElasticServingExecutor:
         """Resize the replica's gang mesh in place; returns the
         MigrationRecord the pool turns into counters."""
         rec = self.replica.resize(max(1, n_after))
-        self._inner.engine = self.replica.engine
+        self._inner.engine = self.replica.serving_engine
         return rec
 
 
@@ -309,14 +311,21 @@ def build_sharded_serving(platform: "Platform", *, arch: str = None,
                           max_seq: int = 64, init_seed: int = 0,
                           n_slots: int = 4, gang_size: Optional[int] = None,
                           kv_mode: str = "migrate", kernel_impls=None,
-                          device=None, **params) -> ElasticServingExecutor:
+                          device=None, tp=None, **params) -> ElasticServingExecutor:
     """One tensor-parallel replica shared by the platform's gang (the
     shared-engine idiom: every invoker's pull lands on the same engine).
     ``gang_size`` defaults to the scenario's ``platform.gang_size``;
     ``arch``/``kernel_impls`` default to the scenario's ``platform.model`` /
     ``platform.kernel_impls`` model-zoo knobs. ``device`` (``None``: the
     card, raising without CUDA) places the smoke replica; its weights are
-    the port's own random stream from ``init_seed``."""
+    the port's own random stream from ``init_seed``.
+
+    ``tp``, a tensor-parallel group (``distributed.tensor_parallel``),
+    spreads the replica over the group's ranks, each on its own device:
+    every rank calls this factory with the same arguments. Rank 0 gets the
+    executor and runs the platform; every other rank serves rank 0's calls
+    here (``ElasticReplica.follow``) and returns None once rank 0 closes
+    the replica (``executor.replica.close()``)."""
     import torch  # deferred: only real-serving scenarios pay this import
 
     from repro_torch.configs import get_config
@@ -326,7 +335,7 @@ def build_sharded_serving(platform: "Platform", *, arch: str = None,
     from repro_torch.models.model import init_params
     from repro_torch.platform.executors import (_KV_GAUGES, _scenario_model_knobs,
                                                 _warm_up)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if tp is None else tp.device
     arch, kernel_impls = _scenario_model_knobs(platform, arch, kernel_impls)
     cfg = get_config(arch, smoke=True)
     if kernel_impls != "reference":
@@ -339,7 +348,14 @@ def build_sharded_serving(platform: "Platform", *, arch: str = None,
                             None) or 2
     replica = ElasticReplica(cfg, model_params, max(gang_size, 1),
                              n_slots=n_slots, max_seq=max_seq,
-                             kv_mode=kv_mode, device=dev)
+                             kv_mode=kv_mode, device=dev, tp=tp)
+    del model_params   # every rank keeps only its shard
+    if tp is not None and tp.rank != 0:
+        if dev.type == "cuda":
+            from repro_torch.kernels.build import build_all
+            build_all()
+        replica.follow()
+        return None
     ex = ElasticServingExecutor(replica, **params)
     _warm_up(ex.engine)
     if platform is not None and getattr(platform, "metrics", None) is not None:

@@ -20,7 +20,10 @@ SIGTERM.
     (``repro_torch.serving.kvcache``).
 
 All take ``device=None`` (the card) and raise rather than fall back to the
-CPU; pass ``device="cpu"`` for the CPU.
+CPU; pass ``device="cpu"`` for the CPU. :class:`ContinuousEngine` also takes
+a tensor-parallel group ``tp`` (``distributed.tensor_parallel``): every rank
+builds the engine over its shard of the weights, runs the same schedule,
+and takes the token rank 0 picks.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.tensor_parallel import broadcast_, tp_local, tp_size
 from repro_torch.models import model as model_mod
 from repro_torch.models import transformer
 from repro_torch.serving.batching import GenRequest, SlotBatcher
@@ -139,17 +143,26 @@ class ContinuousEngine:
     decode state is one :class:`SlotBatchState` tree of batch ``n_slots`` on
     the device. Temperature-0 outputs are token-identical to the sequential
     :meth:`ServingEngine.generate` path.
+
+    Under a tensor-parallel group ``tp`` (its ``device`` is the engine's)
+    ``params`` is this rank's shard and the cache holds the rank's KV heads.
+    Every rank of the group makes the same calls in the same order; rank 0
+    picks each token from the whole logits (every rank draws from a
+    generator seeded alike, so the generators stay equal) and broadcasts
+    it, so no rank can drift from another on a tie.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 4,
                  max_seq: int = 512, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, tp=None):
         _check_decoder(cfg)
         if n_slots < 1:
             raise ValueError(f"n_slots={n_slots} must be >= 1")
+        tp_local(cfg, tp)   # an architecture tp does not cover raises
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.tp = tp
+        self.device = resolve_device(device if tp is None else tp.device)
         self.params = _on_device(params, cfg, self.device)
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -170,7 +183,7 @@ class ContinuousEngine:
         """Allocate the slot-state tree; the paged subclass swaps in a block
         pool instead."""
         self._slot_state = SlotBatchState(self.cfg, self.n_slots, self.max_seq,
-                                          self.device)
+                                          self.device, self.tp)
 
     @property
     def cache(self):
@@ -244,7 +257,7 @@ class ContinuousEngine:
 
     def _prefill(self, context: List[int]):
         tok = torch.as_tensor([context], dtype=torch.int64, device=self.device)
-        return model_mod.prefill(self.params, {"tokens": tok}, self.cfg)
+        return model_mod.prefill(self.params, {"tokens": tok}, self.cfg, self.tp)
 
     def _reap(self):
         """Release per-request KV state of newly finished requests (no-op
@@ -257,7 +270,10 @@ class ContinuousEngine:
 
     def _pick_row(self, logits: torch.Tensor) -> np.ndarray:
         gen = self._gen if self.temperature > 0 else None
-        return _pick(logits, self.cfg.vocab_size, self.temperature, gen).cpu().numpy()
+        toks = _pick(logits, self.cfg.vocab_size, self.temperature, gen)
+        if tp_size(self.tp) > 1:
+            toks = broadcast_(toks.contiguous(), self.tp, src=0)
+        return toks.cpu().numpy()
 
     def step(self) -> int:
         """One batched decode: every active slot advances one token; finished
@@ -292,7 +308,7 @@ class ContinuousEngine:
         logits and advances the KV state in place."""
         logits, _ = model_mod.decode_step(
             self.params, torch.as_tensor(self.last_tok, device=self.device),
-            self.cache, torch.as_tensor(pos, device=self.device), self.cfg)
+            self.cache, torch.as_tensor(pos, device=self.device), self.cfg, self.tp)
         return logits
 
     def run(self) -> List[GenRequest]:

@@ -50,14 +50,15 @@ def graft_slot(live, pre, slot: int, batch_axes):
 
 
 class SlotBatchState:
-    """The live decode state of ``n_slots`` concurrent requests."""
+    """The live decode state of ``n_slots`` concurrent requests (under a
+    tensor-parallel group ``tp``, the rank's KV heads)."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, tp=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
-        self.tree = model_mod.init_cache(cfg, n_slots, max_seq, device)
+        self.tree = model_mod.init_cache(cfg, n_slots, max_seq, device, tp)
         self.batch_axes = find_batch_axes(cfg, max_seq)
 
     def graft(self, pre: Any, slot: int) -> None:

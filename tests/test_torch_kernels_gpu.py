@@ -836,6 +836,71 @@ def test_elastic_replica_shrinks_mid_stream_on_card(cuda):
     assert all(len(t) == 8 for t in golden.values())
 
 
+def _smoke_tp_rank(tp, prompts):
+    """One of two gloo ranks on the card (``spawn_tp``): a smoke
+    ``ElasticReplica`` over the group at float32 under ``auto``, unbroken and
+    then shrunk 2 -> 1 and grown 1 -> 2 mid-stream; rank 0 returns the
+    streams and each rank its flash launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = with_kernel_impls(dataclasses.replace(get_config("qwen2.5-3b", smoke=True),
+                                                dtype="float32"), "auto")
+    full = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), tp.device)
+    out = {"backend": tp.backend, "flash_before": ops.launch_counts()["flash_attention"]}
+    for label, plan in (("tp2", ()), ("shrink_grow", ((3, 1), (3, 2)))):
+        rep = ElasticReplica(cfg, full, 2, n_slots=2, tp=tp)
+        if tp.rank != 0:
+            rep.follow()
+            continue
+        for i, p in enumerate(prompts):
+            rep.add(GenRequest(id=i, prompt=p, max_new=8))
+        for steps, n in plan:
+            for _ in range(steps):
+                rep.step()
+            rep.resize(n)
+            assert {t.device.type for t in M.tree_leaves(rep.params)} == {"cuda"}
+        out[label] = {r.id: list(r.generated) for r in rep.run()}
+        rep.close()
+    out["flash_after"] = ops.launch_counts()["flash_attention"]
+    return out
+
+
+def test_two_ranks_on_the_card_serve_like_the_one_rank_replica(cuda):
+    """Two gloo ranks on the one card (``backend_for`` gives gloo for a
+    shared card) serve a smoke replica at float32 with the flash kernel at
+    the per-rank shape: the same tokens as the one-rank replica on the
+    card, unbroken and across a shrink 2 -> 1 and a grow 1 -> 2."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    cfg = with_kernel_impls(dataclasses.replace(get_config("qwen2.5-3b", smoke=True),
+                                                dtype="float32"), "auto")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=9 + i).tolist() for i in range(3)]
+    ranks = spawn_tp(_smoke_tp_rank, 2, device="cuda:0", args=(prompts,), timeout=300)
+    rep = ElasticReplica(cfg, M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                                            cuda), 1, n_slots=2, device=cuda)
+    for i, p in enumerate(prompts):
+        rep.add(GenRequest(id=i, prompt=p, max_new=8))
+    one = {r.id: list(r.generated) for r in rep.run()}
+    assert ranks[0]["tp2"] == one == ranks[0]["shrink_grow"]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["flash_after"] > r["flash_before"]
+
+
 @pytest.mark.parametrize("names", [["cuda", "cuda:0"], ["cuda:0", "cuda"], ["cuda", "cuda"]])
 def test_a_bare_cuda_and_its_index_are_one_mesh_device(cuda, names):
     """``cuda`` names the current card, so a mesh over it and ``cuda:0``

@@ -190,6 +190,45 @@ def test_run_cell_full_size_on_meta_probes_equal_full_depth(shape_name):
         assert parts["opt"] == 2 * parts["params"] + 4
 
 
+@pytest.mark.parametrize("arch,shape_name", [("mixtral-8x22b", "decode_32k"),
+                                             ("deepseek-v2-lite-16b", "prefill_32k")])
+def test_ragged_moe_dry_run_on_meta(arch, shape_name):
+    """``--moe-impl ragged`` on ``meta``: the product reads no group size on
+    the host, so the cell records ok (it erred with ``Cannot copy out of
+    meta tensor`` before)."""
+    rec = D.run_cell(arch, shape_name, make_production_mesh(), "single", probes=False,
+                     moe_impl="ragged")
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["overrides"]["moe_impl"] == "ragged"
+    assert rec["full_depth"]["flops"] > 0
+
+
+def test_ragged_dot_counts_its_products_on_meta_and_keeps_its_bits():
+    """On ``meta`` the ragged product counts 2 * rows * d * f FLOPs (each
+    row times its expert's weight once); on real tensors it gives the bits
+    of one product per expert group, as before."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.moe import _ragged_dot
+    rows, d, f, e = 40, 64, 48, 8
+    sizes = torch.tensor([5, 0, 12, 3, 9, 0, 7, 4], dtype=torch.int32)
+    with FlopCounterMode(display=False) as counter:
+        out = _ragged_dot(torch.empty(rows, d, device="meta"), torch.empty(e, d, f, device="meta"),
+                          sizes.to("meta"))
+    assert out.shape == (rows, f) and out.device.type == "meta"
+    assert counter.get_total_flops() == 2 * rows * d * f
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(dtype)
+        w = torch.from_numpy(rng.standard_normal((e, d, f), dtype=np.float32)).to(dtype)
+        want = torch.zeros(rows, f, dtype=dtype)
+        start = 0
+        for g, n in enumerate(sizes.tolist()):
+            want[start:start + n] = xs[start:start + n] @ w[g]
+            start += n
+        assert torch.equal(_ragged_dot(xs, w, sizes), want)
+
+
 def test_argument_bytes_on_one_card_are_the_parameters():
     """On a 1 x 1 mesh the parameters' argument bytes are every leaf's fp32
     bytes; ``param_count`` leaves out the QKV biases (its norm count is
