@@ -107,6 +107,23 @@ Run from the root of a checkout on a machine with one CUDA card. It
    on a 1 dense + 2 moe layer cut holds a prefill under ``auto`` against
    ``reference`` and the absorbed decode at position S against the
    decompressed forward;
+9b. runs tensor parallelism for MoE and MLA (the ``tp moe`` phase): the
+   one-rank replicas of full-width, full-depth deepseek-v2-lite-16b and of
+   full-width mixtral-8x22b at 4 layers run first here and are freed; then
+   two ranks on the one card, each drawing only its shards
+   (``init_params(..., tp=...)``, one rank at a time), serve each at TP 2
+   (deepseek: 8 MLA heads, 32 of 64 experts; mixtral: 24 heads on 4 KV
+   heads, 4 of 8 experts) with the collectives timed, and deepseek cut to 1
+   dense + 3 moe layers shrinks 2 -> 1 and grows 1 -> 2 mid-stream against
+   its unbroken 2-rank run; gates: the float32 prefills on the served bf16
+   values within ``SLICE_TOL`` of one rank, the streams equal or split only
+   at a near tie of the logits or of a router pick
+   (:func:`moe_near_tie_rule`), the ranks' picks equal, each rank's
+   launches as counted (moe_gmm 3 a moe layer a pass, rmsnorm by form,
+   flash at mixtral's rank shape), each rank's peaks under limits from its
+   shard bytes; then moe_gmm at the per-rank shapes and flash at mixtral's
+   rank shape against their plain versions, timed beside torch.bmm and
+   SDPA;
 10. runs ``loss_fn`` through the frontends at full width and depth:
    hubert-xlarge on (2, 512) audio frames (non-causal flash, LayerNorm)
    and internvl2-26b (bf16 weights) on 256 patches + 256 text tokens,
@@ -1826,7 +1843,8 @@ def near_tie_rule(tag: str, got: dict, ref: dict, got_rows: dict, ref_rows: dict
     return {"disagreement": disagreement, "divergences": divergences}
 
 
-def tp_bf16_logits(tag: str, tp: torch.Tensor, one: torch.Tensor, f32: torch.Tensor) -> dict:
+def tp_bf16_logits(tag: str, tp: torch.Tensor, one: torch.Tensor, f32: torch.Tensor,
+                   gate: bool = True) -> dict:
     """One admission's bf16 logits of the TP leg and of the one-rank leg,
     each beside the float32 prefill on the same (bf16) weights. Two bf16
     programs that round in other places (cuBLAS picks its kernels by the
@@ -1835,7 +1853,7 @@ def tp_bf16_logits(tag: str, tp: torch.Tensor, one: torch.Tensor, f32: torch.Ten
     tolerance at a few logits near 0 (recorded, not gated; ROADMAP §3),
     while each is ~1.5% (relative L2) from float32. The gate: the TP leg no
     farther from float32 than the one-rank leg, but for the bf16
-    tolerance's 5e-2 of that distance."""
+    tolerance's 5e-2 of that distance (with ``gate``; else recorded)."""
     d = (tp - one).abs()
     tol = TOL[torch.bfloat16]
     beyond = int((d > tol[0] + tol[1] * one.abs()).sum())
@@ -1851,7 +1869,7 @@ def tp_bf16_logits(tag: str, tp: torch.Tensor, one: torch.Tensor, f32: torch.Ten
           f"{out['tp_to_f32_max_abs']:.4e} / rel L2 {out['tp_to_f32_rel_l2']:.4e}, one rank "
           f"{out['one_to_f32_max_abs']:.4e} / "
           f"rel L2 {out['one_to_f32_rel_l2']:.4e}; |logit| max {float(f32.abs().max()):.3f}")
-    if out["tp_to_f32_rel_l2"] > out["one_to_f32_rel_l2"] * (1 + tol[1]):
+    if gate and out["tp_to_f32_rel_l2"] > out["one_to_f32_rel_l2"] * (1 + tol[1]):
         raise AssertionError(f"{tag}: the TP leg's bf16 logits are farther from float32 "
                              f"({out['tp_to_f32_rel_l2']:.4e}) than the one-rank leg's "
                              f"({out['one_to_f32_rel_l2']:.4e}) allow")
@@ -2100,6 +2118,552 @@ def tp_phase(cfg, params, seed: int):
     out["phase_wall_s"] = time.perf_counter() - t0
     print(f"tp: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s)")
     return paths, out
+
+
+# --- tensor parallelism for MoE and MLA (the tp moe phase) ------------------------------
+TPM_CUT = 4   # deepseek's resize leg: 1 dense + 3 moe layers of its 27 (see tp_moe_phase)
+TPM_MIXTRAL = 4   # mixtral's layers of its 56, as the moe phase serves it
+# a rank's serving peak above its shards (caches, activations, the float32
+# prefills' casts of one layer's weights), and the slack of a rank's init
+# peak beyond its shards and one whole leaf at float32 with its redraw mask
+TPM_SERVE_SLACK, TPM_INIT_SLACK = 3e9, 2e9
+
+
+class RouteProbe:
+    """Every MoE layer's routing of the rows of each pass an engine runs,
+    keyed (request id, index of the token in its stream) as
+    :func:`record_rows` keys the logits: the picks and the top ``k + 1``
+    router probabilities of the rows, kept on the device until
+    :meth:`host` reads them. The probabilities are computed again beside
+    ``route`` (a product and a softmax a layer; no kernel of the port)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.calls, self.current = {}, None
+        self._mod, self._orig = moe_mod, moe_mod.route
+
+        def probed(router_w, x, cfg):
+            out = self._orig(router_w, x, cfg)
+            if self.current is not None:
+                top = torch.topk(torch.softmax(x.float() @ router_w.float(), dim=-1),
+                                 cfg.top_k + 1).values
+                for key, rows in self.current:
+                    self.calls.setdefault(key, []).append((out[1][rows], top[rows]))
+            return out
+        moe_mod.route = probed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._orig
+
+    def host(self) -> dict:
+        """{key: [(picks (rows, k), top probabilities (rows, k+1)) a layer]}
+        on the host, each row's picks sorted."""
+        return {k: [(i.reshape(-1, i.shape[-1]).sort(-1).values.cpu(),
+                     p.reshape(-1, p.shape[-1]).float().cpu()) for i, p in v]
+                for k, v in self.calls.items()}
+
+
+def probe_passes(engine, probe: "RouteProbe") -> None:
+    """Point ``probe`` at the rows of each pass of ``engine``: an admission's
+    context rows, a decode step's row of each active slot (after
+    :func:`record_rows`, around its wrappers)."""
+    into_slot, decode = engine._context_into_slot, engine._decode_active
+
+    def admitted(slot, req, context):
+        probe.current = [((req.id, len(req.generated)), slice(None))]
+        try:
+            return into_slot(slot, req, context)
+        finally:
+            probe.current = None
+
+    def stepped(pos):
+        probe.current = [((req.id, len(req.generated)), slot)
+                         for slot, req in engine.batcher.active().items()]
+        try:
+            return decode(pos)
+        finally:
+            probe.current = None
+
+    engine._context_into_slot, engine._decode_active = admitted, stepped
+
+
+def route_flips(got: dict, ref: dict, keys) -> tuple:
+    """Over the passes ``keys`` (run on the same context by both legs), in
+    stream order: the first layer of each pass where the legs' picks
+    differ, with the reference leg's router margin there (its k-th
+    probability less its (k+1)-th at the first row that differs), and the
+    legs' router disagreement: the largest difference of their top k+1
+    probabilities over the rows whose picks agree, in the layers up to and
+    including the first differing one, in the passes of a request before
+    any pick of it differed (the rounding noise of one function, not of two
+    routings). Returns (flips {key: {...}}, disagreement)."""
+    flips, disagreement, flipped = {}, 0.0, set()
+    for key in sorted(k for k in keys if k in got and k in ref):
+        for layer, ((gi, gp), (ri, rp)) in enumerate(zip(got[key], ref[key])):
+            differ = (gi != ri).any(-1)
+            if key[0] not in flipped and not bool(differ.all()):
+                disagreement = max(disagreement, float((gp - rp)[~differ].abs().max()))
+            if bool(differ.any()):
+                row = int(differ.nonzero()[0, 0])
+                k = ri.shape[-1]
+                flips[key] = {"layer": layer, "row": row,
+                              "one_rank_margin": float(rp[row, k - 1] - rp[row, k]),
+                              "got": gi[row].tolist(), "one_rank": ri[row].tolist()}
+                break
+        if key in flips:
+            flipped.add(key[0])
+    return flips, disagreement
+
+
+def moe_near_tie_rule(tag: str, got: dict, ref: dict, got_rows: dict, ref_rows: dict,
+                      got_routes: dict, ref_routes: dict) -> dict:
+    """:func:`near_tie_rule` for a MoE model, where a router pick that
+    differs between the legs changes every later row of its request: the
+    streams ``got`` against the reference leg's ``ref`` are equal, or each
+    request diverges only (1) where the reference's top-2 logit margin is
+    within the legs' logit disagreement measured over the rows of the same
+    context before any pick of the request differed, or (2) after a pick
+    that differed where the reference's router margin is within the legs'
+    router disagreement (:func:`route_flips`). Records every request's
+    first differing pick and its router margin."""
+    same = [k for k in ref_rows if k in got_rows and got[k[0]][:k[1]] == ref[k[0]][:k[1]]]
+    flips, router_dis = route_flips(got_routes, ref_routes, same)
+
+    def first_flip(rid, upto):
+        return next((flips[rid, j] for j in range(upto + 1) if (rid, j) in flips), None)
+
+    clean = [k for k in same if first_flip(*k) is None]
+    logit_dis = max((float((got_rows[k] - ref_rows[k]).abs().max()) for k in clean), default=0.0)
+    divergences = []
+    for rid, want in ref.items():
+        i = _common_prefix(got[rid], want)
+        if i == len(want) and len(got[rid]) == len(want):
+            continue
+        top2 = torch.topk(ref_rows[rid, i], 2).values
+        div = {"request": rid, "index": i, "got": got[rid][i], "one_rank": want[i],
+               "one_rank_margin": float(top2[0] - top2[1]),
+               "got_logit_gap": float(got_rows[rid, i][got[rid][i]]
+                                      - got_rows[rid, i][want[i]]),
+               "earlier_flip": first_flip(rid, i)}
+        divergences.append(div)
+        flip = div["earlier_flip"]
+        if div["one_rank_margin"] <= logit_dis or (
+                flip is not None and flip["one_rank_margin"] <= router_dis):
+            continue
+        raise AssertionError(f"{tag}: request {rid} diverges at token {i} ({got[rid][i]} "
+                             f"against {want[i]}): the logit margin {div['one_rank_margin']} "
+                             f"exceeds the legs' disagreement {logit_dis}, and no earlier "
+                             f"router pick differs within the router disagreement "
+                             f"{router_dis} ({flip})")
+    firsts = {rid: min((j for r, j in flips if r == rid), default=None) for rid in ref}
+    out = {"disagreement": logit_dis, "router_disagreement": router_dis,
+           "divergences": divergences,
+           "route_flips": {f"{rid}:{j}": flips[rid, j] for rid, j in firsts.items()
+                           if j is not None}}
+    print(f"{tag}: rows of the same context {len(same)} ({len(clean)} before any pick "
+          f"differed), largest logit difference there {logit_dis:.4e}; router disagreement "
+          f"{router_dis:.4e}; first differing picks {out['route_flips'] or 'none'}; "
+          f"divergences {divergences or 'none'}")
+    return out
+
+
+def tp_moe_config(arch: str, n_layers=None):
+    from repro_torch.configs import get_config, with_kernel_impls
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16",
+                              **({"n_layers": n_layers} if n_layers else {}))
+    return with_kernel_impls(cfg, "auto")
+
+
+def tp_moe_expect(cfg, prefills: int, passes: int) -> dict:
+    """The launches of ``passes`` (``prefills`` of them admissions) on one
+    rank: every norm on rmsnorm, moe_gmm 3 a moe layer a pass, flash once a
+    GQA layer an admission, none under MLA."""
+    return dict(forward_counts(cfg, passes),
+                flash_attention=0 if cfg.use_mla else cfg.n_layers * prefills)
+
+
+def tp_moe_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
+    """The one-rank leg in this process, first: the seeded bf16 weights in
+    an ``ElasticReplica`` of one member serving ``prompts`` with every
+    launch counted and every logits row and route recorded, then the
+    float32 prefills on the served bf16 values; everything freed on
+    return. Returns (launches, the leg's numbers)."""
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    rep = ElasticReplica(cfg, params, 1, n_slots=TP_SLOTS, max_seq=TP_SEQ, device="cuda")
+    del params
+    rows, walls = {}, []
+    with RouteProbe() as probe, _CountPrefills() as passes:
+        record_rows(rep.engine, rows)   # after _CountPrefills, which patches the class
+        probe_passes(rep.engine, probe)
+        reset_launch_counts()
+        for i, p in enumerate(prompts):
+            rep.add(GenRequest(id=i, prompt=p, max_new=TP_NEW))
+        while rep.batcher.active():
+            t = time.perf_counter()
+            rep.step()
+            walls.append(1e3 * (time.perf_counter() - t))
+        counts, forms = launch_counts(), rmsnorm_form_counts()
+    n = passes.n + passes.steps
+    counts = check_counts(tag, cfg, counts, forms, tp_moe_expect(cfg, passes.n, n), n)
+    streams = {r.id: list(r.generated) for r in rep.run()}
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = [M.prefill(rep.engine.params, {"tokens": torch.tensor([p], device="cuda")},
+                     c32)[0][0, :cfg.vocab_size].cpu() for p in prompts]
+    out = {"streams": streams, "rows": rows, "routes": probe.host(), "f32": f32,
+           "step_ms": statistics.median(walls), "peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": rep.param_bytes}
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag}: {passes.n} prefills, {passes.steps} decode steps, step median "
+          f"{out['step_ms']:.2f} ms, peak {out['peak_bytes']} bytes")
+    return counts, out
+
+
+def tp_moe_rank(tp, seed: int, legs) -> dict:
+    """One rank of the tp moe phase (started by ``spawn_tp``). For each leg
+    ``(name, arch, layers, prompts, plan)``: this rank's bf16 shards drawn
+    by ``init_params(..., tp=tp)`` (the ranks in turn, so one rank draws
+    while the other holds only its shards), an ``ElasticReplica`` over them
+    (``sharded``); rank 0 serves the prompts at TP 2 (the collectives timed
+    on a leg without a plan) and, for a leg with a plan ``{steps: gang
+    size}``, serves them again resizing mid-stream; the other rank follows.
+    Each rank returns its launches, passes, memory, logits rows and routes
+    (rank 0), the float32 prefills on its shards (a leg without a plan)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.elastic_serving import ElasticReplica
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for name, arch, layers, prompts, plan in legs:
+        cfg = tp_moe_config(arch, layers)
+        out = {"rank": tp.rank, "backend": tp.backend}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for r in range(tp.size):   # one rank draws at a time
+            if r == tp.rank:
+                torch.cuda.reset_peak_memory_stats()
+                shards = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                                       tp.device, tp=tp)
+                torch.cuda.synchronize()
+                out["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        out["init_s"] = time.perf_counter() - t0
+        out["card_used_bytes"] = torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0]
+        rep = ElasticReplica(cfg, shards, 2, n_slots=TP_SLOTS, max_seq=TP_SEQ, tp=tp,
+                             sharded=True)
+        del shards
+        out.update(shard_bytes=M.nbytes(rep.params), whole_bytes=rep.param_bytes,
+                   largest_leaf=max(int(np.prod(s.shape)) for s in
+                                    M.tree_leaves(M.param_specs(cfg))))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        tpar.reset_stats()
+        runs = [{}] if not plan else [{}, dict(plan)]
+        with RouteProbe() as probe, _CountPrefills() as passes:
+            out["routes"] = None
+            if tp.rank != 0:   # its picks, to hold against rank 0's
+                probe_passes(rep.engine, probe)
+                rep.follow()
+                out["routes"] = probe.host()
+            else:
+                out["runs"] = []
+                for run in runs:
+                    rows, walls, coll, resizes = {}, [], [], []
+                    probe.calls = {}
+                    tpar.time_collectives(not plan)
+                    record_rows(rep.engine, rows)
+                    probe_passes(rep.engine, probe)
+                    for i, p in enumerate(prompts):
+                        rep.add(GenRequest(id=i, prompt=p, max_new=TP_NEW))
+                    steps = 0
+                    while rep.batcher.active():
+                        if steps in run:
+                            torch.cuda.synchronize()
+                            mem0 = torch.cuda.memory_allocated()
+                            rec = rep.resize(run.pop(steps))
+                            torch.cuda.synchronize()
+                            resizes.append({"record": dataclasses.asdict(rec), **rep.last_resize,
+                                            "allocated_before_bytes": mem0,
+                                            "allocated_after_bytes":
+                                                torch.cuda.memory_allocated()})
+                            record_rows(rep.engine, rows)
+                            probe_passes(rep.engine, probe)
+                        c0 = tpar.STATS["seconds"]
+                        t = time.perf_counter()
+                        rep.step()   # ends in a host copy of the picked tokens
+                        walls.append((rep.mesh_size, 1e3 * (time.perf_counter() - t)))
+                        coll.append(1e3 * (tpar.STATS["seconds"] - c0))
+                        steps += 1
+                    out["runs"].append({
+                        "streams": {r.id: list(r.generated) for r in rep.run()}, "rows": rows,
+                        "routes": probe.host(), "step_ms": walls, "collective_ms": coll,
+                        "resizes": resizes})
+                tpar.time_collectives(False)
+                rep.close()
+            out["counts"], out["forms"] = launch_counts(), rmsnorm_form_counts()
+        out["passes"] = {"prefills": passes.n, "steps": passes.steps}
+        out["collectives"] = dict(tpar.STATS)
+        out["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if not plan:
+            # float32 prefills on the same (bf16-valued) shards, every rank
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            out["f32_logits"] = [
+                M.prefill(rep.params, {"tokens": torch.tensor([p], device=tp.device)}, c32,
+                          rep.mesh.tp)[0][0, :cfg.vocab_size].cpu() for p in prompts]
+        del rep
+        results[name] = out
+    return results
+
+
+def tp_moe_kernels(gen: torch.Generator) -> dict:
+    """The kernels at this phase's per-rank shapes, each against its plain
+    version and timed beside its library yardstick: moe_gmm (bf16, the
+    capacity path's (E_local, cap, D) buffers) for deepseek's 32 of 64
+    experts (2048 -> 1408; its decode wave, its 128- and 512-token
+    admissions), mixtral's 4 of 8 experts (6144 -> 16384) and the
+    in-expert cut of mixtral's 8 experts over 2 ranks (6144 -> 8192), each
+    at a decode wave and a 128-token admission, both row tiles; flash at
+    mixtral's rank shape, 24 query heads on 4 KV heads, window 4096."""
+    from repro_torch.kernels.moe_gmm import row_tile
+    from repro_torch.kernels.ops import flash_attention_op, moe_gmm_op
+    from repro_torch.kernels.ref import flash_attention_ref, moe_gmm_tiles_ref
+
+    out = {"moe_gmm": {}, "err": 0.0}
+    # (label, experts a rank, cap, D, F): cap from the GLOBAL expert count,
+    # 4 tokens a decode wave, 128 (and for deepseek 512) an admission
+    cases = (("deepseek EP decode", 32, 8, 2048, 1408),
+             ("deepseek EP decode w_down", 32, 8, 1408, 2048),
+             ("deepseek EP prefill 128", 32, 16, 2048, 1408),
+             ("deepseek EP prefill 512", 32, 64, 2048, 1408),
+             ("mixtral EP decode", 4, 8, 6144, 16384),
+             ("mixtral EP prefill 128", 4, 40, 6144, 16384),
+             ("in-expert decode", 8, 8, 6144, 8192),
+             ("in-expert prefill 128", 8, 40, 6144, 8192))
+    for label, e, cap, d, f in cases:
+        t = e * cap
+        lhs = torch.randn(t, d, device="cuda", generator=gen).to(torch.bfloat16)
+        rhs = (torch.randn(e, d, f, device="cuda", generator=gen) * d ** -0.5).to(torch.bfloat16)
+        te = torch.arange(e, device="cuda", dtype=torch.int32)
+        name = f"moe_gmm {label} lhs ({t},{d}) rhs ({e},{d},{f}) block_t {cap} bf16"
+        err = check_close(name, moe_gmm_op(lhs, rhs, te, block_t=cap),
+                          moe_gmm_tiles_ref(lhs, rhs, te, cap), TOL[torch.bfloat16])
+        buf = lhs.view(e, cap, d)
+        check_close(f"{name} library yardstick (torch.bmm) vs plain",
+                    torch.bmm(buf, rhs).reshape(t, f), moe_gmm_tiles_ref(lhs, rhs, te, cap),
+                    TOL[torch.bfloat16])
+        out["err"] = max(out["err"], err)
+        bound, by = gmm_bound(lhs, rhs, te)
+        tm = time_three(lambda: moe_gmm_op(lhs, rhs, te, block_t=cap),
+                        lambda: moe_gmm_tiles_ref(lhs, rhs, te, cap),
+                        lambda: torch.bmm(buf, rhs), plain_graph=False)
+        tm.update(bound_ms=bound, bound_by=by, err=err,
+                  shape=f"{label}: lhs ({t},{d}) rhs ({e},{d},{f}) block_t {cap} bf16, "
+                        f"{row_tile(t, e)}-row tiles; library: torch.bmm over the capacity "
+                        f"buffer")
+        report(f"moe_gmm {label}", tm)
+        out["moe_gmm"][label] = tm
+        del lhs, rhs, buf
+    b, h, kv, s, dd, window = 1, 24, 4, 128, 128, 4096
+    q, k, v = (torch.randn(b, s, n, dd, device="cuda", generator=gen).to(torch.bfloat16)
+               .transpose(1, 2) for n in (h, kv, kv))
+    err = check_close("flash mixtral rank (b=1,h=24,kv=4,s=128,d=128) window 4096 bf16",
+                      flash_attention_op(q, k, v, causal=True, window=window),
+                      flash_attention_ref(q, k, v, causal=True, window=window),
+                      TOL[torch.bfloat16])
+    k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+    bound, by = flash_bound(b, h, kv, s, dd, torch.bfloat16, causal=True, window=window)
+    tm = time_three(lambda: flash_attention_op(q, k, v, causal=True, window=window),
+                    lambda: flash_attention_ref(q, k, v, causal=True, window=window),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k_rep, v_rep, is_causal=True))
+    tm.update(bound_ms=bound, bound_by=by, err=err,
+              shape=f"q ({b},{h},{s},{dd}) kv {kv} causal window {window} bf16 (window > S); "
+                    f"library: SDPA causal, K/V repeated")
+    report("flash_attention mixtral rank", tm)
+    out["flash_attention"] = tm
+    out["err"] = max(out["err"], err)
+    return out
+
+
+def tp_moe_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dict:
+    """The gates of one served leg against its reference leg ``one``: the
+    float32 prefills (where the ranks ran them), the bf16 admissions, the
+    streams (:func:`moe_near_tie_rule`), each rank's launches."""
+    summary = {}
+    if "f32_logits" in r0:
+        errs = [check_close(f"{tag} f32 prefill request {rid}, 2 ranks against one",
+                            r0["f32_logits"][rid], one["f32"][rid], SLICE_TOL)
+                for rid in range(len(one["f32"]))]
+        summary["f32_max_abs_err"] = max(errs)
+        print(f"{tag}: float32 prefill logits on the served bf16 values, 2 ranks against one: "
+              f"max abs err {max(errs):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
+        # recorded, not gated: a router pick that differs in a bf16
+        # admission changes its logits beyond rounding
+        differ = route_flips(got["routes"], one["routes"],
+                             [(rid, 0) for rid in range(len(one["f32"]))])[0]
+        summary["admission_logits"] = [
+            dict(tp_bf16_logits(f"{tag} request {rid}", got["rows"][rid, 0],
+                                one["rows"][rid, 0], one["f32"][rid], gate=False),
+                 picks_differ=(rid, 0) in differ) for rid in range(len(one["f32"]))]
+    summary.update(moe_near_tie_rule(tag, got["streams"], one["streams"], got["rows"],
+                                     one["rows"], got["routes"], one["routes"]))
+    summary["streams_equal"] = got["streams"] == one["streams"]
+    if any(len(t) != TP_NEW for t in got["streams"].values()):
+        raise AssertionError(f"{tag}: a stream is not {TP_NEW} long")
+    counts = {}
+    for r in leg_ranks:
+        n = r["passes"]["prefills"] + r["passes"]["steps"]
+        counts[f"{tag} rank {r['rank']}"] = check_counts(
+            f"{tag} rank {r['rank']}", cfg, r["counts"], r["forms"],
+            tp_moe_expect(cfg, r["passes"]["prefills"], n), n)
+    return summary, counts
+
+
+def tp_moe_phase(seed: int):
+    """Tensor parallelism for MoE and MLA on the card: two ranks on the one
+    card (gloo) serve (a) full-width, full-depth deepseek-v2-lite-16b and
+    (c) full-width mixtral-8x22b at 4 of 56 layers at TP 2, each rank
+    drawing only its shards, against the one-rank replica on the same
+    seeded weights, run first in this process and freed; (b) full-width
+    deepseek cut to 1 dense + 3 moe layers shrinks 2 -> 1 and grows 1 -> 2
+    mid-stream (``migrate``) against its unbroken 2-rank run (depth cut:
+    gloo moves a shrink's gathered leaves through host memory at about
+    0.35 GB/s on one card, about 15 GB a rank at full depth); then the
+    kernels at the per-rank shapes. Returns (launches by path, numbers)."""
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 24)
+    dsa, mxa = "deepseek-v2-lite-16b", "mixtral-8x22b"
+    ds, mx = tp_moe_config(dsa), tp_moe_config(mxa, TPM_MIXTRAL)
+    cut = tp_moe_config(dsa, TPM_CUT)
+    prompts = {a: rng.integers(0, c.vocab_size, size=(TP_REQ, TP_PROMPT)).tolist()
+               for a, c in ((dsa, ds), (mxa, mx))}
+    print(f"tp moe: 2 ranks on one card, {TP_REQ} requests of {TP_PROMPT} + {TP_NEW} new, "
+          f"{TP_SLOTS} slots, max_seq {TP_SEQ}; deepseek a rank {ds.n_heads // 2} MLA heads, "
+          f"experts {ds.n_experts // 2} of {ds.n_experts} (top {ds.top_k} of all), shared "
+          f"width {ds.moe_d_ff * ds.n_shared_experts // 2}, layer 0 d_ff {ds.d_ff // 2}; "
+          f"mixtral ({mx.n_layers} layers) {mx.n_heads // 2} heads on {mx.n_kv_heads // 2} KV "
+          f"heads, experts {mx.n_experts // 2} of {mx.n_experts}")
+    paths, one = {}, {}
+    for tag, arch, cfg in (("tp moe deepseek one rank", dsa, ds),
+                           ("tp moe mixtral one rank", mxa, mx)):
+        paths[tag], one[arch] = tp_moe_one_rank(tag, cfg, seed, prompts[arch])
+    legs = (("a", dsa, None, prompts[dsa], None),
+            ("b", dsa, TPM_CUT, prompts[dsa],
+             {TP_SHRINK_AFTER: 1, TP_SHRINK_AFTER + TP_GROW_AFTER: 2}),
+            ("c", mxa, TPM_MIXTRAL, prompts[mxa], None))
+    t1 = time.perf_counter()
+    ranks = spawn_tp(tp_moe_rank, 2, device="cuda:0", args=(seed, legs), timeout=900)
+    spawn_s = time.perf_counter() - t1
+    out = {"spawn_s": spawn_s}
+    for leg, cfg, ref_key, label in (("a", ds, dsa, "deepseek tp 2"),
+                                     ("b", cut, None, "deepseek cut 2 -> 1 -> 2"),
+                                     ("c", mx, mxa, "mixtral tp 2")):
+        rs = [r[leg] for r in ranks]
+        r0 = rs[0]
+        tag = f"tp moe {leg} ({label})"
+        for r in rs:
+            if r["backend"] != "gloo":
+                raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
+            init_limit = r["shard_bytes"] + 5 * r["largest_leaf"] + TPM_INIT_SLACK
+            # a resize holds the old shards and the gathered whole leaves
+            held = r["shard_bytes"] + (r["whole_bytes"] if leg == "b" else 0)
+            serve_limit = held + TPM_SERVE_SLACK
+            print(f"{tag} rank {r['rank']}: init {r['init_s']:.2f} s, shard {r['shard_bytes']} "
+                  f"of {r['whole_bytes']} parameter bytes, init peak {r['init_peak_bytes']} "
+                  f"(limit {init_limit:.0f}: the shards, one whole leaf of "
+                  f"{r['largest_leaf']} elements at float32 and its mask, "
+                  f"{TPM_INIT_SLACK:.0f}), serving peak {r['serve_peak_bytes']} (limit "
+                  f"{serve_limit:.0f}), card in use after both inits {r['card_used_bytes']}, "
+                  f"passes {r['passes']}, collectives {r['collectives']}")
+            if r["init_peak_bytes"] > init_limit or r["serve_peak_bytes"] > serve_limit:
+                raise AssertionError(f"{tag} rank {r['rank']}: peaks {r['init_peak_bytes']} / "
+                                     f"{r['serve_peak_bytes']} over {init_limit} / "
+                                     f"{serve_limit}")
+            if r["shard_bytes"] * 2 > r["whole_bytes"] * 1.1:
+                raise AssertionError(f"{tag}: a rank holds {r['shard_bytes']} of "
+                                     f"{r['whole_bytes']} bytes")
+        both = sum(r["serve_peak_bytes"] for r in rs)
+        both_limit = (r0["whole_bytes"] * (3 if leg == "b" else 1) + sum(
+            r["shard_bytes"] for r in rs) * 0.1 + 2 * TPM_SERVE_SLACK)
+        print(f"{tag}: both ranks' serving peaks {both} bytes (limit {both_limit:.0f})")
+        if both > both_limit:
+            raise AssertionError(f"{tag}: both ranks' serving peaks {both} > {both_limit}")
+        summary = {"rank_init_peak_bytes": [r["init_peak_bytes"] for r in rs],
+                   "rank_serve_peak_bytes": [r["serve_peak_bytes"] for r in rs],
+                   "shard_bytes": [r["shard_bytes"] for r in rs],
+                   "whole_bytes": r0["whole_bytes"], "init_s": [r["init_s"] for r in rs]}
+        if leg == "b":
+            unbroken, resized = r0["runs"]
+            gate, counts = tp_moe_gate(tag, cfg, unbroken, {}, resized, rs)
+            kv_total = tp_cache_bytes(cfg)
+            for rz in resized["resizes"]:
+                rec = rz["record"]
+                frac = abs(rec["n_before"] - rec["n_after"]) / max(rec["n_before"],
+                                                                    rec["n_after"])
+                want = {"param_bytes": int(r0["whole_bytes"] * frac),
+                        "kv_bytes": int(kv_total * frac)}
+                if {k: rec[k] for k in want} != want:
+                    raise AssertionError(f"{tag}: record bytes {rec} against the shapes' {want}")
+                print(f"{tag}: {rec['n_before']} -> {rec['n_after']} ranks, wall "
+                      f"{rec['wall_s'] * 1e3:.1f} ms, gathered {rz['gathered_bytes']} bytes, "
+                      f"shipped {rz['shipped_bytes']} bytes, record bytes "
+                      f"{rec['param_bytes']} + {rec['kv_bytes']}")
+            summary["resizes"] = resized["resizes"]
+            steps = resized["step_ms"]
+        else:
+            got = r0["runs"][0]
+            # the ranks route alike: rank 1's picks are rank 0's
+            for key, layers in got["routes"].items():
+                theirs = rs[1]["routes"].get(key)
+                if theirs is None or any(not torch.equal(a[0], b[0])
+                                         for a, b in zip(layers, theirs)):
+                    raise AssertionError(f"{tag}: rank 1's picks differ from rank 0's at {key}")
+            gate, counts = tp_moe_gate(tag, cfg, one[ref_key], r0, got, rs)
+            steps = got["step_ms"]
+            tp2 = [ms for size, ms in steps if size == 2]
+            summary.update(one_rank_step_ms=one[ref_key]["step_ms"],
+                           collective_ms_per_step=statistics.median(got["collective_ms"]),
+                           collective_share=sum(got["collective_ms"]) / sum(tp2))
+        summary.update(gate, step_ms_tp2=statistics.median([ms for size, ms in steps if size == 2]),
+                       step_ms_tp1=statistics.median([ms for size, ms in steps if size == 1]
+                                                     or [float("nan")]))
+        print(f"{tag}: decode step median {summary['step_ms_tp2']:.2f} ms at 2 ranks"
+              + (f", {summary['step_ms_tp1']:.2f} ms at 1" if leg == "b" else
+                 f" (one rank {summary['one_rank_step_ms']:.2f} ms); collectives "
+                 f"{summary['collective_ms_per_step']:.2f} ms a step, "
+                 f"{summary['collective_share']:.3f} of the steps (a synchronisation around "
+                 f"each)") + f"; streams equal: {summary['streams_equal']}")
+        paths.update(counts)
+        out[f"leg_{leg}"] = summary
+    out["kernels"] = tp_moe_kernels(torch.Generator(device="cuda").manual_seed(seed + 24))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"tp moe: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s)")
+    return paths, out
+
+
+def tp_cache_bytes(cfg) -> int:
+    """Bytes of the whole decode cache of a replica of ``TP_SLOTS`` slots
+    and ``TP_SEQ`` positions (the latent cache under MLA)."""
+    from repro_torch.models import model as M
+    return M.nbytes(M.cache_spec(cfg, TP_SLOTS, TP_SEQ))
 
 
 def moe_phase(seed: int):
@@ -3480,6 +4044,7 @@ def main(argv=None) -> int:
     serving.update(hybrid_serving)
     mla_counts, mla_serving = phase("mla", mla_phase, args.seed)
     serving.update(mla_serving)
+    tp_moe_counts, serving["tp_moe"] = phase("tp moe", tp_moe_phase, args.seed)
     frontend_counts, serving["frontend"] = phase("frontend", frontend_phase, args.seed)
     stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
     serving.update(stablelm_serving)
@@ -3498,6 +4063,7 @@ def main(argv=None) -> int:
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
              **{f"elastic {k}": v for k, v in elastic_counts.items()}, **tp_counts,
+             **tp_moe_counts,
              "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
              "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
              "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,

@@ -223,7 +223,7 @@ class MigrationProtocol:
             else:
                 state["replay"] = engine.drain()
             trees = (replica.params, engine.cache if transplant else None)
-            gathered = (old_tp.size - 1) * sum(_split_bytes(t, cfg, c)
+            gathered = (old_tp.size - 1) * sum(_split_bytes(t, cfg, old_tp.size, c)
                                                for t, c in zip(trees, (False, True)) if t)
             whole = tuple(None if t is None else
                           map_with_names(lambda n, x, c=c: gather_shards(x, n, cfg, old_tp, c), t)
@@ -282,10 +282,11 @@ class MigrationProtocol:
             n_requests_live=state["live"], wall_s=time.perf_counter() - t0)
 
 
-def _split_bytes(tree: Any, cfg, cache: bool) -> int:
-    """Bytes of the leaves of ``tree`` that are split over the ranks."""
+def _split_bytes(tree: Any, cfg, size: int, cache: bool) -> int:
+    """Bytes of the leaves of ``tree`` that are split over ``size`` ranks."""
     return sum(tree_leaves(map_with_names(
-        lambda n, t: t.numel() * t.element_size() if tp_split(n, cache) else 0, tree)))
+        lambda n, t: t.numel() * t.element_size() if tp_split(n, cfg, size, cache) else 0,
+        tree)))
 
 
 def _at(tree: Any, names) -> Any:

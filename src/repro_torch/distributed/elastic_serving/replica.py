@@ -22,15 +22,19 @@ bits are the same as a cast of ``params``.
 Over a tensor-parallel group (``tp``: every rank that may serve, the
 world of ``distributed.tensor_parallel``) the replica is physical: every
 rank builds it alike from the whole parameters and keeps its shard, the
-active gang being the first ``min(n_members, tp.size)`` ranks. Rank 0 keeps
-the API: ``add``, ``step``, ``run``, ``serve``, ``drain`` and ``resize``
-send a small command to the other ranks first, which sit in :meth:`follow`
-and run the same call on their shards (a rank outside the gang ignores
-every call but a resize, which may bring it in). :meth:`close` ends their
-loops. :attr:`serving_engine` is what the platform drives.
+active gang being the first ``min(n_members, tp.size)`` ranks; or, with
+``sharded``, from its shards alone (``init_params(..., tp=tp)`` or
+``params_from_numpy(..., tp=tp)``), so no rank ever holds the whole tree.
+Rank 0 keeps the API: ``add``, ``step``, ``run``, ``serve``, ``drain`` and
+``resize`` send a small command to the other ranks first, which sit in
+:meth:`follow` and run the same call on their shards (a rank outside the
+gang ignores every call but a resize, which may bring it in).
+:meth:`close` ends their loops. :attr:`serving_engine` is what the
+platform drives.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig
@@ -41,6 +45,7 @@ from repro_torch.distributed.elastic_serving.mesh import (serving_mesh, tree_byt
 from repro_torch.distributed.elastic_serving.migration import (MigrationProtocol,
                                                                MigrationRecord)
 from repro_torch.distributed.sharding import mesh_device
+from repro_torch.models.model import param_specs, tree_leaves, tree_map
 from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import ContinuousEngine
 
@@ -54,14 +59,16 @@ class ElasticReplica:
     device that exists; ``device`` ``None`` is the card (raising without
     CUDA; pass ``device="cpu"``). With ``tp`` the mesh is the group's first
     ``min(n_members, tp.size)`` ranks and each holds its shard (see the
-    module docstring); the group's devices place them.
+    module docstring); the group's devices place them. ``sharded``: the
+    ``params`` given are already this rank's shards for a gang of every
+    rank of ``tp``.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, n_members: int, *,
                  n_slots: int = 4, max_seq: int = 64,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
                  seed: int = 0, kv_mode: str = "migrate",
-                 device: DeviceLike = None, tp=None):
+                 device: DeviceLike = None, tp=None, sharded: bool = False):
         tpar.tp_local(cfg, tp)   # an architecture tensor parallelism does not cover raises
         self.cfg = cfg
         self.n_members = int(n_members)
@@ -74,8 +81,18 @@ class ElasticReplica:
         self._devices = None if tp is not None else [resolve_device(device)]
         self.protocol = MigrationProtocol(kv_mode)
         self.mesh = self._mesh(self.n_members)
-        self._param_bytes = tree_bytes(params)
-        self.params = reshard_in_place(params, cfg, self.mesh) if self.in_gang else None
+        if sharded:
+            if tp is None or self.mesh_size != tp.size:
+                raise ValueError(f"sharded parameters need a gang over every rank of a group; "
+                                 f"{self.n_members} members span {self.mesh_size} of "
+                                 f"{tp and tp.size} ranks")
+            pd = cfg.param_torch_dtype
+            self._param_bytes = sum(math.prod(s.shape) * pd.itemsize
+                                    for s in tree_leaves(param_specs(cfg)))
+            self.params = tree_map(lambda t: t.to(tp.device), params)
+        else:
+            self._param_bytes = tree_bytes(params)
+            self.params = reshard_in_place(params, cfg, self.mesh) if self.in_gang else None
         self.engine = None
         self.engine = self._fresh_engine() if self.in_gang else None
         self.migrations: List[MigrationRecord] = []

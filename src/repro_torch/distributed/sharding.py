@@ -18,11 +18,17 @@ Placement. A mesh that a :class:`~repro_torch.distributed.tensor_parallel.TPGrou
 covers (``Mesh(..., tp=group)``, one rank a device) places each rank's
 shard on that rank's device (:func:`mesh_device`); the ranks run the model
 SPMD and meet at explicit collectives. The shard is head-aligned
-(:func:`local_shard`): the columns of ``wq``/``bq`` of the rank's query
-heads, the columns of ``wk``/``wv``/``bk``/``bv`` of its KV heads, the rows
-of ``wo`` of its query heads, the columns of ``w_gate``/``w_up`` and the rows
-of ``w_down`` of its slice of ``d_ff``, the vocabulary rows of ``tokens`` and
-columns of ``lm_head``, and the cache's KV heads; norm scales stay whole.
+(:func:`local_shard`, by the leaf's path, :func:`tp_split`): the columns of
+``wq``/``bq`` of the rank's query heads, the columns of ``wk``/``wv``/
+``bk``/``bv`` of its KV heads, the rows of ``wo`` of its query heads, the
+columns of ``w_gate``/``w_up`` and the rows of ``w_down`` of its slice of
+``d_ff``, the vocabulary rows of ``tokens`` and columns of ``lm_head``, and
+the cache's KV heads; MLA's ``wq``/``w_uk``/``w_uv`` columns and ``wo``
+rows of its heads; a routed expert leaf's run of whole experts where the
+experts divide over the ranks (``repro``'s ``_EXPERT_RULES_EP``), else its
+slice of every expert's ``moe_d_ff`` (``_EXPERT_RULES_TP``); a shared
+expert's slice of its width. Norm scales, the router, MLA's ``w_dkv`` and
+``w_krope`` and its latent cache stay whole.
 That is ``repro``'s spec on every leaf where a whole number of heads falls
 to each rank. Where there are fewer KV heads than ranks (qwen2.5-3b's one
 KV head at smoke size on 2 or 4 ranks, its two at full size on 4), ``repro``
@@ -50,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.distributed.tensor_parallel import all_gather, device_key
+from repro_torch.distributed.tensor_parallel import all_gather, device_key, expert_parallel
 from repro_torch.models.model import tree_map
 
 
@@ -356,71 +362,114 @@ _TP_SPLITS: Dict[str, Tuple[str, int]] = {
     "w_gate": ("ff", -1), "w_up": ("ff", -1), "w_down": ("ff", -2),
     "tokens": ("vocab", -2), "lm_head": ("vocab", -1),
 }
+# MLA's heads: the query's heads x (nope + rope) columns, the up-projections'
+# heads x nope / heads x v_head columns, wo's heads x v_head rows. w_dkv,
+# w_krope and the latent cache "c" stay whole on every rank.
+_TP_MLA_SPLITS: Dict[str, Tuple[str, int]] = {
+    "wq": ("mla_q", -1), "w_uk": ("mla_uk", -1), "w_uv": ("mla_uv", -1), "wo": ("mla_o", -2)}
+# the feed-forward leaves of a routed or shared expert: the axis of moe_d_ff
+_TP_EXPERT_FF_AXIS: Dict[str, int] = {"w_gate": -1, "w_up": -1, "w_down": -2}
 _TP_CACHE_SPLITS: Dict[str, Tuple[str, int]] = {"k": ("kv_heads", -2), "v": ("kv_heads", -2)}
 
 
-def tp_split(names: Sequence[str], cache: bool = False) -> Optional[Tuple[str, int]]:
-    """(what splits, axis) of the leaf at ``names`` under tensor
-    parallelism, or None for a leaf every rank holds whole."""
-    return (_TP_CACHE_SPLITS if cache else _TP_SPLITS).get(names[-1])
+def tp_split(names: Sequence[str], cfg, size: int,
+             cache: bool = False) -> Optional[Tuple[str, int]]:
+    """(what splits, axis) of the leaf at ``names`` of the global ``cfg``
+    over ``size`` ranks, or None for a leaf every rank holds whole. The
+    path decides, as ``repro``'s ``param_specs``: a leaf under ``moe`` and
+    not under ``shared`` is a routed expert's ``(E, D, F)`` / ``(E, F, D)``,
+    cut into whole experts on axis -3 (``"experts"``, expert-parallel, ``E %
+    size == 0``) or else on its ``moe_d_ff`` axis (``"expert_ff"``); a
+    shared expert's leaf is cut on its ``moe_d_ff x n_shared_experts``
+    axis (``"shared_ff"``); MLA's ``wq``, ``w_uk``, ``w_uv`` and ``wo``
+    by heads. The router, the norms, ``w_dkv``, ``w_krope`` and MLA's
+    latent cache stay whole."""
+    key = names[-1]
+    if cache:
+        return _TP_CACHE_SPLITS.get(key)
+    if "moe" in names and key in _TP_EXPERT_FF_AXIS:
+        if "shared" in names:
+            return "shared_ff", _TP_EXPERT_FF_AXIS[key]
+        if expert_parallel(cfg, size):
+            return "experts", -3
+        return "expert_ff", _TP_EXPERT_FF_AXIS[key]
+    if cfg.use_mla and key in _TP_MLA_SPLITS:
+        return _TP_MLA_SPLITS[key]
+    return _TP_SPLITS.get(key)
 
 
 def tp_span(kind: str, cfg, rank: int, size: int) -> Tuple[int, int]:
     """[start, stop) of rank ``rank``'s slice of ``size`` along the split
-    axis of a ``kind`` leaf of the global ``cfg``: whole query heads, whole
-    KV heads (each rank its own, or with fewer KV heads than ranks head
-    ``rank * n_kv_heads // size``), an even slice of ``d_ff`` or of the
-    padded vocabulary. ``"q"``/``"kv"`` count columns (heads x head_dim),
-    ``"kv_heads"`` heads."""
-    if kind == "q":
-        per = cfg.n_heads // size * cfg.head_dim
-        return rank * per, (rank + 1) * per
+    axis of a ``kind`` leaf of the global ``cfg``: whole KV heads (each
+    rank its own, or with fewer KV heads than ranks head ``rank *
+    n_kv_heads // size``), else an even slice of the axis (whole query or
+    MLA heads, whole experts, a share of ``d_ff``, of ``moe_d_ff``, of the
+    shared width or of the padded vocabulary). ``"kv"`` counts columns
+    (heads x head_dim), ``"kv_heads"`` heads."""
     if kind in ("kv", "kv_heads"):
         kv = cfg.n_kv_heads
         first, n = (rank * (kv // size), kv // size) if kv >= size else (rank * kv // size, 1)
         unit = cfg.head_dim if kind == "kv" else 1
         return first * unit, (first + n) * unit
-    total = {"ff": cfg.d_ff, "vocab": cfg.vocab_padded}[kind]
+    total = _tp_global_dim(kind, cfg)
     return rank * total // size, (rank + 1) * total // size
 
 
 def _tp_global_dim(kind: str, cfg) -> int:
-    return {"q": cfg.n_heads * cfg.head_dim, "kv": cfg.n_kv_heads * cfg.head_dim,
-            "kv_heads": cfg.n_kv_heads, "ff": cfg.d_ff, "vocab": cfg.vocab_padded}[kind]
+    h = cfg.n_heads
+    return {"q": h * cfg.head_dim, "kv": cfg.n_kv_heads * cfg.head_dim,
+            "kv_heads": cfg.n_kv_heads, "ff": cfg.d_ff, "vocab": cfg.vocab_padded,
+            "mla_q": h * (cfg.qk_nope_dim + cfg.qk_rope_dim), "mla_uk": h * cfg.qk_nope_dim,
+            "mla_uv": h * cfg.v_head_dim, "mla_o": h * cfg.v_head_dim,
+            "experts": cfg.n_experts, "expert_ff": cfg.moe_d_ff,
+            "shared_ff": cfg.moe_d_ff * cfg.n_shared_experts}[kind]
 
 
 def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool = False,
-                rank: Optional[int] = None) -> torch.Tensor:
-    """Rank ``rank``'s (default: ``tp.rank``'s) head-aligned slice of the
-    whole ``leaf`` at ``names`` of the global ``cfg`` (a cache leaf with
-    ``cache``), as a tensor of its own so the whole leaf can be freed; the
-    leaf itself for a whole leaf, no group or a group of one."""
-    split = tp_split(names, cache)
+                rank: Optional[int] = None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rank ``rank``'s (default: ``tp.rank``'s) slice of the whole ``leaf``
+    at ``names`` of the global ``cfg`` (a cache leaf with ``cache``; see
+    :func:`tp_split`), as a tensor of its own so the whole leaf can be
+    freed; the leaf itself for a whole leaf, no group or a group of one.
+    ``dtype`` casts the slice (the whole leaf under a whole leaf, no group
+    or a group of one), read from the leaf in place, so no whole copy at
+    ``dtype`` is made."""
     size = 1 if tp is None else tp.size
-    if split is None or size == 1:
-        return leaf
+    split = tp_split(names, cfg, size, cache) if size > 1 else None
+    if split is None:
+        return leaf if dtype is None else leaf.to(dtype)
     kind, axis = split
     start, stop = tp_span(kind, cfg, tp.rank if rank is None else rank, size)
-    return leaf.narrow(axis, start, stop - start).clone(memory_format=torch.contiguous_format)
+    part = leaf.narrow(axis, start, stop - start)
+    return torch.empty(part.shape, dtype=dtype or leaf.dtype, device=leaf.device).copy_(part)
+
+
+def assemble_shards(parts: Sequence[torch.Tensor], names: Sequence[str], cfg,
+                    cache: bool = False) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`local_shard` of it, by rank
+    (``len(parts)`` ranks). A replicated KV head is written once per rank
+    that holds it, with the same values."""
+    size = len(parts)
+    split = tp_split(names, cfg, size, cache) if size > 1 else None
+    if split is None:
+        return parts[0]
+    kind, axis = split
+    shape = list(parts[0].shape)
+    shape[axis] = _tp_global_dim(kind, cfg)
+    whole = torch.empty(shape, dtype=parts[0].dtype, device=parts[0].device)
+    for r, part in enumerate(parts):
+        start, stop = tp_span(kind, cfg, r, size)
+        whole.narrow(axis, start, stop - start).copy_(part)
+    return whole
 
 
 def gather_shards(local: torch.Tensor, names: Sequence[str], cfg, tp,
                   cache: bool = False) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` of it (a
     collective over ``tp``: every rank calls it and every rank gets the
-    whole leaf); ``local`` itself for a whole leaf, no group or a group of
-    one. A replicated KV head is written once per rank that holds it, with
-    the same values."""
-    split = tp_split(names, cache)
+    whole leaf, :func:`assemble_shards` of the gathered parts); ``local``
+    itself for a whole leaf, no group or a group of one."""
     size = 1 if tp is None else tp.size
-    if split is None or size == 1:
+    if size == 1 or tp_split(names, cfg, size, cache) is None:
         return local
-    kind, axis = split
-    parts = all_gather(local, tp)
-    shape = list(local.shape)
-    shape[axis] = _tp_global_dim(kind, cfg)
-    whole = torch.empty(shape, dtype=local.dtype, device=local.device)
-    for r, part in enumerate(parts):
-        start, stop = tp_span(kind, cfg, r, size)
-        whole.narrow(axis, start, stop - start).copy_(part)
-    return whole
+    return assemble_shards(all_gather(local, tp), names, cfg, cache)

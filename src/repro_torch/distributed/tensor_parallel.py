@@ -18,7 +18,9 @@ columns after the head. This module is that plumbing:
   not a fallback: NCCL refuses two ranks on one card, and gloo's
   collectives take CUDA tensors through host memory;
 - :func:`tp_local`: the config one rank runs, at its local head and
-  feed-forward counts;
+  feed-forward counts (the dense GQA family and the MoE family, with GQA
+  or MLA attention); :func:`expert_parallel` and :func:`expert_span`, which
+  experts a rank holds;
 - the collectives :func:`all_sum` (with :func:`row_parallel`, the product
   it follows), :func:`gather_last` and :func:`broadcast_`, each the identity
   for no group or a group of one, and :func:`broadcast_object` for the
@@ -36,7 +38,7 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -147,40 +149,71 @@ def tp_local(cfg: ModelConfig, tp: Optional[TPGroup]) -> ModelConfig:
     """The config one rank of ``tp`` runs: ``n_heads / size`` query heads,
     ``max(1, n_kv_heads / size)`` KV heads (with fewer KV heads than ranks
     each KV head is replicated, as Megatron does: rank ``r`` holds head
-    ``r * n_kv_heads // size``), ``d_ff / size``. The vocabulary stays
-    whole in the config: the embedding and the head split it themselves.
-    ``cfg`` itself for no group or a group of one. Only the dense GQA
-    family is covered; every other architecture raises
-    ``NotImplementedError``."""
+    ``r * n_kv_heads // size``), ``d_ff / size`` (a dense layer, such as
+    deepseek's layer 0). A MoE config keeps the GLOBAL ``n_experts`` and
+    ``top_k``, because every rank routes every token over all experts;
+    under in-expert parallelism (``E % size != 0``) ``moe_d_ff`` is the
+    rank's share of each expert's width, and under expert parallelism it
+    stays whole (the rank's experts are :func:`expert_span`). MLA keeps its
+    latent width (``kv_lora_rank``, ``qk_rope_dim``): the latent cache is
+    whole on every rank. The vocabulary stays whole in the config: the
+    embedding and the head split it themselves. ``cfg`` itself for no
+    group or a group of one. The dense and MoE families are covered; SSM,
+    hybrid and frontend architectures raise ``NotImplementedError``."""
     n = tp_size(tp)
     if n == 1:
         return cfg
-    if cfg.family != "dense" or cfg.use_mla or cfg.frontend is not None or cfg.n_experts:
+    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
         raise NotImplementedError(
-            f"tensor parallelism over {n} ranks covers the dense GQA family on the "
-            f"serving path; {cfg.arch_id} (family {cfg.family!r}, mla {cfg.use_mla}, "
-            f"frontend {cfg.frontend!r}, experts {cfg.n_experts}) is queued in {ROADMAP_ITEM}")
+            f"tensor parallelism over {n} ranks covers the dense and MoE families on the "
+            f"serving path; {cfg.arch_id} (family {cfg.family!r}, frontend "
+            f"{cfg.frontend!r}) is queued in {ROADMAP_ITEM}")
     bad = _unsplit(cfg, n)
     if bad:
         raise ValueError(f"{cfg.arch_id}: {', '.join(bad)} do not split over {n} ranks")
+    moe_d_ff = cfg.moe_d_ff if expert_parallel(cfg, n) else cfg.moe_d_ff // n
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
-                               n_kv_heads=max(1, cfg.n_kv_heads // n), d_ff=cfg.d_ff // n)
+                               n_kv_heads=max(1, cfg.n_kv_heads // n), d_ff=cfg.d_ff // n,
+                               moe_d_ff=moe_d_ff)
+
+
+def expert_parallel(cfg: ModelConfig, size: int) -> bool:
+    """Whether ``size`` ranks hold whole experts, ``E / size`` each
+    (``E % size == 0``, ``repro``'s ``_EXPERT_RULES_EP``), rather than a
+    slice of every expert's ``moe_d_ff`` (``_EXPERT_RULES_TP``)."""
+    return cfg.n_experts > 0 and cfg.n_experts % size == 0
+
+
+def expert_span(cfg: ModelConfig, tp: Optional[TPGroup]) -> Tuple[int, int]:
+    """[first, stop) of the experts this rank holds: a contiguous run of
+    ``E / size`` under expert parallelism, every expert otherwise."""
+    n = tp_size(tp)
+    if n == 1 or not expert_parallel(cfg, n):
+        return 0, cfg.n_experts
+    per = cfg.n_experts // n
+    return tp.rank * per, (tp.rank + 1) * per
 
 
 def _unsplit(cfg: ModelConfig, n: int) -> List[str]:
     kv = cfg.n_kv_heads
-    return [what for what, ok in (
-        (f"n_heads {cfg.n_heads}", cfg.n_heads % n == 0),
-        (f"n_kv_heads {kv}", kv % n == 0 or n % kv == 0),
-        (f"d_ff {cfg.d_ff}", cfg.d_ff % n == 0),
-        (f"vocab_padded {cfg.vocab_padded}", cfg.vocab_padded % n == 0)) if not ok]
+    checks = [(f"n_heads {cfg.n_heads}", cfg.n_heads % n == 0),
+              (f"n_kv_heads {kv}", kv % n == 0 or n % kv == 0),
+              (f"d_ff {cfg.d_ff}", cfg.d_ff % n == 0),
+              (f"vocab_padded {cfg.vocab_padded}", cfg.vocab_padded % n == 0)]
+    if cfg.n_experts:
+        checks.append((f"n_experts {cfg.n_experts} (or else moe_d_ff {cfg.moe_d_ff})",
+                       cfg.n_experts % n == 0 or cfg.moe_d_ff % n == 0))
+        shared = cfg.moe_d_ff * cfg.n_shared_experts
+        checks.append((f"shared width {shared}", shared % n == 0))
+    return [what for what, ok in checks if not ok]
 
 
 def gang_ranks(cfg: ModelConfig, n_members: int, tp: TPGroup) -> int:
     """How many ranks of ``tp`` a gang of ``n_members`` spans: the most, up
     to ``min(n_members, tp.size)``, that ``cfg`` splits over. A gang the
-    heads do not divide (3 members of a 4-head model) leaves its last
-    members idle, as ``repro``'s rules drop an axis that does not divide."""
+    heads (or the experts) do not divide (3 members of a 4-head model)
+    leaves its last members idle, as ``repro``'s rules drop an axis that
+    does not divide."""
     return max(k for k in range(1, min(max(int(n_members), 1), tp.size) + 1)
                if not _unsplit(cfg, k))
 
@@ -219,12 +252,19 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[TPGroup]) -> tor
     for no group or a group of one."""
     if tp_size(tp) == 1:
         return x @ w
+    return all_sum(partial_f32(x, w), tp).to(x.dtype)
+
+
+def partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` left at float32: below float32 the GEMM's accumulator is
+    not rounded to ``x``'s dtype (the partial product a rank sums over the
+    group)."""
     if x.dtype == torch.float32:
-        return all_sum(x @ w, tp)
+        return x @ w
     flat = x.reshape(-1, x.shape[-1])
     part = (torch.mm(flat, w, out_dtype=torch.float32) if flat.is_cuda
             else flat.float() @ w.float())
-    return all_sum(part, tp).to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+    return part.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def gather_last(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:

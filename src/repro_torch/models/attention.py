@@ -21,7 +21,12 @@ shard of the weights: the projections and the attention core run at the
 local head counts (the flash kernel at the per-rank shape, e.g. q (B, 8,
 S, 128) with one KV head for qwen2.5-3b on 2 ranks), and the row-parallel
 ``wo`` is followed by a float32 sum over the group
-(``distributed.tensor_parallel.row_parallel``).
+(``distributed.tensor_parallel.row_parallel``). MLA's prefill and decode do
+the same at the rank's heads: each rank computes the latent ``c_kv`` and
+the rope'd key whole (``w_dkv`` and ``w_krope`` are whole) and writes the
+same entries into its own whole latent cache, while the query, the
+absorbed ``w_uk``, the scores, ``w_uv`` and the context run at its heads
+and ``wo`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -371,7 +376,7 @@ def _mla_latent(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
 
-def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Full-sequence MLA, decompressed formulation: (out (B,S,D), c_kv,
     k_rope). Always causal, as in ``repro``."""
     b, s, _ = x.shape
@@ -391,7 +396,7 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bhqs,bshd->bqhd", w, v).reshape(b, s, cfg.n_heads * cfg.v_head_dim)
-    return out @ p["wo"].to(dt), c_kv, k_rope
+    return row_parallel(out, p["wo"].to(dt), tp), c_kv, k_rope
 
 
 def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
@@ -400,14 +405,14 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
     return _mla_full(p, x, positions, cfg)[0]
 
 
-def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Full-sequence MLA that also returns the latent cache entries
     (B,S,r+rope): c_kv ++ rope'd k_rope."""
-    out, c_kv, k_rope = _mla_full(p, x, positions, cfg)
+    out, c_kv, k_rope = _mla_full(p, x, positions, cfg, tp)
     return out, torch.cat([c_kv, k_rope], dim=-1)
 
 
-def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig):
+def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig, tp=None):
     """Absorbed-matrix MLA decode over the latent cache (B,S,r+rope). ``pos``
     is a scalar or a (B,) per-row position; each row's entry is written at
     its own position in place (a row out of bounds is dropped, as JAX's
@@ -442,7 +447,7 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig)
     ctx = torch.einsum("bhqs,bsr->bqhr", w, cache_c)          # (B,1,H,r)
     w_uv = p["w_uv"].to(dt).reshape(r, cfg.n_heads, cfg.v_head_dim)
     out = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv).reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
-    return out @ p["wo"].to(dt), c_cache
+    return row_parallel(out, p["wo"].to(dt), tp), c_cache
 
 
 def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

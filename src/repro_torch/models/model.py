@@ -171,7 +171,7 @@ def _map_specs(fn, specs, *trees):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, tp=None) -> Dict[str, Any]:
     """Random parameters with ``repro``'s tree, shapes and scales (truncated
     normal at +-2 scale, zero biases, unit norms), drawn from ``generator``
     on ``device``. Not ``repro``'s random stream: for parity, load JAX's
@@ -182,25 +182,43 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``erfinv_``: on the CPU ``erfinv_`` runs in MKL, whose float32 bits
     change with the code path MKL picks at run time, so the same seed could
     give other weights in another process state. This way the values depend
-    on the generator alone."""
+    on the generator alone.
+
+    Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``)
+    only this rank's shard of each leaf is kept
+    (``distributed.sharding.local_shard``): every leaf is still drawn whole,
+    in the same order from the same stream, and cut and cast before the
+    next one is drawn, so the values are those of the whole tree's shards
+    and a rank's peak is its shards plus one whole leaf at float32."""
+    from repro_torch.distributed.sharding import local_shard  # it imports this module
+    tp_local(cfg, tp)   # an architecture tensor parallelism does not cover raises
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}: "
                          f"make the generator with torch.Generator(device={dev.type!r})")
     pd = cfg.param_torch_dtype
 
-    def make(spec: ParamSpec) -> torch.Tensor:
+    def make(spec: ParamSpec, names: Tuple[str, ...]) -> torch.Tensor:
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=pd, device=dev)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=pd, device=dev)
-        if spec.init == "full":
-            return torch.full(spec.shape, spec.value, dtype=pd, device=dev)
-        t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
-        t.normal_(generator=generator)
-        _redraw_outside(t, generator)
-        return t.mul_(spec.scale).to(pd)
-    return _map_specs(make, param_specs(cfg))
+            t = torch.zeros(spec.shape, dtype=pd, device=dev)
+        elif spec.init == "ones":
+            t = torch.ones(spec.shape, dtype=pd, device=dev)
+        elif spec.init == "full":
+            t = torch.full(spec.shape, spec.value, dtype=pd, device=dev)
+        else:
+            t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+            t.normal_(generator=generator)
+            _redraw_outside(t, generator)
+            t.mul_(spec.scale)
+        return local_shard(t, names, cfg, tp, dtype=pd)
+    return _map_named_specs(make, param_specs(cfg))
+
+
+def _map_named_specs(fn, specs, names: Tuple[str, ...] = ()):
+    """``fn(spec, path)`` over a spec tree, in its order."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs, names)
+    return {k: _map_named_specs(fn, v, names + (k,)) for k, v in specs.items()}
 
 
 # elements of one slice in :func:`_redraw_outside`

@@ -12,6 +12,18 @@ and their two twins on the ``moe_gmm`` kernel, picked by
 ``kernel_impls['moe']``: the capacity twin of ``scatter`` and the dropless
 twin of ``ragged``/``dense``. The kernel twins take no host sync: every
 index they build stays on the device.
+
+Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``) every
+rank routes all of its (replicated) tokens on the whole router, so the
+picks, the capacity (from the GLOBAL expert count), the slots and the drops
+are one device's. Then each rank runs its own share: under expert
+parallelism its run of whole experts (``expert_span``; the impls take the
+first one, ``e0``, and read the local count from the weights): the dense
+oracle's experts, the capacity buffer's slab, the sorted rows of its
+groups; under in-expert parallelism its ``moe_d_ff`` columns of every
+expert. The shared experts are column- and row-parallel. Each rank adds
+its routed and shared partials, and one float32 sum over the group per
+MoE block gives the output, as after a row-parallel product.
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
+from repro_torch.distributed.tensor_parallel import all_sum, expert_span, partial_f32, tp_size
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -54,22 +67,31 @@ def _expert_ffn(w_gate, w_up, w_down, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...cf,...fd->...cd", g * u, w_down.to(dt))
 
 
-def _shared_ffn(p, x: torch.Tensor) -> torch.Tensor:
+def _shared_ffn(p, x: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """The shared experts' SwiGLU; with ``f32`` its down product left at
+    float32 (:func:`partial_f32`, a rank's partial)."""
     dt = x.dtype
     g = F.silu(x @ p["w_gate"].to(dt))
     u = x @ p["w_up"].to(dt)
+    if f32:
+        return partial_f32(g * u, p["w_down"].to(dt))
     return (g * u) @ p["w_down"].to(dt)
 
 
+def _local_experts(p) -> int:
+    """Experts whose weights this rank holds (all of them on one device)."""
+    return p["w_gate"].shape[0]
+
+
 # --- reference impls -----------------------------------------------------------
-def _moe_dense(p, x, weights, idx, cfg: ModelConfig):
+def _moe_dense(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     t, d = x.shape
-    e = cfg.n_experts
+    e = _local_experts(p)
     # (E, T, D): every expert computes every token — oracle only.
     h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], x.expand(e, t, d))
     combine = torch.zeros((t, e), dtype=x.dtype, device=x.device)
     for k in range(cfg.top_k):
-        combine = combine + _one_hot(idx[:, k], e, x.dtype) * weights[:, k:k + 1].to(x.dtype)
+        combine = combine + _one_hot(idx[:, k] - e0, e, x.dtype) * weights[:, k:k + 1].to(x.dtype)
     return torch.einsum("te,etd->td", combine, h)
 
 
@@ -97,10 +119,17 @@ def _capacity_dispatch(x, idx, cfg: ModelConfig, cap: int):
     return buf[:-1].reshape(e, cap, d), slot, keep
 
 
-def _capacity_combine(h, slot, keep, weights, t: int, cap: int, cfg: ModelConfig):
-    e, d = cfg.n_experts, h.shape[-1]
-    y_rep = h.reshape(e * cap, d)[slot.clamp(max=e * cap - 1)]
-    y_rep = torch.where(keep[:, None], y_rep, torch.zeros((), dtype=h.dtype, device=h.device))
+def _capacity_combine(h, slot, keep, weights, t: int, cap: int, cfg: ModelConfig,
+                      e0: int = 0):
+    """Each kept pick's row of ``h``, the expert outputs of experts ``e0``
+    on (``h.shape[0]`` of them, every expert on one device), weighted and
+    summed over the picks; a pick of another expert adds nothing. ``slot``
+    indexes the GLOBAL (E * cap) buffer."""
+    e, d = h.shape[0], h.shape[-1]
+    local = slot - e0 * cap
+    mine = keep & (local >= 0) & (local < e * cap)
+    y_rep = h.reshape(e * cap, d)[local.clamp(0, e * cap - 1)]
+    y_rep = torch.where(mine[:, None], y_rep, torch.zeros((), dtype=h.dtype, device=h.device))
     y_rep = y_rep * weights.reshape(-1, 1).to(h.dtype)
     return y_rep.reshape(t, cfg.top_k, d).sum(dim=1)
 
@@ -122,10 +151,11 @@ def _expert_parallel(cfg: ModelConfig) -> bool:
     return m > 1 and cfg.n_experts % m == 0
 
 
-def _moe_scatter(p, x, weights, idx, cfg: ModelConfig):
+def _moe_scatter(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     t = x.shape[0]
     cap = _capacity(t, cfg)
     buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    buf3 = buf3[e0:e0 + _local_experts(p)]   # this rank's slab (all of it on one device)
     # repro's dispatch-buffer constraints (its M1-M3 notes): under
     # moe_dispatch_constraints with expert parallelism the capacity buffer
     # and the expert outputs are constrained to the experts' "model" axis
@@ -135,7 +165,7 @@ def _moe_scatter(p, x, weights, idx, cfg: ModelConfig):
                    "model", None, None)
     else:
         h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf3)
-    return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
+    return _capacity_combine(h, slot, keep, weights, t, cap, cfg, e0)
 
 
 def _ragged_dot(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -170,26 +200,37 @@ def _sort_by_expert(x, idx, cfg: ModelConfig):
     return flat_e, order, inv, xs, group_sizes
 
 
-def _moe_ragged(p, x, weights, idx, cfg: ModelConfig):
+def _moe_ragged(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     t, d = x.shape
     dt = x.dtype
     _, _, inv, xs, group_sizes = _sort_by_expert(x, idx, cfg)
+    e = _local_experts(p)
+    if e != cfg.n_experts:
+        # expert-parallel: the sorted rows of this rank's groups only, the
+        # other rows' outputs zero (the other ranks add them)
+        sizes = group_sizes.tolist()
+        lo, n = sum(sizes[:e0]), sum(sizes[e0:e0 + e])
+        xs, group_sizes = xs[lo:lo + n], group_sizes[e0:e0 + e]
     g = F.silu(_ragged_dot(xs, p["w_gate"].to(dt), group_sizes))
     u = _ragged_dot(xs, p["w_up"].to(dt), group_sizes)
     ys = _ragged_dot(g * u, p["w_down"].to(dt), group_sizes)
+    if e != cfg.n_experts:
+        mine, ys = ys, torch.zeros((inv.shape[0], d), dtype=dt, device=x.device)
+        ys[lo:lo + n] = mine
     y_rep = ys[inv] * weights.reshape(-1, 1).to(dt)
     return y_rep.reshape(t, cfg.top_k, d).sum(dim=1)
 
 
 # --- kernel twins -------------------------------------------------------------------
-def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig):
+def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     """Kernel twin of ``_moe_scatter``: the same capacity, slot and keep math
     (so the drop set matches token for token), with the (E, C, D) expert FFN
-    computed by three ``moe_gmm`` launches."""
+    (this rank's slab of it) computed by three ``moe_gmm`` launches."""
     from repro_torch.kernels.ops import moe_gmm_capacity
     t = x.shape[0]
     cap = _capacity(t, cfg)
     buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    buf3 = buf3[e0:e0 + _local_experts(p)]
     # one tile-map entry per expert: the kernel cuts its row tiles per run
     # of equal expert, so a finer map gives the same products and bits but
     # more CTAs that walk the map (at block_t 8 under deepseek's forward,
@@ -198,56 +239,81 @@ def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig):
     g = F.silu(moe_gmm_capacity(buf3, p["w_gate"].to(dt), block_t=cap))
     u = moe_gmm_capacity(buf3, p["w_up"].to(dt), block_t=cap)
     h = moe_gmm_capacity(g * u, p["w_down"].to(dt), block_t=cap)
-    return _capacity_combine(h, slot, keep, weights, t, cap, cfg)
+    return _capacity_combine(h, slot, keep, weights, t, cap, cfg, e0)
 
 
-def _moe_gmm_dropless(p, x, weights, idx, cfg: ModelConfig):
+def _moe_gmm_dropless(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     """Kernel twin of ``_moe_ragged``: dropless sort-by-expert dispatch with
     each expert's rows padded up to a ``block_t`` multiple (zero rows) so
     every tile belongs to one expert, at the static worst-case length, so the
-    host never waits for the group sizes."""
+    host never waits for the group sizes. Under expert parallelism only
+    this rank's groups go into the buffer (its worst case: every pick on
+    its experts), the other rows into a dump row past it, and their outputs
+    are zero."""
     from repro_torch.kernels.ops import moe_gmm_op, pad_group_sizes
     t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
+    e = _local_experts(p)
     tk = t * k
     bt = 128 if tk >= 128 else 8
     # static worst-case padded length (every group rounds up by < bt)
     t_pad = (tk + bt - 1) // bt * bt + e * bt
     flat_e, order, inv, xs, group_sizes = _sort_by_expert(x, idx, cfg)
+    sorted_e = flat_e[order]
+    if e != cfg.n_experts:
+        sorted_e = sorted_e - e0
+        group_sizes = group_sizes[e0:e0 + e]
     _, padded_offs = pad_group_sizes(group_sizes, bt)
     raw_offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=x.device),
                           torch.cumsum(group_sizes, 0, dtype=torch.int32)])
     shift = padded_offs[:-1] - raw_offs[:-1]
-    dest = torch.arange(tk, device=x.device) + shift[flat_e[order]]
-    buf = torch.zeros((t_pad, d), dtype=x.dtype, device=x.device)
-    buf[dest] = xs
+    if e == cfg.n_experts:
+        dest = torch.arange(tk, device=x.device) + shift[sorted_e]
+        buf = torch.zeros((t_pad, d), dtype=x.dtype, device=x.device)
+        buf[dest] = xs
+    else:
+        mine = (sorted_e >= 0) & (sorted_e < e)
+        # the rows of the experts before e0 come first in the sorted order
+        before = (flat_e < e0).sum()
+        dest = torch.where(mine, torch.arange(tk, device=x.device) - before
+                           + shift[sorted_e.clamp(0, e - 1)], t_pad)
+        buf = torch.zeros((t_pad + 1, d), dtype=x.dtype, device=x.device)
+        buf[dest] = xs
+        buf = buf[:t_pad]
+        dest = dest.clamp(max=t_pad - 1)
     tile_starts = torch.arange(t_pad // bt, dtype=torch.int32, device=x.device) * bt
     te = (torch.searchsorted(padded_offs, tile_starts, right=True) - 1).clamp(0, e - 1)
     dt = x.dtype
     g = F.silu(moe_gmm_op(buf, p["w_gate"].to(dt), te, block_t=bt))
     u = moe_gmm_op(buf, p["w_up"].to(dt), te, block_t=bt)
     ys = moe_gmm_op(g * u, p["w_down"].to(dt), te, block_t=bt)[dest]
+    if e != cfg.n_experts:
+        ys = torch.where(mine[:, None], ys, torch.zeros((), dtype=dt, device=x.device))
     y_rep = ys[inv] * weights.reshape(-1, 1).to(dt)
     return y_rep.reshape(t, k, d).sum(dim=1)
 
 
-def _moe_gmm_impl(p, x, weights, idx, cfg: ModelConfig):
+def _moe_gmm_impl(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     """Kernel-path dispatch: mirror the reference impl's drop semantics so
     temperature-0 tokens stay identical — capacity drops for ``scatter``,
     dropless for ``ragged``/``dense``."""
     if cfg.moe_impl == "scatter":
-        return _moe_gmm_capacity(p, x, weights, idx, cfg)
-    return _moe_gmm_dropless(p, x, weights, idx, cfg)
+        return _moe_gmm_capacity(p, x, weights, idx, cfg, e0)
+    return _moe_gmm_dropless(p, x, weights, idx, cfg, e0)
 
 
 _IMPLS = {"dense": _moe_dense, "scatter": _moe_scatter, "ragged": _moe_ragged,
           "gmm": _moe_gmm_impl}
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
-              impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, impl: Optional[str] = None,
+              tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,S,D) -> (y, aux). The per-config ``kernel_impls['moe']`` policy
-    swaps in the ``moe_gmm`` kernel path unless ``impl`` overrides it."""
+    swaps in the ``moe_gmm`` kernel path unless ``impl`` overrides it.
+    Under ``tp`` ``p`` is this rank's shard, ``cfg`` its config
+    (``tensor_parallel.tp_local``, the global expert count) and ``x`` the
+    same on every rank; every rank gets the whole ``y`` (see the module
+    docstring)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     weights, idx, aux = route(p["router"], xt, cfg)
@@ -257,7 +323,12 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
     if name not in _IMPLS:
         raise ValueError(f"apply_moe: unknown impl {name!r}; allowed impls: "
                          f"{tuple(sorted(_IMPLS))}")
-    y = _IMPLS[name](p, xt, weights, idx, cfg)
+    if tp_size(tp) == 1:
+        y = _IMPLS[name](p, xt, weights, idx, cfg)
+        if cfg.n_shared_experts:
+            y = y + _shared_ffn(p["shared"], xt)
+        return y.reshape(b, s, d), aux
+    y = _IMPLS[name](p, xt, weights, idx, cfg, expert_span(cfg, tp)[0]).float()
     if cfg.n_shared_experts:
-        y = y + _shared_ffn(p["shared"], xt)
-    return y.reshape(b, s, d), aux
+        y = y + _shared_ffn(p["shared"], xt, f32=True)
+    return all_sum(y, tp).to(x.dtype).reshape(b, s, d), aux

@@ -17,8 +17,9 @@ cache). Dense and moe blocks attend with GQA or, under ``use_mla``, MLA
 
 Prefill and decode take a tensor-parallel group ``tp`` (None: one device)
 with the rank's config (``distributed.tensor_parallel.tp_local``) and its
-shard of the weights and the cache; every rank runs the same loop and the
-dense block's attention and MLP meet at a sum over the group.
+shard of the weights and the cache; every rank runs the same loop and a
+dense or moe block's attention (GQA or MLA) and its MLP or MoE meet at a
+sum over the group each.
 """
 from __future__ import annotations
 
@@ -103,13 +104,13 @@ def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: Mod
     output, *rest). Returns (x, feed-forward delta, the MoE load-balance
     loss or None, *rest). The feed-forward is the MLP of a dense layer, the
     MoE of a moe layer (prefill and decode run it too, as ``repro``'s
-    bodies do); under ``tp`` the MLP is tensor-parallel."""
+    bodies do); under ``tp`` the MLP and the MoE are tensor-parallel."""
     x, y = _add_norm(x, h, p["ln1"], cfg)
     a, *rest = attend(y)
     x, y = _add_norm(x, a, p["ln2"], cfg)
     if "mlp" in p:
         return (x, apply_mlp(p["mlp"], y, cfg, tp), None, *rest)
-    out, aux = moe_mod.apply_moe(p["moe"], y, cfg)
+    out, aux = moe_mod.apply_moe(p["moe"], y, cfg, tp=tp)
     return (x, out, aux["lb_loss"], *rest)
 
 
@@ -119,7 +120,7 @@ def _dense_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: tor
     lb, latent) under MLA."""
     if cfg.use_mla:
         def attend(y):
-            return attn_mod.mla_prefill(p["attn"], y, positions, cfg)
+            return attn_mod.mla_prefill(p["attn"], y, positions, cfg, tp)
     else:
         def attend(y):
             return attn_mod.gqa_prefill(p["attn"], y, positions, cfg, tp)
@@ -258,7 +259,7 @@ def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: Mo
     in place."""
     if cfg.use_mla:
         def attend(y):
-            return attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg)
+            return attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg, tp)
     else:
         def attend(y):
             return attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg, tp)

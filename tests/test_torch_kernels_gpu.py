@@ -525,6 +525,37 @@ def test_moe_gmm_deepseek_shapes_on_card(cuda, t, d, f, block_t, tile_rows):
     torch.testing.assert_close(again, out, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("e,cap,d,f,tile_rows", [
+    (32, 8, 2048, 1408, 8),      # deepseek, 32 of 64 experts a rank: a decode wave
+    (32, 8, 1408, 2048, 8),      # its w_down
+    (32, 16, 2048, 1408, 8),     # a 128-token admission: cap 16, still the narrow tile
+    (32, 64, 2048, 1408, 192),   # a 512-token admission: cap 64, the wide tile
+    (4, 8, 6144, 16384, 8),      # mixtral, 4 of 8 experts a rank: a decode wave
+    (4, 40, 6144, 16384, 192),   # a 128-token admission: cap 40, the wide tile
+    (8, 8, 6144, 8192, 8),       # in-expert: every expert's half of 16384, a decode wave
+    (8, 40, 6144, 8192, 192),    # and a 128-token admission
+    (8, 40, 8192, 6144, 192),    # its w_down
+])
+def test_moe_gmm_per_rank_shapes_on_card(cuda, e, cap, d, f, tile_rows):
+    """The capacity buffers one rank of a tensor-parallel gang multiplies:
+    its experts' (E_local, cap, D) slab, cap from the global expert count.
+    A local E moves ``row_tile``'s switch to a smaller T; the tile the
+    wrapper picks at each shape, against the plain version; a repeated call
+    gives the same bits."""
+    t = e * cap
+    assert gmm_kernel.row_tile(t, e) == tile_rows
+    g = torch.Generator(device=cuda).manual_seed(24)
+    lhs = torch.randn(t, d, device=cuda, generator=g).to(torch.bfloat16)
+    rhs = (torch.randn(e, d, f, device=cuda, generator=g) * d ** -0.5).to(torch.bfloat16)
+    te = torch.arange(e, device=cuda, dtype=torch.int32)
+    out = ops.moe_gmm_capacity(lhs.view(e, cap, d), rhs, block_t=cap).reshape(t, f)
+    again = ops.moe_gmm_op(lhs, rhs, te, block_t=cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, cap).float(),
+                               **BF16_TOL)
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cap,f", [(120, 1408), (160, 96), (19, 52)])
 def test_moe_gmm_capacity_block_t_does_not_change_the_bits(cuda, cap, f, dtype):

@@ -22,8 +22,10 @@ checks read what the ranks wrote.
   resized 4 -> 2 -> 4 -> 1.
 - The platform: ``sharded-serving`` over 2 ranks ends a short
   ``elastic_storm`` with ``repro``'s gang counters and outcomes.
-- The rules: the architectures the slice leaves out raise under a group of
-  more than one rank, and ranks that share a device use gloo.
+- The rules: the architectures tensor parallelism leaves out (SSM, hybrid,
+  the frontends) raise under a group of more than one rank, the dense and
+  MoE families get their rank's heads, and ranks that share a device use
+  gloo.
 """
 import dataclasses
 import itertools
@@ -403,14 +405,20 @@ def test_sharded_serving_over_two_ranks_ends_with_repros_counters(runs):
 # --- the rules ---------------------------------------------------------------------------
 def test_architectures_outside_the_slice_raise_under_a_group():
     group = T.TPGroup(None, 0, 2, torch.device("cpu"), (torch.device("cpu"),) * 2, "gloo")
-    covered = {a for a in ARCH_IDS if get_config(a).family == "dense"
-               and not get_config(a).use_mla and get_config(a).frontend is None}
-    assert "qwen2.5-3b" in covered
+    covered = {a for a in ARCH_IDS if get_config(a).family in ("dense", "moe")
+               and get_config(a).frontend is None}
+    assert {"qwen2.5-3b", "mixtral-8x22b", "deepseek-v2-lite-16b"} <= covered
+    assert set(ARCH_IDS) - covered == {"mamba2-2.7b", "zamba2-2.7b", "hubert-xlarge",
+                                       "internvl2-26b"}
     for arch in sorted(ARCH_IDS):
         cfg = get_config(arch)
         assert T.tp_local(cfg, None) is cfg
         if arch in covered:
-            assert T.tp_local(cfg, group).n_heads == cfg.n_heads // 2
+            local = T.tp_local(cfg, group)
+            # the rank's heads; the MoE family keeps the global experts and top_k
+            assert local.n_heads == cfg.n_heads // 2
+            assert local.n_kv_heads == max(1, cfg.n_kv_heads // 2)
+            assert (local.n_experts, local.top_k) == (cfg.n_experts, cfg.top_k)
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.tp_local(cfg, group)
