@@ -124,6 +124,21 @@ Run from the root of a checkout on a machine with one CUDA card. It
    shard bytes; then moe_gmm at the per-rank shapes and flash at mixtral's
    rank shape against their plain versions, timed beside torch.bmm and
    SDPA;
+9c. runs tensor parallelism for SSM and hybrid (the ``tp ssm`` phase):
+   the one-rank replicas of full-width, full-depth mamba2-2.7b and
+   zamba2-2.7b (bf16) run first here and are freed; then two ranks on the
+   one card, each drawing only its shards (the Mamba2 channels of 40 of 80
+   heads, ``in_proj`` cut into its z, x, B/C and dt; zamba2's shared block
+   16 of 32 heads), serve each at TP 2 with the collectives timed, and
+   zamba2 cut to 12 layers shrinks 2 -> 1 and grows 1 -> 2 mid-stream
+   against its unbroken 2-rank run; gates as the ``tp moe`` phase's (the float32 prefills
+   within ``SLICE_TOL``, the bf16 admissions by ``tp_bf16_logits``, the
+   streams by the near-tie rule, each rank's launches: the gated norm as
+   the rmsnorm kernel's two passes, ``gated_ssq`` and ``gated_scale``, ssd
+   at the rank's 40 heads; each rank's peaks); then ssd and both gated
+   passes at the per-rank shapes (the split norm against the one-pass
+   kernel on the whole row, and pass B of pass A against it bit for bit)
+   and flash at zamba2's rank shape, timed;
 10. runs ``loss_fn`` through the frontends at full width and depth:
    hubert-xlarge on (2, 512) audio frames (non-causal flash, LayerNorm)
    and internvl2-26b (bf16 weights) on 256 patches + 256 text tokens,
@@ -173,7 +188,8 @@ Run from the root of a checkout on a machine with one CUDA card. It
    parameter bytes on a 1 x 1 mesh equal to what the dense phase's
    parameters took on the card);
 14. prints a ``{"kernels": [...]}`` line (the rmsnorm kernel once for each
-   form; each kernel's launches summed over every path above) and, last,
+   form, the gated norm's two passes across ranks included; each kernel's
+   launches summed over every path above) and, last,
    the ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the exit code is not 0. Without CUDA it exits
@@ -236,8 +252,12 @@ PREVIOUS_MS = {"paged_attention": 0.52284, "moe_gmm decode": 1.65361,
                "ssd zamba2": 0.36733, "rmsnorm": 0.00192, "rmsnorm prefill": 0.00335}
 # the rmsnorm kernel's forms by the name of their wrapper (kernels/rmsnorm.py)
 RMS_FORMS = {"rmsnorm": "plain", "add_rmsnorm": "residual", "gated_rmsnorm": "gated"}
+# the gated norm split over ranks (a row's channels on several ranks): its
+# two passes, forms of their own (the tp ssm phase)
+RMS_TP_FORMS = {"gated_rmsnorm_ssq": "gated_ssq", "gated_rmsnorm_scale": "gated_scale"}
 # the form as rmsnorm_kernel's template argument (csrc/rmsnorm.cu's Form)
-RMS_FORM_OF_ARG = {"0": "plain", "1": "residual", "2": "gated"}
+RMS_FORM_OF_ARG = {"0": "plain", "1": "residual", "2": "gated", "3": "gated_ssq",
+                   "4": "gated_scale"}
 # the widths the configs norm: qwen2.5-3b, mamba2/zamba2 d_model, their gated
 # d_inner, mixtral-8x22b; and an odd width (the element-wise path)
 RMS_WIDTHS = (2048, 2560, 5120, 6144, 777)
@@ -394,11 +414,19 @@ def rmsnorm_bound(rows: int, d: int, dtype: torch.dtype, form: str):
     its inputs (x; h, or the d columns of z it needs; w) read once and its
     outputs (y; s) written once; fp32 operations per element: square-add,
     scale and weight, plus the add, or silu (negate, exp, add, divide) and
-    the product."""
+    the product. The gated norm's passes across ranks: ``gated_ssq`` reads
+    x and z and writes a float32 sum a row (silu, the product,
+    square-add), ``gated_scale`` reads x, z, w and the sums and writes y
+    (silu, the product, scale and weight)."""
     elt = torch.empty((), dtype=dtype).element_size()
-    moved = {"plain": 2, "residual": 4, "gated": 3}[form]
-    ops = {"plain": 4, "residual": 5, "gated": 9}[form] * rows * d
-    t_bytes = (moved * rows * d * elt + d * 4) / PEAK_BYTES_PER_S
+    moved = {"plain": 2, "residual": 4, "gated": 3, "gated_ssq": 2, "gated_scale": 3}[form]
+    ops = {"plain": 4, "residual": 5, "gated": 9, "gated_ssq": 7,
+           "gated_scale": 7}[form] * rows * d
+    # w (fp32) but for gated_ssq; the fp32 sums, written by gated_ssq and
+    # read by gated_scale
+    side = (0 if form == "gated_ssq" else d * 4) + (rows * 4 if form in RMS_TP_FORMS.values()
+                                                    else 0)
+    t_bytes = (moved * rows * d * elt + side) / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[torch.float32]
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -425,19 +453,32 @@ def host_us(fn, n: int = 2000) -> float:
     return 1e6 * t / n
 
 
-def expected_norm_forms(cfg, passes: int) -> dict:
+def _by_ranks(passes) -> dict:
+    """``passes`` as {ranks of the group that ran them: passes}: an int is
+    passes of one rank."""
+    return passes if isinstance(passes, dict) else {1: passes}
+
+
+def expected_norm_forms(cfg, passes) -> dict:
     """The rmsnorm kernel's launches by form over ``passes`` forward passes
-    (prefills, decode steps, paged waves), from the model code: per pass one
-    plain (the stack's first norm follows the embedding and no add), one
-    gated for each Mamba2 mixer, and the residual form for every other norm
-    (each follows a residual add; the final norm too)."""
+    (prefills, decode steps, paged waves; an int, or {ranks: passes} of a
+    tensor-parallel rank), from the model code: per pass one plain (the
+    stack's first norm follows the embedding and no add), one gated for
+    each Mamba2 mixer (on a group of more than one rank its two passes,
+    gated_ssq and gated_scale, instead), and the residual form for every
+    other norm (each follows a residual add; the final norm too)."""
     gated = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     total = 2 * cfg.n_layers + 1 + (2 * cfg.n_attn_layers if cfg.family == "hybrid" else 0)
-    return {"plain": passes, "residual": (total - 1 - gated) * passes,
-            "gated": gated * passes}
+    out = dict.fromkeys(("plain", "residual", "gated", "gated_ssq", "gated_scale"), 0)
+    for ranks, n in _by_ranks(passes).items():
+        out["plain"] += n
+        out["residual"] += (total - 1 - gated) * n
+        for form in (("gated_ssq", "gated_scale") if ranks > 1 else ("gated",)):
+            out[form] += gated * n
+    return out
 
 
-def check_norm_forms(tag: str, cfg, passes: int, counts: dict, forms: dict) -> dict:
+def check_norm_forms(tag: str, cfg, passes, counts: dict, forms: dict) -> dict:
     """Assert this path's rmsnorm launches by form (read beside ``counts``);
     returns ``counts`` with them under ``rmsnorm_forms``."""
     expect = expected_norm_forms(cfg, passes)
@@ -1510,19 +1551,27 @@ ELASTIC_STORM_DURATION, ELASTIC_REGISTRY_DURATION = 600.0, 300.0
 class _CountPrefills:
     """Counts ``ContinuousEngine._prefill`` calls (``n``) and decode steps
     (``steps``) on every engine, the fresh engines a resize builds
-    included, while the block runs."""
+    included, while the block runs; ``by_ranks``: both together by the
+    ranks of the engine's group (1 without one)."""
 
     def __enter__(self):
+        from repro_torch.distributed.tensor_parallel import tp_size
         from repro_torch.serving.engine import ContinuousEngine
-        self.n, self.steps, self._cls = 0, 0, ContinuousEngine
+        self.n, self.steps, self.by_ranks, self._cls = 0, 0, {}, ContinuousEngine
         self._orig = ContinuousEngine._prefill, ContinuousEngine._decode_active
+
+        def ranked(engine):
+            k = tp_size(engine.tp)
+            self.by_ranks[k] = self.by_ranks.get(k, 0) + 1
 
         def counted(engine, context):
             self.n += 1
+            ranked(engine)
             return self._orig[0](engine, context)
 
         def stepped(engine, pos):
             self.steps += 1
+            ranked(engine)
             return self._orig[1](engine, pos)
         ContinuousEngine._prefill, ContinuousEngine._decode_active = counted, stepped
         return self
@@ -2120,13 +2169,13 @@ def tp_phase(cfg, params, seed: int):
     return paths, out
 
 
-# --- tensor parallelism for MoE and MLA (the tp moe phase) ------------------------------
+# --- tensor parallelism from shards: the tp moe and tp ssm phases ----------------------
 TPM_CUT = 4   # deepseek's resize leg: 1 dense + 3 moe layers of its 27 (see tp_moe_phase)
 TPM_MIXTRAL = 4   # mixtral's layers of its 56, as the moe phase serves it
 # a rank's serving peak above its shards (caches, activations, the float32
 # prefills' casts of one layer's weights), and the slack of a rank's init
 # peak beyond its shards and one whole leaf at float32 with its redraw mask
-TPM_SERVE_SLACK, TPM_INIT_SLACK = 3e9, 2e9
+TP_SERVE_SLACK, TP_INIT_SLACK = 3e9, 2e9
 
 
 class RouteProbe:
@@ -2268,22 +2317,28 @@ def moe_near_tie_rule(tag: str, got: dict, ref: dict, got_rows: dict, ref_rows: 
     return out
 
 
-def tp_moe_config(arch: str, n_layers=None):
+def tp_config(arch: str, n_layers=None):
+    """The full config of ``arch`` (cut to ``n_layers``) in bf16 under
+    ``auto``, as the tp moe and tp ssm phases serve it."""
     from repro_torch.configs import get_config, with_kernel_impls
     cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16",
                               **({"n_layers": n_layers} if n_layers else {}))
     return with_kernel_impls(cfg, "auto")
 
 
-def tp_moe_expect(cfg, prefills: int, passes: int) -> dict:
-    """The launches of ``passes`` (``prefills`` of them admissions) on one
-    rank: every norm on rmsnorm, moe_gmm 3 a moe layer a pass, flash once a
-    GQA layer an admission, none under MLA."""
+def tp_expect(cfg, prefills: int, passes) -> dict:
+    """The launches of ``passes`` (an int, or {ranks: passes}; ``prefills``
+    of them admissions) on one rank: every norm on rmsnorm (a Mamba2
+    mixer's gated norm in two passes on more than one rank), moe_gmm 3 a
+    moe layer a pass, flash once a GQA layer an admission (none under MLA),
+    ssd once a mamba layer an admission (a decode step runs the state
+    update in PyTorch)."""
     return dict(forward_counts(cfg, passes),
-                flash_attention=0 if cfg.use_mla else cfg.n_layers * prefills)
+                flash_attention=0 if cfg.use_mla else cfg.n_attn_layers * prefills,
+                ssd=cfg.n_ssm_layers * prefills)
 
 
-def tp_moe_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
+def tp_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
     """The one-rank leg in this process, first: the seeded bf16 weights in
     an ``ElasticReplica`` of one member serving ``prompts`` with every
     launch counted and every logits row and route recorded, then the
@@ -2311,7 +2366,8 @@ def tp_moe_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
             walls.append(1e3 * (time.perf_counter() - t))
         counts, forms = launch_counts(), rmsnorm_form_counts()
     n = passes.n + passes.steps
-    counts = check_counts(tag, cfg, counts, forms, tp_moe_expect(cfg, passes.n, n), n)
+    counts = check_counts(tag, cfg, counts, forms, tp_expect(cfg, passes.n, n), n)
+    assert passes.by_ranks == {1: n}, passes.by_ranks
     streams = {r.id: list(r.generated) for r in rep.run()}
     c32 = dataclasses.replace(cfg, dtype="float32")
     f32 = [M.prefill(rep.engine.params, {"tokens": torch.tensor([p], device="cuda")},
@@ -2327,8 +2383,9 @@ def tp_moe_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
     return counts, out
 
 
-def tp_moe_rank(tp, seed: int, legs) -> dict:
-    """One rank of the tp moe phase (started by ``spawn_tp``). For each leg
+def tp_shard_rank(tp, seed: int, legs) -> dict:
+    """One rank of the tp moe and tp ssm phases (started by ``spawn_tp``),
+    each rank drawing only its shards. For each leg
     ``(name, arch, layers, prompts, plan)``: this rank's bf16 shards drawn
     by ``init_params(..., tp=tp)`` (the ranks in turn, so one rank draws
     while the other holds only its shards), an ``ElasticReplica`` over them
@@ -2349,7 +2406,7 @@ def tp_moe_rank(tp, seed: int, legs) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     results = {}
     for name, arch, layers, prompts, plan in legs:
-        cfg = tp_moe_config(arch, layers)
+        cfg = tp_config(arch, layers)
         out = {"rank": tp.rank, "backend": tp.backend}
         gc.collect()
         torch.cuda.empty_cache()
@@ -2417,7 +2474,8 @@ def tp_moe_rank(tp, seed: int, legs) -> dict:
                 tpar.time_collectives(False)
                 rep.close()
             out["counts"], out["forms"] = launch_counts(), rmsnorm_form_counts()
-        out["passes"] = {"prefills": passes.n, "steps": passes.steps}
+        out["passes"] = {"prefills": passes.n, "steps": passes.steps,
+                         "by_ranks": dict(passes.by_ranks)}
         out["collectives"] = dict(tpar.STATS)
         out["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
         if not plan:
@@ -2501,7 +2559,7 @@ def tp_moe_kernels(gen: torch.Generator) -> dict:
     return out
 
 
-def tp_moe_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dict:
+def tp_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dict:
     """The gates of one served leg against its reference leg ``one``: the
     float32 prefills (where the ranks ran them), the bf16 admissions, the
     streams (:func:`moe_near_tie_rule`), each rank's launches."""
@@ -2513,13 +2571,14 @@ def tp_moe_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dic
         summary["f32_max_abs_err"] = max(errs)
         print(f"{tag}: float32 prefill logits on the served bf16 values, 2 ranks against one: "
               f"max abs err {max(errs):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
-        # recorded, not gated: a router pick that differs in a bf16
-        # admission changes its logits beyond rounding
+        # gated without experts (PR 23's rule); with experts recorded, not
+        # gated: a router pick that differs in a bf16 admission changes its
+        # logits beyond rounding
         differ = route_flips(got["routes"], one["routes"],
                              [(rid, 0) for rid in range(len(one["f32"]))])[0]
         summary["admission_logits"] = [
             dict(tp_bf16_logits(f"{tag} request {rid}", got["rows"][rid, 0],
-                                one["rows"][rid, 0], one["f32"][rid], gate=False),
+                                one["rows"][rid, 0], one["f32"][rid], gate=not cfg.n_experts),
                  picks_differ=(rid, 0) in differ) for rid in range(len(one["f32"]))]
     summary.update(moe_near_tie_rule(tag, got["streams"], one["streams"], got["rows"],
                                      one["rows"], got["routes"], one["routes"]))
@@ -2528,10 +2587,96 @@ def tp_moe_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dic
         raise AssertionError(f"{tag}: a stream is not {TP_NEW} long")
     counts = {}
     for r in leg_ranks:
-        n = r["passes"]["prefills"] + r["passes"]["steps"]
+        n = r["passes"]["by_ranks"]
         counts[f"{tag} rank {r['rank']}"] = check_counts(
             f"{tag} rank {r['rank']}", cfg, r["counts"], r["forms"],
-            tp_moe_expect(cfg, r["passes"]["prefills"], n), n)
+            tp_expect(cfg, r["passes"]["prefills"], n), n)
+    return summary, counts
+
+
+def tp_leg(tag: str, cfg, rs, one, resize: bool) -> tuple:
+    """The checks of one leg that ``tp_shard_rank`` served on 2 ranks (``rs``,
+    each rank's results), against the one-rank leg ``one`` (None for a
+    leg with a resize, held against its own unbroken run): each rank's
+    init and serving peaks against limits from its shard bytes (a resize
+    also holds the gathered whole tree), a rank's share of the whole tree,
+    both ranks' peaks together, the ranks' routes alike, the gates of
+    :func:`tp_gate` and, with ``resize``, the records' bytes against
+    the shapes'; the decode steps' times and the collectives' share.
+    Returns (summary, launches by path)."""
+    r0 = rs[0]
+    for r in rs:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
+        init_limit = r["shard_bytes"] + 5 * r["largest_leaf"] + TP_INIT_SLACK
+        # a resize holds the old shards and the gathered whole leaves
+        held = r["shard_bytes"] + (r["whole_bytes"] if resize else 0)
+        serve_limit = held + TP_SERVE_SLACK
+        print(f"{tag} rank {r['rank']}: init {r['init_s']:.2f} s, shard {r['shard_bytes']} "
+              f"of {r['whole_bytes']} parameter bytes, init peak {r['init_peak_bytes']} "
+              f"(limit {init_limit:.0f}: the shards, one whole leaf of "
+              f"{r['largest_leaf']} elements at float32 and its mask, "
+              f"{TP_INIT_SLACK:.0f}), serving peak {r['serve_peak_bytes']} (limit "
+              f"{serve_limit:.0f}), card in use after both inits {r['card_used_bytes']}, "
+              f"passes {r['passes']}, collectives {r['collectives']}")
+        if r["init_peak_bytes"] > init_limit or r["serve_peak_bytes"] > serve_limit:
+            raise AssertionError(f"{tag} rank {r['rank']}: peaks {r['init_peak_bytes']} / "
+                                 f"{r['serve_peak_bytes']} over {init_limit} / "
+                                 f"{serve_limit}")
+        if r["shard_bytes"] * 2 > r["whole_bytes"] * 1.1:
+            raise AssertionError(f"{tag}: a rank holds {r['shard_bytes']} of "
+                                 f"{r['whole_bytes']} bytes")
+    both = sum(r["serve_peak_bytes"] for r in rs)
+    both_limit = (r0["whole_bytes"] * (3 if resize else 1) + sum(
+        r["shard_bytes"] for r in rs) * 0.1 + 2 * TP_SERVE_SLACK)
+    print(f"{tag}: both ranks' serving peaks {both} bytes (limit {both_limit:.0f})")
+    if both > both_limit:
+        raise AssertionError(f"{tag}: both ranks' serving peaks {both} > {both_limit}")
+    summary = {"rank_init_peak_bytes": [r["init_peak_bytes"] for r in rs],
+               "rank_serve_peak_bytes": [r["serve_peak_bytes"] for r in rs],
+               "shard_bytes": [r["shard_bytes"] for r in rs],
+               "whole_bytes": r0["whole_bytes"], "init_s": [r["init_s"] for r in rs]}
+    if resize:
+        unbroken, resized = r0["runs"]
+        gate, counts = tp_gate(tag, cfg, unbroken, {}, resized, rs)
+        kv_total = tp_cache_bytes(cfg)
+        for rz in resized["resizes"]:
+            rec = rz["record"]
+            frac = abs(rec["n_before"] - rec["n_after"]) / max(rec["n_before"],
+                                                                rec["n_after"])
+            want = {"param_bytes": int(r0["whole_bytes"] * frac),
+                    "kv_bytes": int(kv_total * frac)}
+            if {k: rec[k] for k in want} != want:
+                raise AssertionError(f"{tag}: record bytes {rec} against the shapes' {want}")
+            print(f"{tag}: {rec['n_before']} -> {rec['n_after']} ranks, wall "
+                  f"{rec['wall_s'] * 1e3:.1f} ms, gathered {rz['gathered_bytes']} bytes, "
+                  f"shipped {rz['shipped_bytes']} bytes, record bytes "
+                  f"{rec['param_bytes']} + {rec['kv_bytes']}")
+        summary["resizes"] = resized["resizes"]
+        steps = resized["step_ms"]
+    else:
+        got = r0["runs"][0]
+        # the ranks route alike: rank 1's picks are rank 0's
+        for key, layers in got["routes"].items():
+            theirs = rs[1]["routes"].get(key)
+            if theirs is None or any(not torch.equal(a[0], b[0])
+                                     for a, b in zip(layers, theirs)):
+                raise AssertionError(f"{tag}: rank 1's picks differ from rank 0's at {key}")
+        gate, counts = tp_gate(tag, cfg, one, r0, got, rs)
+        steps = got["step_ms"]
+        tp2 = [ms for size, ms in steps if size == 2]
+        summary.update(one_rank_step_ms=one["step_ms"],
+                       collective_ms_per_step=statistics.median(got["collective_ms"]),
+                       collective_share=sum(got["collective_ms"]) / sum(tp2))
+    summary.update(gate, step_ms_tp2=statistics.median([ms for size, ms in steps if size == 2]),
+                   step_ms_tp1=statistics.median([ms for size, ms in steps if size == 1]
+                                                 or [float("nan")]))
+    print(f"{tag}: decode step median {summary['step_ms_tp2']:.2f} ms at 2 ranks"
+          + (f", {summary['step_ms_tp1']:.2f} ms at 1" if resize else
+             f" (one rank {summary['one_rank_step_ms']:.2f} ms); collectives "
+             f"{summary['collective_ms_per_step']:.2f} ms a step, "
+             f"{summary['collective_share']:.3f} of the steps (a synchronisation around "
+             f"each)") + f"; streams equal: {summary['streams_equal']}")
     return summary, counts
 
 
@@ -2551,8 +2696,8 @@ def tp_moe_phase(seed: int):
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 24)
     dsa, mxa = "deepseek-v2-lite-16b", "mixtral-8x22b"
-    ds, mx = tp_moe_config(dsa), tp_moe_config(mxa, TPM_MIXTRAL)
-    cut = tp_moe_config(dsa, TPM_CUT)
+    ds, mx = tp_config(dsa), tp_config(mxa, TPM_MIXTRAL)
+    cut = tp_config(dsa, TPM_CUT)
     prompts = {a: rng.integers(0, c.vocab_size, size=(TP_REQ, TP_PROMPT)).tolist()
                for a, c in ((dsa, ds), (mxa, mx))}
     print(f"tp moe: 2 ranks on one card, {TP_REQ} requests of {TP_PROMPT} + {TP_NEW} new, "
@@ -2564,98 +2709,207 @@ def tp_moe_phase(seed: int):
     paths, one = {}, {}
     for tag, arch, cfg in (("tp moe deepseek one rank", dsa, ds),
                            ("tp moe mixtral one rank", mxa, mx)):
-        paths[tag], one[arch] = tp_moe_one_rank(tag, cfg, seed, prompts[arch])
+        paths[tag], one[arch] = tp_one_rank(tag, cfg, seed, prompts[arch])
     legs = (("a", dsa, None, prompts[dsa], None),
             ("b", dsa, TPM_CUT, prompts[dsa],
              {TP_SHRINK_AFTER: 1, TP_SHRINK_AFTER + TP_GROW_AFTER: 2}),
             ("c", mxa, TPM_MIXTRAL, prompts[mxa], None))
     t1 = time.perf_counter()
-    ranks = spawn_tp(tp_moe_rank, 2, device="cuda:0", args=(seed, legs), timeout=900)
+    ranks = spawn_tp(tp_shard_rank, 2, device="cuda:0", args=(seed, legs), timeout=900)
     spawn_s = time.perf_counter() - t1
     out = {"spawn_s": spawn_s}
     for leg, cfg, ref_key, label in (("a", ds, dsa, "deepseek tp 2"),
                                      ("b", cut, None, "deepseek cut 2 -> 1 -> 2"),
                                      ("c", mx, mxa, "mixtral tp 2")):
-        rs = [r[leg] for r in ranks]
-        r0 = rs[0]
-        tag = f"tp moe {leg} ({label})"
-        for r in rs:
-            if r["backend"] != "gloo":
-                raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
-            init_limit = r["shard_bytes"] + 5 * r["largest_leaf"] + TPM_INIT_SLACK
-            # a resize holds the old shards and the gathered whole leaves
-            held = r["shard_bytes"] + (r["whole_bytes"] if leg == "b" else 0)
-            serve_limit = held + TPM_SERVE_SLACK
-            print(f"{tag} rank {r['rank']}: init {r['init_s']:.2f} s, shard {r['shard_bytes']} "
-                  f"of {r['whole_bytes']} parameter bytes, init peak {r['init_peak_bytes']} "
-                  f"(limit {init_limit:.0f}: the shards, one whole leaf of "
-                  f"{r['largest_leaf']} elements at float32 and its mask, "
-                  f"{TPM_INIT_SLACK:.0f}), serving peak {r['serve_peak_bytes']} (limit "
-                  f"{serve_limit:.0f}), card in use after both inits {r['card_used_bytes']}, "
-                  f"passes {r['passes']}, collectives {r['collectives']}")
-            if r["init_peak_bytes"] > init_limit or r["serve_peak_bytes"] > serve_limit:
-                raise AssertionError(f"{tag} rank {r['rank']}: peaks {r['init_peak_bytes']} / "
-                                     f"{r['serve_peak_bytes']} over {init_limit} / "
-                                     f"{serve_limit}")
-            if r["shard_bytes"] * 2 > r["whole_bytes"] * 1.1:
-                raise AssertionError(f"{tag}: a rank holds {r['shard_bytes']} of "
-                                     f"{r['whole_bytes']} bytes")
-        both = sum(r["serve_peak_bytes"] for r in rs)
-        both_limit = (r0["whole_bytes"] * (3 if leg == "b" else 1) + sum(
-            r["shard_bytes"] for r in rs) * 0.1 + 2 * TPM_SERVE_SLACK)
-        print(f"{tag}: both ranks' serving peaks {both} bytes (limit {both_limit:.0f})")
-        if both > both_limit:
-            raise AssertionError(f"{tag}: both ranks' serving peaks {both} > {both_limit}")
-        summary = {"rank_init_peak_bytes": [r["init_peak_bytes"] for r in rs],
-                   "rank_serve_peak_bytes": [r["serve_peak_bytes"] for r in rs],
-                   "shard_bytes": [r["shard_bytes"] for r in rs],
-                   "whole_bytes": r0["whole_bytes"], "init_s": [r["init_s"] for r in rs]}
-        if leg == "b":
-            unbroken, resized = r0["runs"]
-            gate, counts = tp_moe_gate(tag, cfg, unbroken, {}, resized, rs)
-            kv_total = tp_cache_bytes(cfg)
-            for rz in resized["resizes"]:
-                rec = rz["record"]
-                frac = abs(rec["n_before"] - rec["n_after"]) / max(rec["n_before"],
-                                                                    rec["n_after"])
-                want = {"param_bytes": int(r0["whole_bytes"] * frac),
-                        "kv_bytes": int(kv_total * frac)}
-                if {k: rec[k] for k in want} != want:
-                    raise AssertionError(f"{tag}: record bytes {rec} against the shapes' {want}")
-                print(f"{tag}: {rec['n_before']} -> {rec['n_after']} ranks, wall "
-                      f"{rec['wall_s'] * 1e3:.1f} ms, gathered {rz['gathered_bytes']} bytes, "
-                      f"shipped {rz['shipped_bytes']} bytes, record bytes "
-                      f"{rec['param_bytes']} + {rec['kv_bytes']}")
-            summary["resizes"] = resized["resizes"]
-            steps = resized["step_ms"]
-        else:
-            got = r0["runs"][0]
-            # the ranks route alike: rank 1's picks are rank 0's
-            for key, layers in got["routes"].items():
-                theirs = rs[1]["routes"].get(key)
-                if theirs is None or any(not torch.equal(a[0], b[0])
-                                         for a, b in zip(layers, theirs)):
-                    raise AssertionError(f"{tag}: rank 1's picks differ from rank 0's at {key}")
-            gate, counts = tp_moe_gate(tag, cfg, one[ref_key], r0, got, rs)
-            steps = got["step_ms"]
-            tp2 = [ms for size, ms in steps if size == 2]
-            summary.update(one_rank_step_ms=one[ref_key]["step_ms"],
-                           collective_ms_per_step=statistics.median(got["collective_ms"]),
-                           collective_share=sum(got["collective_ms"]) / sum(tp2))
-        summary.update(gate, step_ms_tp2=statistics.median([ms for size, ms in steps if size == 2]),
-                       step_ms_tp1=statistics.median([ms for size, ms in steps if size == 1]
-                                                     or [float("nan")]))
-        print(f"{tag}: decode step median {summary['step_ms_tp2']:.2f} ms at 2 ranks"
-              + (f", {summary['step_ms_tp1']:.2f} ms at 1" if leg == "b" else
-                 f" (one rank {summary['one_rank_step_ms']:.2f} ms); collectives "
-                 f"{summary['collective_ms_per_step']:.2f} ms a step, "
-                 f"{summary['collective_share']:.3f} of the steps (a synchronisation around "
-                 f"each)") + f"; streams equal: {summary['streams_equal']}")
+        out[f"leg_{leg}"], counts = tp_leg(f"tp moe {leg} ({label})", cfg,
+                                           [r[leg] for r in ranks], one.get(ref_key),
+                                           resize=ref_key is None)
         paths.update(counts)
-        out[f"leg_{leg}"] = summary
     out["kernels"] = tp_moe_kernels(torch.Generator(device="cuda").manual_seed(seed + 24))
     out["phase_wall_s"] = time.perf_counter() - t0
     print(f"tp moe: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s)")
+    return paths, out
+
+
+# --- tensor parallelism for SSM and hybrid (the tp ssm phase) ---------------------------
+TPS_CUT = 12   # zamba2's resize leg: 2 of its 9 groups of 6 mamba layers (see tp_ssm_phase)
+
+
+def tp_ssm_kernels(gen: torch.Generator) -> dict:
+    """The kernels at the tp ssm phase's per-rank shapes, each against its
+    plain version and timed: ssd at one of 2 ranks of mamba2 and of zamba2
+    at a 128-token admission (40 of 80 heads, S padded to the 256-token
+    chunk; no library yardstick), the gated norm's two passes at 4 and 512
+    rows x 2560 of mamba2's 5120 channels (z a column slice of the rank's
+    in_proj row): pass A's sums against its plain version, pass B on the
+    summed sums against its plain version, the two ranks' rows side by
+    side against the one-pass gated kernel on the whole row (bf16 within
+    ``GATE_ULPS``), and on one rank pass B of pass A against the one-pass
+    kernel bit for bit (no one PyTorch call computes either pass); flash
+    at zamba2's rank shape, 16 of 32 heads of 80, beside SDPA."""
+    from repro_torch.kernels.ops import (flash_attention_op, gated_rmsnorm_op,
+                                         gated_rmsnorm_scale_op, gated_rmsnorm_ssq_op, ssd_op)
+    from repro_torch.kernels.ref import (flash_attention_ref, gated_rmsnorm_scale_ref,
+                                         gated_rmsnorm_ssq_ref, ssd_chunk_ref)
+
+    bf16, dev = torch.bfloat16, "cuda"
+    out = {"ssd": {}, "err": 0.0}
+    for label, n in (("mamba2", 128), ("zamba2", 64)):
+        b, s, h, p = 1, 256, 40, 64
+        x = torch.randn(b, s, h, p, device=dev, generator=gen).to(bf16)
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=dev, generator=gen))
+        a = -torch.exp(torch.randn(h, device=dev, generator=gen) * 0.3)
+        bm, cm = (torch.randn(b, s, 1, n, device=dev, generator=gen).to(bf16) for _ in range(2))
+        inputs = (x, dt, a, bm, cm)
+        y, fin = ssd_op(*inputs, chunk=256)
+        want = ssd_chunk_ref(*inputs, 256)
+        name = f"ssd {label} rank x {tuple(x.shape)} B {tuple(bm.shape)} chunk 256 bf16"
+        err = max(check_close(name + " y", y, want[0], SSD_TOL),
+                  check_close(name + " final state", fin, want[1], SSD_TOL))
+        print(f"check {name}: max abs err {err:.3e} (atol={SSD_TOL[0]} rtol={SSD_TOL[1]})")
+        bound, by = ssd_bound(*inputs, 256)
+        t = time_three(lambda: ssd_op(*inputs, chunk=256), lambda: ssd_chunk_ref(*inputs, 256),
+                       None)
+        t.update(bound_ms=bound, bound_by=by, err=err,
+                 shape=f"one of 2 ranks of {label}, a 128-token admission: x {tuple(x.shape)} "
+                       f"bf16, dt fp32, B/C {tuple(bm.shape)} bf16, chunk 256; library: none")
+        report(f"ssd {label} tp rank", t)
+        out["ssd"][label] = t
+        out["err"] = max(out["err"], err)
+
+    d, ranks = 5120, 2
+    width = d // ranks
+    stride = 2 * width + 2 * 128 + 40   # a rank's in_proj row: z, x, B, C, dt
+    res = {name: {"err": 0.0} for name in RMS_TP_FORMS}
+    split_ulps = 0.0
+    for rows in (512, 4):   # the kernels line carries the decode wave's numbers
+        x = torch.randn(rows, d, device=dev, generator=gen).to(bf16)
+        w = torch.randn(d, device=dev, generator=gen)
+        rows_z = [torch.randn(rows, stride, device=dev, generator=gen).to(bf16)[:, :width]
+                  for _ in range(ranks)]
+        parts = [(x[:, r * width:(r + 1) * width].contiguous(), rows_z[r],
+                  w[r * width:(r + 1) * width].contiguous()) for r in range(ranks)]
+        sums = [gated_rmsnorm_ssq_op(xs, zs) for xs, zs, _ in parts]
+        for (xs, zs, _), got in zip(parts, sums):
+            res["gated_rmsnorm_ssq"]["err"] = max(res["gated_rmsnorm_ssq"]["err"], check_close(
+                f"gated_rmsnorm_ssq rows={rows} d={width} bf16", got,
+                gated_rmsnorm_ssq_ref(xs, zs), TOL[torch.float32]))
+        ssq = sums[0] + sums[1]
+        ys = [gated_rmsnorm_scale_op(xs, zs, ws, ssq, d) for xs, zs, ws in parts]
+        for (xs, zs, ws), got in zip(parts, ys):
+            res["gated_rmsnorm_scale"]["err"] = max(
+                res["gated_rmsnorm_scale"]["err"],
+                check_close(f"gated_rmsnorm_scale rows={rows} d={width} of {d} bf16", got,
+                            gated_rmsnorm_scale_ref(xs, zs, ws, ssq, d), TOL[bf16]))
+        z_whole = torch.cat(rows_z, dim=-1)
+        one = gated_rmsnorm_op(x, z_whole, w)
+        ulps = bf16_ulps(torch.cat(ys, dim=-1), one)
+        split_ulps = max(split_ulps, ulps.max().item())
+        if ulps.max().item() > GATE_ULPS:
+            raise AssertionError(f"the gated norm split over {ranks} ranks, {rows} rows: "
+                                 f"{ulps.max().item():.0f} bf16 ulps from the one-pass kernel "
+                                 f"on the whole row (limit {GATE_ULPS})")
+        check_bits(f"gated passes on one rank, rows={rows} d={d}: pass B of pass A against "
+                   f"the one-pass kernel", gated_rmsnorm_scale_op(
+                       x, z_whole, w, gated_rmsnorm_ssq_op(x, z_whole), d), one)
+        xs, zs, ws = parts[0]
+        for name, kernel, plain, form in (
+                ("gated_rmsnorm_ssq", lambda: gated_rmsnorm_ssq_op(xs, zs),
+                 lambda: gated_rmsnorm_ssq_ref(xs, zs), "gated_ssq"),
+                ("gated_rmsnorm_scale", lambda: gated_rmsnorm_scale_op(xs, zs, ws, ssq, d),
+                 lambda: gated_rmsnorm_scale_ref(xs, zs, ws, ssq, d), "gated_scale")):
+            t = time_three(kernel, plain, None)
+            bound, by = rmsnorm_bound(rows, width, bf16, form)
+            t.update(bound_ms=bound, bound_by=by,
+                     shape=f"one of {ranks} ranks of mamba2-2.7b: x ({rows}, {width}) of {d} "
+                           f"channels bf16, z its columns of a ({rows}, {stride}) in_proj row, "
+                           f"w fp32; library: none (no one PyTorch call)")
+            report(f"{name}{' prefill' if rows > 4 else ''}", t)
+            res[name]["prefill" if rows > 4 else "decode"] = t
+        torch.cuda.synchronize()
+    print(f"check the gated norm split over {ranks} ranks (rows 4 and 512, {width} of {d}): "
+          f"at most {split_ulps:.0f} bf16 ulps from the one-pass kernel on the whole row; on "
+          f"one rank pass B of pass A is the one-pass kernel bit for bit")
+    for name in RMS_TP_FORMS:
+        res[name].update(res[name]["decode"])
+        res[name]["split_max_ulps"] = split_ulps
+    out.update(res)
+
+    b, h, kv, s, dd = 1, 16, 16, 128, 80
+    q, k, v = (torch.randn(b, s, n, dd, device=dev, generator=gen).to(bf16).transpose(1, 2)
+               for n in (h, kv, kv))
+    err = check_close(f"flash zamba2 rank (b={b},h={h},kv={kv},s={s},d={dd}) bf16",
+                      flash_attention_op(q, k, v, causal=True),
+                      flash_attention_ref(q, k, v, causal=True), TOL[bf16])
+    bound, by = flash_bound(b, h, kv, s, dd, bf16, causal=True)
+    t = time_three(lambda: flash_attention_op(q, k, v, causal=True),
+                   lambda: flash_attention_ref(q, k, v, causal=True),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                            is_causal=True))
+    t.update(bound_ms=bound, bound_by=by, err=err,
+             shape=f"one of 2 ranks of zamba2's shared block: q ({b},{h},{s},{dd}) kv {kv} "
+                   f"causal bf16; library: SDPA")
+    report("flash_attention zamba2 rank", t)
+    out["flash_attention"] = t
+    out["err"] = max(out["err"], err)
+    return out
+
+
+def tp_ssm_phase(seed: int):
+    """Tensor parallelism for SSM and hybrid on the card: two ranks on the
+    one card (gloo) serve (a) full-width, full-depth mamba2-2.7b and (b)
+    zamba2-2.7b at TP 2, each rank drawing only its shards (the Mamba2
+    channels of its 40 of 80 heads, the B/C group whole; zamba2's shared
+    block on the dense split), against the one-rank replica on the same
+    seeded bf16 weights, run first in this process and freed; (c) zamba2
+    cut to ``TPS_CUT`` layers shrinks 2 -> 1 and grows 1 -> 2 mid-stream
+    (``migrate``) against its unbroken 2-rank run (depth cut: at full depth
+    the stacked mamba ``in_proj``, 2.9 GB of zamba2's 4.8 GB, and its
+    gathered parts sit beside the whole tree a shrink gathers, beyond a
+    rank's serving limit; the widths stay full); then the kernels at the
+    per-rank shapes. Every
+    rank's gated norm is the two passes of the rmsnorm kernel around one
+    float32 sum a layer. Returns (launches by path, numbers)."""
+    from repro_torch.distributed.tensor_parallel import spawn_tp, ssm_span
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 25)
+    m2a, z2a = "mamba2-2.7b", "zamba2-2.7b"
+    m2, z2, z2cut = tp_config(m2a), tp_config(z2a), tp_config(z2a, TPS_CUT)
+    prompts = {a: rng.integers(0, c.vocab_size, size=(TP_REQ, TP_PROMPT)).tolist()
+               for a, c in ((m2a, m2), (z2a, z2))}
+    loc = ssm_span(m2, 0, 2)
+    print(f"tp ssm: 2 ranks on one card, {TP_REQ} requests of {TP_PROMPT} + {TP_NEW} new, "
+          f"{TP_SLOTS} slots, max_seq {TP_SEQ}; a rank {loc.n_heads} of {m2.n_ssm_heads} SSM "
+          f"heads ({loc.d_inner} of {m2.d_inner} channels), {loc.n_groups} B/C group of "
+          f"{m2.ssm_ngroups}, conv {loc.conv_dim} of {m2.conv_dim} channels; zamba2's shared "
+          f"block {z2.n_heads // 2} of {z2.n_heads} heads of {z2.head_dim}, d_ff "
+          f"{z2.d_ff // 2}")
+    paths, one = {}, {}
+    for tag, arch, cfg in (("tp ssm mamba2 one rank", m2a, m2),
+                           ("tp ssm zamba2 one rank", z2a, z2)):
+        paths[tag], one[arch] = tp_one_rank(tag, cfg, seed, prompts[arch])
+    legs = (("a", m2a, None, prompts[m2a], None), ("b", z2a, None, prompts[z2a], None),
+            ("c", z2a, TPS_CUT, prompts[z2a],
+             {TP_SHRINK_AFTER: 1, TP_SHRINK_AFTER + TP_GROW_AFTER: 2}))
+    t1 = time.perf_counter()
+    ranks = spawn_tp(tp_shard_rank, 2, device="cuda:0", args=(seed, legs), timeout=600)
+    spawn_s = time.perf_counter() - t1
+    out = {"spawn_s": spawn_s}
+    for leg, cfg, ref_key, label in (("a", m2, m2a, "mamba2 tp 2"), ("b", z2, z2a, "zamba2 tp 2"),
+                                     ("c", z2cut, None, "zamba2 cut 2 -> 1 -> 2")):
+        out[f"leg_{leg}"], counts = tp_leg(f"tp ssm {leg} ({label})", cfg,
+                                           [r[leg] for r in ranks], one.get(ref_key),
+                                           resize=ref_key is None)
+        paths.update(counts)
+    for leg in ("a", "b"):
+        coll = [r[leg]["collectives"] for r in ranks]
+        steps = ranks[0][leg]["passes"]["prefills"] + ranks[0][leg]["passes"]["steps"]
+        print(f"tp ssm {leg}: rank 0's collectives {coll[0]['calls']} over {steps} passes "
+              f"({coll[0]['calls'] / steps:.1f} a pass), {coll[0]['bytes']} bytes sent")
+    out["kernels"] = tp_ssm_kernels(torch.Generator(device="cuda").manual_seed(seed + 25))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"tp ssm: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s)")
     return paths, out
 
 
@@ -2858,21 +3112,23 @@ def ssm_parity(arch: str, seed: int, prompt) -> float:
 DECODE_TOL = (2e-4, 2e-3)
 
 
-def forward_counts(cfg, passes: int = 1) -> dict:
+def forward_counts(cfg, passes=1) -> dict:
     """Each kernel's launches over ``passes`` full-sequence passes (prefills,
-    forwards) under ``auto``: one rmsnorm a norm (none for the gelu
-    encoder's LayerNorms), flash once a GQA attention layer (MLA has no
-    flash twin), three moe_gmm a moe layer, ssd once a mamba layer."""
-    norms = 0 if cfg.act == "gelu" else (
-        2 * cfg.n_layers + 1 + (2 * cfg.n_attn_layers if cfg.family == "hybrid" else 0))
+    forwards; an int, or {ranks: passes} of a tensor-parallel rank) under
+    ``auto``: one rmsnorm a norm (none for the gelu encoder's LayerNorms;
+    two for a Mamba2 mixer's gated norm on more than one rank), flash once
+    a GQA attention layer (MLA has no flash twin), three moe_gmm a moe
+    layer, ssd once a mamba layer."""
+    by = _by_ranks(passes)
+    passes = sum(by.values())
     moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
-    return {"rmsnorm": norms * passes,
+    return {"rmsnorm": 0 if cfg.act == "gelu" else sum(expected_norm_forms(cfg, by).values()),
             "flash_attention": (0 if cfg.use_mla else cfg.n_attn_layers) * passes,
             "paged_attention": 0, "moe_gmm": 3 * moe_layers * passes,
             "ssd": cfg.n_ssm_layers * passes}
 
 
-def check_counts(tag: str, cfg, counts: dict, forms: dict, expect: dict, passes: int) -> dict:
+def check_counts(tag: str, cfg, counts: dict, forms: dict, expect: dict, passes) -> dict:
     """Assert the launches (rmsnorm's by form, where the arch norms with
     it); returns ``counts`` with the forms under ``rmsnorm_forms``."""
     print(f"{tag}: launches {counts}, expected {expect}")
@@ -4045,6 +4301,8 @@ def main(argv=None) -> int:
     mla_counts, mla_serving = phase("mla", mla_phase, args.seed)
     serving.update(mla_serving)
     tp_moe_counts, serving["tp_moe"] = phase("tp moe", tp_moe_phase, args.seed)
+    tp_ssm_counts, serving["tp_ssm"] = phase("tp ssm", tp_ssm_phase, args.seed)
+    kern.update({name: serving["tp_ssm"]["kernels"][name] for name in RMS_TP_FORMS})
     frontend_counts, serving["frontend"] = phase("frontend", frontend_phase, args.seed)
     stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
     serving.update(stablelm_serving)
@@ -4063,7 +4321,7 @@ def main(argv=None) -> int:
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
              **{f"elastic {k}": v for k, v in elastic_counts.items()}, **tp_counts,
-             **tp_moe_counts,
+             **tp_moe_counts, **tp_ssm_counts,
              "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
              "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
              "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,
@@ -4075,13 +4333,13 @@ def main(argv=None) -> int:
              **{f"long prompt {k}": v for k, v in long_counts.items()},
              **{f"twin {k}": v for k, v in twin_counts.items()}}
     print("launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
-    counts = {name: sum(c["rmsnorm_forms"][form] for c in paths.values())
-              for name, form in RMS_FORMS.items()}
+    counts = {name: sum(c["rmsnorm_forms"].get(form, 0) for c in paths.values())
+              for name, form in {**RMS_FORMS, **RMS_TP_FORMS}.items()}
     for name in ("flash_attention", "paged_attention", "moe_gmm", "ssd"):
         counts[name] = sum(c[name] for c in paths.values())
 
     rms_source = ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25")
-    sources = {**dict.fromkeys(RMS_FORMS, rms_source),
+    sources = {**dict.fromkeys({**RMS_FORMS, **RMS_TP_FORMS}, rms_source),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79"),
                "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -4098,7 +4356,8 @@ def main(argv=None) -> int:
          **({"library_calls_ms": kern[name]["library_calls_ms"],
              "unfused_ms": kern[name]["unfused_ms"]} if "unfused_ms" in kern[name] else {}),
          "shape": kern[name]["shape"]}
-        for name in (*RMS_FORMS, "flash_attention", "paged_attention", "moe_gmm", "ssd")]}
+        for name in (*RMS_FORMS, *RMS_TP_FORMS, "flash_attention", "paged_attention", "moe_gmm",
+                     "ssd")]}
     if not all(k["launches"] > 0 for k in line["kernels"]):
         raise AssertionError(f"a kernel of the path was not launched: {line}")
     print(json.dumps({"serving": serving, "card": smi}))

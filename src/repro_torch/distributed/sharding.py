@@ -28,13 +28,23 @@ rows of its heads; a routed expert leaf's run of whole experts where the
 experts divide over the ranks (``repro``'s ``_EXPERT_RULES_EP``), else its
 slice of every expert's ``moe_d_ff`` (``_EXPERT_RULES_TP``); a shared
 expert's slice of its width. Norm scales, the router, MLA's ``w_dkv`` and
-``w_krope`` and its latent cache stay whole.
+``w_krope`` and its latent cache stay whole. A Mamba2 leaf is cut by its
+SSM heads, piecewise (:func:`tp_segments`): ``in_proj``'s fused
+``[z | x | B | C | dt]`` columns become the rank's ``z``, ``x``, B and C
+groups and ``dt`` in that order, the conv's ``[x | B | C]`` channels
+likewise, ``A_log``/``dt_bias``/``D_skip`` and ``norm_w`` by heads,
+``out_proj``'s rows by heads, the cache's ``state`` by heads and its
+``conv`` window as the conv.
 That is ``repro``'s spec on every leaf where a whole number of heads falls
 to each rank. Where there are fewer KV heads than ranks (qwen2.5-3b's one
 KV head at smoke size on 2 or 4 ranks, its two at full size on 4), ``repro``
 splits the KV head's columns across the ranks and GSPMD regathers them for
 the attention; the port replicates the KV head instead (rank ``r`` holds
 head ``r * n_kv_heads // size``), as Megatron does. The maths is the same.
+The SSM leaves differ from ``repro``'s even cut of the fused axis, which
+GSPMD can take at any column and a physical rank cannot: the rank needs
+the components of its own heads, and with fewer B/C groups than ranks
+(one, for both full configs) it holds the group its heads read whole.
 :func:`param_specs` and :func:`cache_specs` stay ``repro``'s, as the
 layout GSPMD would take. A mesh over several distinct devices that no
 group covers raises: there is nothing to run the shards.
@@ -50,13 +60,14 @@ constrains nothing, and the tensor-parallel path splits its tensors itself.
 from __future__ import annotations
 
 import contextvars
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.distributed.tensor_parallel import all_gather, device_key, expert_parallel
+from repro_torch.distributed.tensor_parallel import (all_gather, device_key, expert_parallel,
+                                                      ssm_span)
 from repro_torch.models.model import tree_map
 
 
@@ -361,6 +372,12 @@ _TP_SPLITS: Dict[str, Tuple[str, int]] = {
     "wk": ("kv", -1), "bk": ("kv", -1), "wv": ("kv", -1), "bv": ("kv", -1),
     "w_gate": ("ff", -1), "w_up": ("ff", -1), "w_down": ("ff", -2),
     "tokens": ("vocab", -2), "lm_head": ("vocab", -1),
+    # Mamba2, by SSM heads: in_proj's [z | x | B | C | dt] columns and the
+    # conv's [x | B | C] channels piecewise, the per-head scalars, the
+    # gated norm's and out_proj's heads x headdim
+    "in_proj": ("ssm_in", -1), "conv_w": ("ssm_conv", -2), "conv_b": ("ssm_conv", -1),
+    "A_log": ("ssm_heads", -1), "dt_bias": ("ssm_heads", -1), "D_skip": ("ssm_heads", -1),
+    "norm_w": ("ssm_inner", -1), "out_proj": ("ssm_inner", -2),
 }
 # MLA's heads: the query's heads x (nope + rope) columns, the up-projections'
 # heads x nope / heads x v_head columns, wo's heads x v_head rows. w_dkv,
@@ -369,7 +386,11 @@ _TP_MLA_SPLITS: Dict[str, Tuple[str, int]] = {
     "wq": ("mla_q", -1), "w_uk": ("mla_uk", -1), "w_uv": ("mla_uv", -1), "wo": ("mla_o", -2)}
 # the feed-forward leaves of a routed or shared expert: the axis of moe_d_ff
 _TP_EXPERT_FF_AXIS: Dict[str, int] = {"w_gate": -1, "w_up": -1, "w_down": -2}
-_TP_CACHE_SPLITS: Dict[str, Tuple[str, int]] = {"k": ("kv_heads", -2), "v": ("kv_heads", -2)}
+# the cache: KV heads; the SSM state (..., B, H, P, N) by heads, the conv
+# window (..., B, W - 1, conv_dim) as the conv's channels
+_TP_CACHE_SPLITS: Dict[str, Tuple[str, int]] = {
+    "k": ("kv_heads", -2), "v": ("kv_heads", -2),
+    "state": ("ssm_heads", -3), "conv": ("ssm_conv", -1)}
 
 
 def tp_split(names: Sequence[str], cfg, size: int,
@@ -382,8 +403,9 @@ def tp_split(names: Sequence[str], cfg, size: int,
     size == 0``) or else on its ``moe_d_ff`` axis (``"expert_ff"``); a
     shared expert's leaf is cut on its ``moe_d_ff x n_shared_experts``
     axis (``"shared_ff"``); MLA's ``wq``, ``w_uk``, ``w_uv`` and ``wo``
-    by heads. The router, the norms, ``w_dkv``, ``w_krope`` and MLA's
-    latent cache stay whole."""
+    by heads; a Mamba2 leaf by SSM heads (``"ssm_*"``, piecewise where
+    the axis fuses components, :func:`tp_segments`). The router, the
+    norms, ``w_dkv``, ``w_krope`` and MLA's latent cache stay whole."""
     key = names[-1]
     if cache:
         return _TP_CACHE_SPLITS.get(key)
@@ -400,12 +422,12 @@ def tp_split(names: Sequence[str], cfg, size: int,
 
 def tp_span(kind: str, cfg, rank: int, size: int) -> Tuple[int, int]:
     """[start, stop) of rank ``rank``'s slice of ``size`` along the split
-    axis of a ``kind`` leaf of the global ``cfg``: whole KV heads (each
-    rank its own, or with fewer KV heads than ranks head ``rank *
-    n_kv_heads // size``), else an even slice of the axis (whole query or
-    MLA heads, whole experts, a share of ``d_ff``, of ``moe_d_ff``, of the
-    shared width or of the padded vocabulary). ``"kv"`` counts columns
-    (heads x head_dim), ``"kv_heads"`` heads."""
+    axis of a one-piece ``kind`` of the global ``cfg``: whole KV heads
+    (each rank its own, or with fewer KV heads than ranks head ``rank *
+    n_kv_heads // size``), else an even slice of the axis (whole query,
+    MLA or SSM heads, whole experts, a share of ``d_ff``, of ``moe_d_ff``,
+    of the shared width or of the padded vocabulary). ``"kv"`` counts
+    columns (heads x head_dim), ``"kv_heads"`` heads."""
     if kind in ("kv", "kv_heads"):
         kv = cfg.n_kv_heads
         first, n = (rank * (kv // size), kv // size) if kv >= size else (rank * kv // size, 1)
@@ -415,6 +437,31 @@ def tp_span(kind: str, cfg, rank: int, size: int) -> Tuple[int, int]:
     return rank * total // size, (rank + 1) * total // size
 
 
+def tp_segments(kind: str, cfg, rank: int, size: int) -> List[Tuple[int, int]]:
+    """Rank ``rank``'s share of the split axis of a ``kind`` leaf, as the
+    [start, stop) segments of the global axis it holds, in the order the
+    rank lays them out. One segment (:func:`tp_span`) but for the fused
+    Mamba2 axes: ``"ssm_in"`` (``in_proj``'s columns) is ``z`` of the
+    rank's heads, ``x`` of its heads, B of its groups, C of its groups and
+    ``dt`` of its heads; ``"ssm_conv"`` (the conv's channels) ``x``, B, C.
+    The rank's columns keep the ``[z | x | B | C | dt]`` order at local
+    widths, so a rank splits its projection as the whole model does."""
+    if kind not in ("ssm_in", "ssm_conv"):
+        return [tp_span(kind, cfg, rank, size)]
+    loc = ssm_span(cfg, rank, size)
+    p, n = cfg.ssm_headdim, cfg.ssm_state
+    di, gn = cfg.d_inner, cfg.ssm_ngroups * n
+    heads = (loc.first_head * p, loc.first_head * p + loc.d_inner)
+    g0, g1 = loc.first_group * n, (loc.first_group + loc.n_groups) * n
+    x0 = di if kind == "ssm_in" else 0   # where x starts: after z in in_proj
+    xbc = [(x0 + heads[0], x0 + heads[1]), (x0 + di + g0, x0 + di + g1),
+           (x0 + di + gn + g0, x0 + di + gn + g1)]
+    if kind == "ssm_conv":
+        return xbc
+    dt0 = 2 * di + 2 * gn + loc.first_head
+    return [heads, *xbc, (dt0, dt0 + loc.n_heads)]
+
+
 def _tp_global_dim(kind: str, cfg) -> int:
     h = cfg.n_heads
     return {"q": h * cfg.head_dim, "kv": cfg.n_kv_heads * cfg.head_dim,
@@ -422,16 +469,20 @@ def _tp_global_dim(kind: str, cfg) -> int:
             "mla_q": h * (cfg.qk_nope_dim + cfg.qk_rope_dim), "mla_uk": h * cfg.qk_nope_dim,
             "mla_uv": h * cfg.v_head_dim, "mla_o": h * cfg.v_head_dim,
             "experts": cfg.n_experts, "expert_ff": cfg.moe_d_ff,
-            "shared_ff": cfg.moe_d_ff * cfg.n_shared_experts}[kind]
+            "shared_ff": cfg.moe_d_ff * cfg.n_shared_experts,
+            "ssm_in": 2 * cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state + cfg.n_ssm_heads,
+            "ssm_conv": cfg.conv_dim, "ssm_heads": cfg.n_ssm_heads,
+            "ssm_inner": cfg.d_inner}[kind]
 
 
 def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool = False,
                 rank: Optional[int] = None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Rank ``rank``'s (default: ``tp.rank``'s) slice of the whole ``leaf``
+    """Rank ``rank``'s (default: ``tp.rank``'s) share of the whole ``leaf``
     at ``names`` of the global ``cfg`` (a cache leaf with ``cache``; see
-    :func:`tp_split`), as a tensor of its own so the whole leaf can be
+    :func:`tp_split`): its segments of the split axis side by side
+    (:func:`tp_segments`), as a tensor of its own so the whole leaf can be
     freed; the leaf itself for a whole leaf, no group or a group of one.
-    ``dtype`` casts the slice (the whole leaf under a whole leaf, no group
+    ``dtype`` casts the share (the whole leaf under a whole leaf, no group
     or a group of one), read from the leaf in place, so no whole copy at
     ``dtype`` is made."""
     size = 1 if tp is None else tp.size
@@ -439,16 +490,22 @@ def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool =
     if split is None:
         return leaf if dtype is None else leaf.to(dtype)
     kind, axis = split
-    start, stop = tp_span(kind, cfg, tp.rank if rank is None else rank, size)
-    part = leaf.narrow(axis, start, stop - start)
-    return torch.empty(part.shape, dtype=dtype or leaf.dtype, device=leaf.device).copy_(part)
+    segments = tp_segments(kind, cfg, tp.rank if rank is None else rank, size)
+    shape = list(leaf.shape)
+    shape[axis] = sum(stop - start for start, stop in segments)
+    out = torch.empty(shape, dtype=dtype or leaf.dtype, device=leaf.device)
+    at = 0
+    for start, stop in segments:
+        out.narrow(axis, at, stop - start).copy_(leaf.narrow(axis, start, stop - start))
+        at += stop - start
+    return out
 
 
 def assemble_shards(parts: Sequence[torch.Tensor], names: Sequence[str], cfg,
                     cache: bool = False) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` of it, by rank
-    (``len(parts)`` ranks). A replicated KV head is written once per rank
-    that holds it, with the same values."""
+    (``len(parts)`` ranks). A segment that several ranks hold (a replicated
+    KV head, or B/C group) is written once, from the first of them."""
     size = len(parts)
     split = tp_split(names, cfg, size, cache) if size > 1 else None
     if split is None:
@@ -457,9 +514,14 @@ def assemble_shards(parts: Sequence[torch.Tensor], names: Sequence[str], cfg,
     shape = list(parts[0].shape)
     shape[axis] = _tp_global_dim(kind, cfg)
     whole = torch.empty(shape, dtype=parts[0].dtype, device=parts[0].device)
+    written = set()
     for r, part in enumerate(parts):
-        start, stop = tp_span(kind, cfg, r, size)
-        whole.narrow(axis, start, stop - start).copy_(part)
+        at = 0
+        for start, stop in tp_segments(kind, cfg, r, size):
+            if (start, stop) not in written:
+                whole.narrow(axis, start, stop - start).copy_(part.narrow(axis, at, stop - start))
+                written.add((start, stop))
+            at += stop - start
     return whole
 
 

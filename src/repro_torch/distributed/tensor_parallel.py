@@ -19,8 +19,10 @@ columns after the head. This module is that plumbing:
   collectives take CUDA tensors through host memory;
 - :func:`tp_local`: the config one rank runs, at its local head and
   feed-forward counts (the dense GQA family and the MoE family, with GQA
-  or MLA attention); :func:`expert_parallel` and :func:`expert_span`, which
-  experts a rank holds;
+  or MLA attention, and the SSM and hybrid families); :func:`expert_parallel`
+  and :func:`expert_span`, which experts a rank holds; :func:`ssm_local`,
+  the rank's Mamba2 widths, which the config cannot state (they derive
+  from ``d_model``);
 - the collectives :func:`all_sum` (with :func:`row_parallel`, the product
   it follows), :func:`gather_last` and :func:`broadcast_`, each the identity
   for no group or a group of one, and :func:`broadcast_object` for the
@@ -157,24 +159,66 @@ def tp_local(cfg: ModelConfig, tp: Optional[TPGroup]) -> ModelConfig:
     stays whole (the rank's experts are :func:`expert_span`). MLA keeps its
     latent width (``kv_lora_rank``, ``qk_rope_dim``): the latent cache is
     whole on every rank. The vocabulary stays whole in the config: the
-    embedding and the head split it themselves. ``cfg`` itself for no
-    group or a group of one. The dense and MoE families are covered; SSM,
-    hybrid and frontend architectures raise ``NotImplementedError``."""
+    embedding and the head split it themselves. The SSM and hybrid
+    families keep their SSM fields: the rank's Mamba2 widths derive from
+    ``d_model`` and come from :func:`ssm_local`. ``cfg`` itself for no
+    group or a group of one. The dense, MoE, SSM and hybrid families are
+    covered; frontend architectures raise ``NotImplementedError``."""
     n = tp_size(tp)
     if n == 1:
         return cfg
-    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend is not None:
         raise NotImplementedError(
-            f"tensor parallelism over {n} ranks covers the dense and MoE families on the "
-            f"serving path; {cfg.arch_id} (family {cfg.family!r}, frontend "
+            f"tensor parallelism over {n} ranks covers the dense, MoE, SSM and hybrid "
+            f"families on the serving path; {cfg.arch_id} (family {cfg.family!r}, frontend "
             f"{cfg.frontend!r}) is queued in {ROADMAP_ITEM}")
     bad = _unsplit(cfg, n)
     if bad:
         raise ValueError(f"{cfg.arch_id}: {', '.join(bad)} do not split over {n} ranks")
     moe_d_ff = cfg.moe_d_ff if expert_parallel(cfg, n) else cfg.moe_d_ff // n
+    kv = cfg.n_kv_heads
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
-                               n_kv_heads=max(1, cfg.n_kv_heads // n), d_ff=cfg.d_ff // n,
+                               n_kv_heads=max(1, kv // n) if kv else 0, d_ff=cfg.d_ff // n,
                                moe_d_ff=moe_d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMLocal:
+    """One rank's Mamba2 widths: ``n_heads`` SSM heads from ``first_head``
+    on (``d_inner = n_heads * ssm_headdim`` channels of ``x``, ``z`` and
+    the gated norm), the ``n_groups`` B/C groups from ``first_group`` on
+    that those heads read, and ``conv_dim``, the channels of its depthwise
+    conv (its ``x``, then its B and C groups)."""
+    d_inner: int
+    n_heads: int
+    n_groups: int
+    conv_dim: int
+    first_head: int
+    first_group: int
+
+
+def ssm_local(cfg: ModelConfig, tp: Optional[TPGroup] = None) -> SSMLocal:
+    """This rank's Mamba2 widths under ``tp`` (:func:`ssm_span`); the
+    config's own widths for no group or a group of one. ``cfg`` may be the
+    global config or :func:`tp_local`'s, which keeps the SSM fields."""
+    n = tp_size(tp)
+    return ssm_span(cfg, 0 if n == 1 else tp.rank, n)
+
+
+def ssm_span(cfg: ModelConfig, rank: int, size: int) -> SSMLocal:
+    """The Mamba2 widths of rank ``rank`` of ``size``: a contiguous run of
+    ``n_ssm_heads / size`` heads, and the groups they read (heads ``[h0,
+    h1)`` read groups ``h0 // (H/G)`` to ``(h1 - 1) // (H/G)``: ``G /
+    size`` of them where ``size`` divides ``G``, else the one group the
+    rank's heads share, whole on every rank that reads it)."""
+    h, g, p = cfg.n_ssm_heads, cfg.ssm_ngroups, cfg.ssm_headdim
+    h0, h1 = rank * h // size, (rank + 1) * h // size
+    per_group = max(h // g, 1)
+    g0, g1 = h0 // per_group, (h1 - 1) // per_group + 1
+    di = (h1 - h0) * p
+    return SSMLocal(d_inner=di, n_heads=h1 - h0, n_groups=g1 - g0,
+                    conv_dim=di + 2 * (g1 - g0) * cfg.ssm_state, first_head=h0,
+                    first_group=g0)
 
 
 def expert_parallel(cfg: ModelConfig, size: int) -> bool:
@@ -205,6 +249,10 @@ def _unsplit(cfg: ModelConfig, n: int) -> List[str]:
                        cfg.n_experts % n == 0 or cfg.moe_d_ff % n == 0))
         shared = cfg.moe_d_ff * cfg.n_shared_experts
         checks.append((f"shared width {shared}", shared % n == 0))
+    if cfg.family in ("ssm", "hybrid"):
+        g = cfg.ssm_ngroups
+        checks += [(f"n_ssm_heads {cfg.n_ssm_heads}", cfg.n_ssm_heads % n == 0),
+                   (f"ssm_ngroups {g}", g % n == 0 or n % g == 0)]
     return [what for what, ok in checks if not ok]
 
 

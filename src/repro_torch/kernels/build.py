@@ -33,7 +33,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # library name -> {C function -> argtypes}; every function returns int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "rmsnorm": {
-        "rmsnorm_launch": [_P] * 5 + [_L, _L, _I, _I, _F, _I, _I, _P],
+        "rmsnorm_launch": [_P] * 5 + [_L, _L, _I, _I, _I, _F, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]

@@ -11,6 +11,13 @@
 //             sum, nearest even) and stored; y = rmsnorm(s)
 //   gated     y = rmsnorm(x * silu(z)), silu(z) and the product each rounded
 //             to the dtype, as `x * F.silu(z)` rounds them
+// and the gated norm split in two passes, for a row whose channels lie on
+// several ranks (Mamba2's d_inner under tensor parallelism): the caller
+// sums pass A's output over the ranks and hands the sum to pass B.
+//   gated_ssq    ssq[row] = sum((x * silu(z))^2) in fp32, the product
+//                rounded as the gated form rounds it
+//   gated_scale  y = (x * silu(z)) * rsqrt(ssq[row] / dn + eps) * w, dn the
+//                row's width over every rank
 // x, h and z are read through a row stride (z is a column slice of Mamba2's
 // in_proj output); s and y are written contiguous.
 //
@@ -31,14 +38,16 @@
 // residual form's y is the plain form's y on its s, bit for bit. A base, row
 // stride or D that does not allow 16-byte vectors takes the element-wise
 // path, which keeps the same ownership of elements and so the same order of
-// sums.
+// sums. The two passes keep the gated form's ownership and order: on one
+// rank (dn = d) pass A's sum is the gated form's, and pass B's y is its y,
+// bit for bit.
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-enum Form : int { kPlain = 0, kResidual = 1, kGated = 2 };
+enum Form : int { kPlain = 0, kResidual = 1, kGated = 2, kGatedSsq = 3, kGatedScale = 4 };
 
 constexpr int kMaxThreads = 256;
 // the most 16-byte vectors a thread holds: D <= kMaxThreads * kMaxNV * (16 /
@@ -55,10 +64,11 @@ struct Args {
   const void* x;   // (rows, d), row stride sx
   const void* hz;  // residual: h, gated: z; (rows, d), row stride sh
   const float* w;  // (d,)
-  void* y;         // (rows, d) contiguous
-  void* s;         // residual: (rows, d) contiguous
+  void* y;         // (rows, d) contiguous; gated_ssq: ssq (rows,) fp32
+  void* s;         // residual: (rows, d) contiguous; gated_scale: ssq (rows,) fp32
   long long sx, sh;
   int rows, d;
+  int dn;          // the width the mean divides by: d, or the row's over every rank
   float eps;
 };
 
@@ -131,7 +141,7 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(Args a) {
     if (k < nvec) {
       load<T, V16>(p[j], xr, k, a.d);
       if constexpr (FORM != kPlain) load<T, V16>(q[j], hr, k, a.d);
-      load_w<N, V16>(wv[j], a.w, k, a.d);
+      if constexpr (FORM != kGatedSsq) load_w<N, V16>(wv[j], a.w, k, a.d);
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) {
@@ -162,25 +172,34 @@ __global__ void __launch_bounds__(kMaxThreads) rmsnorm_kernel(Args a) {
   }
 
   // sum of squares: the thread's vectors in order, then the warp's butterfly
-  // (every lane ends with the same sum), then the CTA's warps in order
+  // (every lane ends with the same sum), then the CTA's warps in order;
+  // gated_scale reads the sum over every rank instead
   float ss = 0.f;
+  if constexpr (FORM == kGatedScale) {
+    ss = static_cast<const float*>(a.s)[row];
+  } else {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
+    for (int j = 0; j < NV; ++j) {
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
-      const float f = to_f32(p[j].v[e]);
-      ss = fmaf(f, f, ss);
+      for (int e = 0; e < N; ++e) {
+        const float f = to_f32(p[j].v[e]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+    ss = warp_sum(ss);
+    if (tpr > 32) {  // uniform over the CTA: every thread reaches the barrier
+      __shared__ float part[kMaxThreads / 32];
+      if ((t & 31) == 0) part[t >> 5] = ss;
+      __syncthreads();
+      ss = 0.f;
+      for (int i = 0; i < tpr / 32; ++i) ss += part[i];
     }
   }
-  ss = warp_sum(ss);
-  if (tpr > 32) {  // uniform over the CTA: every thread reaches the barrier
-    __shared__ float part[kMaxThreads / 32];
-    if ((t & 31) == 0) part[t >> 5] = ss;
-    __syncthreads();
-    ss = 0.f;
-    for (int i = 0; i < tpr / 32; ++i) ss += part[i];
+  if constexpr (FORM == kGatedSsq) {
+    if (t == 0) static_cast<float*>(a.y)[row] = ss;
+    return;
   }
-  const float r = rsqrtf(ss / static_cast<float>(a.d) + a.eps);
+  const float r = rsqrtf(ss / static_cast<float>(a.dn) + a.eps);
 
   T* yr = static_cast<T*>(a.y) + static_cast<long long>(row) * a.d;
 #pragma unroll
@@ -215,36 +234,42 @@ cudaError_t launch_form(const Args& a, int form, int nv, bool v16, int threads,
                         cudaStream_t s) {
   if (form == kPlain) return launch_nv<T, kPlain>(a, nv, v16, threads, s);
   if (form == kResidual) return launch_nv<T, kResidual>(a, nv, v16, threads, s);
-  return launch_nv<T, kGated>(a, nv, v16, threads, s);
+  if (form == kGated) return launch_nv<T, kGated>(a, nv, v16, threads, s);
+  if (form == kGatedSsq) return launch_nv<T, kGatedSsq>(a, nv, v16, threads, s);
+  return launch_nv<T, kGatedScale>(a, nv, v16, threads, s);
 }
 
 }  // namespace
 
-// x: (rows, d) at row stride sx; hz: h (residual) or z (gated) at row stride
-// sh, unused by the plain form; w: (d,) fp32; y and s (residual only):
-// (rows, d) contiguous, all but w in `dtype`. One CTA a row, of the fewest
-// warps (at most 8) that give each thread one 16-byte vector; d must fit
-// kMaxThreads * kMaxNV vectors. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// x: (rows, d) at row stride sx; hz: h (residual) or z (the gated forms)
+// at row stride sh, unused by the plain form; w: (d,) fp32, unused by
+// gated_ssq; y: (rows, d) contiguous, or gated_ssq's fp32 sums (rows,); s:
+// the residual form's (rows, d) contiguous sum, or gated_scale's fp32 sums
+// (rows,) over every rank; x, hz, y (but gated_ssq's) and s (residual) in
+// `dtype`; dn: the width the mean divides by (d but for gated_scale). One
+// CTA a row, of the fewest warps (at most 8) that give each thread one
+// 16-byte vector; d must fit kMaxThreads * kMaxNV vectors. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 extern "C" int rmsnorm_launch(const void* x, const void* hz, const void* w, void* y, void* s,
-                              long long sx, long long sh, int rows, int d, float eps, int form,
-                              int dtype, void* stream) {
+                              long long sx, long long sh, int rows, int d, int dn, float eps,
+                              int form, int dtype, void* stream) {
   const int n = dtype == kF32 ? 4 : 8;  // elements a 16-byte vector
   const int nvec = (d + n - 1) / n;
-  if (d <= 0 || nvec > kMaxThreads * kMaxNV || form < kPlain || form > kGated ||
-      (dtype != kF32 && dtype != kBF16))
+  if (d <= 0 || dn <= 0 || nvec > kMaxThreads * kMaxNV || form < kPlain ||
+      form > kGatedScale || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   const bool two = form != kPlain;
   const bool v16 = d % n == 0 && sx % n == 0 && (!two || sh % n == 0) && aligned16(x) &&
-                   aligned16(w) && aligned16(y) && (!two || aligned16(hz)) &&
-                   (form != kResidual || aligned16(s));
+                   (form == kGatedSsq || (aligned16(w) && aligned16(y))) &&
+                   (!two || aligned16(hz)) && (form != kResidual || aligned16(s));
   const int warps = (nvec + 31) / 32;
   const int threads = warps < kMaxThreads / 32 ? 32 * warps : kMaxThreads;
   // vectors a thread holds: the fewest of 1, 2, 4, 8 that cover the row
   const int need = (nvec + threads - 1) / threads;
   const int nv = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : kMaxNV;
-  const Args a{x, hz, static_cast<const float*>(w), y, s, sx, sh, rows, d, eps};
+  const Args a{x, hz, static_cast<const float*>(w), y, s, sx, sh, rows, d, dn, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == kF32 ? launch_form<float>(a, form, nv, v16, threads, st)
                                         : launch_form<__nv_bfloat16>(a, form, nv, v16, threads, st);

@@ -52,6 +52,17 @@ def gated_rmsnorm_op(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return _rmsnorm.gated_rmsnorm(x, z, w, eps=eps)
 
 
+def gated_rmsnorm_ssq_op(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    _refuse_grad("gated_rmsnorm_ssq_op", x, z)
+    return _rmsnorm.gated_rmsnorm_ssq(x, z)
+
+
+def gated_rmsnorm_scale_op(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                           ssq: torch.Tensor, d: int, eps: float = 1e-5) -> torch.Tensor:
+    _refuse_grad("gated_rmsnorm_scale_op", x, z, w)
+    return _rmsnorm.gated_rmsnorm_scale(x, z, w, ssq, d, eps=eps)
+
+
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: Optional[int] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
@@ -115,15 +126,17 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`
-    (``rmsnorm`` counts all three of its forms)."""
+    (``rmsnorm`` counts all five of its forms)."""
     return {"rmsnorm": sum(_rmsnorm.launches.values()), "flash_attention": _flash.launches,
             "paged_attention": _paged.launches, "moe_gmm": _gmm.launches,
             "ssd": _ssd.launches}
 
 
 def rmsnorm_form_counts() -> Dict[str, int]:
-    """The rmsnorm kernel's launches by form (plain, residual, gated) since
-    the last :func:`reset_launch_counts`; they sum to its count there."""
+    """The rmsnorm kernel's launches by form (plain, residual, gated, and
+    the gated norm's two passes across ranks, gated_ssq and gated_scale)
+    since the last :func:`reset_launch_counts`; they sum to its count
+    there."""
     return dict(_rmsnorm.launches)
 
 

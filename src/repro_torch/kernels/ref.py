@@ -38,6 +38,22 @@ def gated_rmsnorm_ref(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return rmsnorm_ref(x * F.silu(z.to(x.dtype)), w, eps)
 
 
+def gated_rmsnorm_ssq_ref(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Pass A of the gated norm split over ranks: each row's fp32 sum of
+    squares of x * silu(z), rounded as :func:`gated_rmsnorm_ref` rounds it;
+    shape ``x.shape[:-1]``."""
+    return (x * F.silu(z.to(x.dtype))).float().square().sum(dim=-1)
+
+
+def gated_rmsnorm_scale_ref(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                            ssq: torch.Tensor, d: int, eps: float = 1e-5) -> torch.Tensor:
+    """Pass B: x * silu(z) (rounded as pass A rounds it) times
+    rsqrt(ssq / d + eps) times w, fp32 math, result in x's dtype; ``ssq``
+    the rows' sums over every rank, ``d`` the row's width over them."""
+    g = (x * F.silu(z.to(x.dtype))).float()
+    return ((g * torch.rsqrt(ssq.float() / d + eps)[..., None]) * w.float()).to(x.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:

@@ -10,7 +10,8 @@ Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``) each
 rank holds its shard: the MLP is column-parallel in ``w_gate``/``w_up`` and
 row-parallel in ``w_down`` (a float32 sum over the group follows), the embedding
 and the head are vocab-parallel (a masked local lookup and a sum; the local
-columns of the logits and a gather). ``tp=None`` is the one-device path.
+columns of the logits and a gather), and Mamba2's gated norm sums its
+rows' squares over the group. ``tp=None`` is the one-device path.
 """
 from __future__ import annotations
 
@@ -62,14 +63,34 @@ def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, eps: fl
 
 
 def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
-                   eps: float, cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+                   eps: float, cfg: Optional[ModelConfig] = None, tp=None) -> torch.Tensor:
     """Mamba2 RMSNormGated: norm(x * silu(gate)) * weight. Under the kernel
     policy one launch of the kernel's gated form, which reads a strided
-    ``gate`` in place; otherwise through :func:`rms_norm`."""
-    if cfg is not None and kernel_impl(cfg, "rmsnorm") == "kernel":
-        from repro_torch.kernels.ops import gated_rmsnorm_op
-        return gated_rmsnorm_op(x, gate.to(x.dtype), weight.float(), eps=eps)
-    return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
+    ``gate`` in place; otherwise through :func:`rms_norm`.
+
+    Under ``tp`` each rank holds its heads' channels of the row, so the
+    mean square needs the whole row: each rank's float32 sum of squares of
+    ``x * silu(gate)``, summed over the group, divided by the whole width.
+    Under the kernel policy that is the kernel's two gated passes (the sums,
+    then the norm from the summed sums) around one float32 sum of a value a
+    row; otherwise the same steps in plain torch, rounded as
+    :func:`rms_norm` rounds."""
+    kernel = cfg is not None and kernel_impl(cfg, "rmsnorm") == "kernel"
+    if tp_size(tp) == 1:
+        if kernel:
+            from repro_torch.kernels.ops import gated_rmsnorm_op
+            return gated_rmsnorm_op(x, gate.to(x.dtype), weight.float(), eps=eps)
+        return rms_norm(x * F.silu(gate.to(x.dtype)), weight, eps, cfg)
+    d = x.shape[-1] * tp.size
+    if kernel:
+        from repro_torch.kernels.ops import gated_rmsnorm_scale_op, gated_rmsnorm_ssq_op
+        gate = gate.to(x.dtype)
+        ssq = all_sum(gated_rmsnorm_ssq_op(x, gate), tp)
+        return gated_rmsnorm_scale_op(x, gate, weight.float(), ssq, d, eps=eps)
+    dt = x.dtype
+    g = (x * F.silu(gate.to(dt))).float()
+    ssq = all_sum(g.square().sum(dim=-1, keepdim=True), tp)
+    return (g * torch.rsqrt(ssq / d + eps)).to(dt) * weight.to(dt)
 
 
 def _shard(cfg: ModelConfig, x: torch.Tensor, *axes) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.tensor_parallel import tp_local
+from repro_torch.distributed.tensor_parallel import ssm_local, tp_local
 from repro_torch.models import transformer
 from repro_torch.models.attention import init_kv_cache_shape, paged_gqa_decode
 from repro_torch.models.layers import embed_tokens, logits_from_hidden
@@ -126,16 +126,20 @@ def _dense_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
 
 
 def _mamba_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
-    """A pre-norm and ``repro.models.ssm.init_mamba``'s leaves. The SSM
-    scalars and the conv stay at ``param_dtype`` (``cast=False``): ``repro``
-    reads ``A_log``, ``dt_bias``, ``D_skip`` and (at decode) the conv in
-    fp32, and casts the conv to the compute dtype only at its prefill use."""
-    d, di, h = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
-    d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + h  # [z, xBC, dt]
+    """A pre-norm and ``repro.models.ssm.init_mamba``'s leaves, at the
+    widths of ``ssm_local`` with no group: the whole tree, which
+    ``init_params`` draws (a rank keeps its ``sharding.local_shard``). The
+    SSM scalars and the conv stay at ``param_dtype`` (``cast=False``):
+    ``repro`` reads ``A_log``, ``dt_bias``, ``D_skip`` and (at decode) the
+    conv in fp32, and casts the conv to the compute dtype only at its
+    prefill use."""
+    loc = ssm_local(cfg)
+    d, di, h = cfg.d_model, loc.d_inner, loc.n_heads
+    d_in_proj = 2 * di + 2 * loc.n_groups * cfg.ssm_state + h  # [z, xBC, dt]
     return {"ln": _norm_specs(cfg, lead), "mixer": {
         "in_proj": _normal(lead + (d, d_in_proj), d ** -0.5),
-        "conv_w": _normal(lead + (cfg.conv_dim, cfg.d_conv), cfg.d_conv ** -0.5, cast=False),
-        "conv_b": ParamSpec(lead + (cfg.conv_dim,), "zeros", cast=False),
+        "conv_w": _normal(lead + (loc.conv_dim, cfg.d_conv), cfg.d_conv ** -0.5, cast=False),
+        "conv_b": ParamSpec(lead + (loc.conv_dim,), "zeros", cast=False),
         "A_log": ParamSpec(lead + (h,), "zeros", cast=False),      # A = -exp(A_log) = -1
         "dt_bias": ParamSpec(lead + (h,), "full", cast=False, value=-2.0),  # softplus ~ 0.13
         "D_skip": ParamSpec(lead + (h,), "ones", cast=False),
@@ -382,14 +386,16 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, tp=None) -> Dict[str,
     """Decode-cache tree of ``meta`` tensors (shape and dtype, no storage):
     K/V per attention layer (the latent ``c`` under MLA), the SSM state
     (fp32) and conv window per mamba layer, with ``repro``'s stacked lead
-    axes; under ``tp`` the rank's KV heads."""
+    axes; under ``tp`` the rank's KV heads, SSM heads and conv channels
+    (``tensor_parallel.ssm_local``)."""
     cfg = tp_local(cfg, tp)
+    loc = ssm_local(cfg, tp)
 
     def meta(shape, dtype=None):
         return torch.empty(shape, dtype=dtype or cfg.compute_dtype, device="meta")
 
-    ssm_state = (batch, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
-    conv = (batch, cfg.d_conv - 1, cfg.conv_dim)
+    ssm_state = (batch, loc.n_heads, cfg.ssm_headdim, cfg.ssm_state)
+    conv = (batch, cfg.d_conv - 1, loc.conv_dim)
     out: Dict[str, Any] = {}
     for seg in transformer.segments_for(cfg):
         if seg.kind in ("dense", "moe"):

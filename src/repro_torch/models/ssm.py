@@ -5,6 +5,13 @@ The chunked algorithm follows the Mamba2 paper: a within-chunk quadratic
 Full-sequence prefill from the zero state dispatches to the ``ssd`` kernel
 under ``kernel_impls['ssm'] == 'kernel'``; a prefill that resumes from a
 state, and every decode step, run the reference scan here, as in ``repro``.
+
+Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``) each
+rank holds the channels of its SSM heads (``sharding.local_shard``): its
+``in_proj`` columns keep the ``[z | x | B | C | dt]`` order at the rank's
+widths (``tensor_parallel.ssm_local``), so the conv, ``dt``, ``A``, the
+scan and ``D_skip`` run on its heads alone; the gated norm sums its rows'
+squares over the group and ``out_proj`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
+from repro_torch.distributed.tensor_parallel import SSMLocal, row_parallel, ssm_local
 from repro_torch.models.layers import gated_rms_norm
 
 NEG_INF = -1e9
@@ -101,8 +109,10 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     return y, new_state
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+def _split_in_proj(zxbcdt: torch.Tensor, loc: SSMLocal, cfg: ModelConfig):
+    """(z, xBC, dt) of a rank's projection (the whole one without a
+    group), at the widths ``loc``."""
+    di, gn = loc.d_inner, loc.n_groups * cfg.ssm_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * gn]
     dt = zxbcdt[..., di + di + 2 * gn:]
@@ -110,8 +120,10 @@ def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
 
 
 def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
-                initial_state: Optional[torch.Tensor] = None):
-    """Full-sequence Mamba2 block. u: (B,S,D) -> (y, final_state, conv_tail).
+                initial_state: Optional[torch.Tensor] = None, tp=None):
+    """Full-sequence Mamba2 block. u: (B,S,D) -> (y, final_state, conv_tail);
+    under ``tp`` the rank's heads of the state and channels of the tail,
+    and the whole y.
 
     Sequences that are not a multiple of ``ssm_chunk`` are zero-padded;
     padded positions get dt=0 so they neither emit output nor advance the
@@ -120,14 +132,15 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
     serving handoff."""
     bsz, s, _ = u.shape
     dtc = u.dtype
+    loc = ssm_local(cfg, tp)
     zxbcdt = u @ p["in_proj"].to(dtc)
-    z, xbc, dt_raw = _split_in_proj(zxbcdt, cfg)
+    z, xbc, dt_raw = _split_in_proj(zxbcdt, loc, cfg)
     conv_tail = xbc[:, -(cfg.d_conv - 1):, :].clone()
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
-    x = xbc[..., :di].reshape(bsz, s, cfg.n_ssm_heads, cfg.ssm_headdim)
-    b_mat = xbc[..., di:di + gn].reshape(bsz, s, cfg.ssm_ngroups, cfg.ssm_state)
-    c_mat = xbc[..., di + gn:].reshape(bsz, s, cfg.ssm_ngroups, cfg.ssm_state)
+    di, gn = loc.d_inner, loc.n_groups * cfg.ssm_state
+    x = xbc[..., :di].reshape(bsz, s, loc.n_heads, cfg.ssm_headdim)
+    b_mat = xbc[..., di:di + gn].reshape(bsz, s, loc.n_groups, cfg.ssm_state)
+    c_mat = xbc[..., di + gn:].reshape(bsz, s, loc.n_groups, cfg.ssm_state)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())
     pad = (-s) % cfg.ssm_chunk
@@ -147,32 +160,34 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
     if pad:
         y = y[:, :s]
     y = y.reshape(bsz, s, di).to(dtc)
-    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps, cfg)
-    return y @ p["out_proj"].to(dtc), final_state, conv_tail
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps, cfg, tp)
+    return row_parallel(y, p["out_proj"].to(dtc), tp), final_state, conv_tail
 
 
 def mamba_decode(p, u: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, tp=None):
     """One-token decode. u: (B,1,D); ssm_state: (B,H,P,N); conv_state:
-    (B, d_conv-1, conv_dim) previous raw xBC inputs. Returns (y (B,1,D),
-    new_ssm_state, new_conv_state); the inputs are not modified."""
+    (B, d_conv-1, conv_dim) previous raw xBC inputs (under ``tp`` the
+    rank's heads and channels). Returns (y (B,1,D), new_ssm_state,
+    new_conv_state); the inputs are not modified."""
     bsz = u.shape[0]
     dtc = u.dtype
+    loc = ssm_local(cfg, tp)
     zxbcdt = u @ p["in_proj"].to(dtc)
-    z, xbc_new, dt_raw = _split_in_proj(zxbcdt, cfg)
+    z, xbc_new, dt_raw = _split_in_proj(zxbcdt, loc, cfg)
     window = torch.cat([conv_state, xbc_new], dim=1)                 # (B, d_conv, C)
     new_conv_state = window[:, 1:, :]
     conv_out = (torch.einsum("bwc,cw->bc", window.float(), p["conv_w"].float())
                 + p["conv_b"].float())
     xbc = F.silu(conv_out)[:, None, :].to(dtc)                       # (B,1,C)
-    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
-    x = xbc[:, 0, :di].reshape(bsz, cfg.n_ssm_heads, cfg.ssm_headdim)
-    b_mat = xbc[:, 0, di:di + gn].reshape(bsz, cfg.ssm_ngroups, cfg.ssm_state)
-    c_mat = xbc[:, 0, di + gn:].reshape(bsz, cfg.ssm_ngroups, cfg.ssm_state)
+    di, gn = loc.d_inner, loc.n_groups * cfg.ssm_state
+    x = xbc[:, 0, :di].reshape(bsz, loc.n_heads, cfg.ssm_headdim)
+    b_mat = xbc[:, 0, di:di + gn].reshape(bsz, loc.n_groups, cfg.ssm_state)
+    c_mat = xbc[:, 0, di + gn:].reshape(bsz, loc.n_groups, cfg.ssm_state)
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())
     y, new_state = ssd_decode_step(ssm_state, x, dt, a, b_mat, c_mat)
     y = y + x.float() * p["D_skip"].float()[None, :, None]
     y = y.reshape(bsz, 1, di).to(dtc)
-    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps, cfg)
-    return y @ p["out_proj"].to(dtc), new_state, new_conv_state
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps, cfg, tp)
+    return row_parallel(y, p["out_proj"].to(dtc), tp), new_state, new_conv_state

@@ -19,7 +19,8 @@ Prefill and decode take a tensor-parallel group ``tp`` (None: one device)
 with the rank's config (``distributed.tensor_parallel.tp_local``) and its
 shard of the weights and the cache; every rank runs the same loop and a
 dense or moe block's attention (GQA or MLA) and its MLP or MoE meet at a
-sum over the group each.
+sum over the group each; a mamba block's gated norm and ``out_proj`` meet
+at one each (zamba2's shared block is a dense block).
 """
 from __future__ import annotations
 
@@ -127,10 +128,12 @@ def _dense_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: tor
     return _dense_block(p, x, h, attend, cfg, tp)
 
 
-def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig):
-    """A mamba block (pre-norm + mixer) at prefill: (x, delta, state, conv tail)."""
+def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig, tp=None):
+    """A mamba block (pre-norm + mixer) at prefill: (x, delta, state, conv
+    tail); under ``tp`` the rank's heads of the state and channels of the
+    tail."""
     x, y = _add_norm(x, h, p["ln"], cfg)
-    delta, state, tail = ssm_mod.mamba_block(p["mixer"], y, cfg)
+    delta, state, tail = ssm_mod.mamba_block(p["mixer"], y, cfg, tp=tp)
     return x, delta, state, tail
 
 
@@ -229,7 +232,7 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
         elif seg.kind == "ssm":
             states, tails = [], []
             for i in range(seg.n):
-                x, h, st, tail = _ssm_prefill(_layer(p, i), x, h, cfg)
+                x, h, st, tail = _ssm_prefill(_layer(p, i), x, h, cfg, tp)
                 states.append(st)
                 tails.append(tail)
             cache[seg.name] = {"state": torch.stack(states), "conv": torch.stack(tails)}
@@ -239,10 +242,10 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
                 group = _layer(p["mamba"], i)
                 sts, tls = [], []
                 for j in range(cfg.attn_every):
-                    x, h, st, tail = _ssm_prefill(_layer(group, j), x, h, cfg)
+                    x, h, st, tail = _ssm_prefill(_layer(group, j), x, h, cfg, tp)
                     sts.append(st)
                     tls.append(tail)
-                x, h, _, k, v = _dense_prefill(p["shared"], x, h, positions, cfg)
+                x, h, _, k, v = _dense_prefill(p["shared"], x, h, positions, cfg, tp)
                 states.append(torch.stack(sts))
                 tails.append(torch.stack(tls))
                 ks.append(k)
@@ -268,13 +271,13 @@ def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: Mo
 
 
 def _ssm_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], state: torch.Tensor,
-                conv: torch.Tensor, cfg: ModelConfig):
+                conv: torch.Tensor, cfg: ModelConfig, tp=None):
     """A mamba block at decode: (x, delta). ``state`` and ``conv`` (one
     layer's rows of the cache) are overwritten in place once the step is
     computed: the new conv window is a slice of a fresh ``cat``, so nothing
     reads a half-written window."""
     x, y = _add_norm(x, h, p["ln"], cfg)
-    delta, new_state, new_conv = ssm_mod.mamba_decode(p["mixer"], y, state, conv, cfg)
+    delta, new_state, new_conv = ssm_mod.mamba_decode(p["mixer"], y, state, conv, cfg, tp)
     state.copy_(new_state)
     conv.copy_(new_conv)
     return x, delta
@@ -293,12 +296,12 @@ def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None)
                 x, h = _dense_decode(_layer(p, i), x, h, _layer(c, i), pos, cfg, tp)
         elif seg.kind == "ssm":
             for i in range(seg.n):
-                x, h = _ssm_decode(_layer(p, i), x, h, c["state"][i], c["conv"][i], cfg)
+                x, h = _ssm_decode(_layer(p, i), x, h, c["state"][i], c["conv"][i], cfg, tp)
         else:  # hybrid_group
             for i in range(seg.n):
                 group = _layer(p["mamba"], i)
                 for j in range(cfg.attn_every):
                     x, h = _ssm_decode(_layer(group, j), x, h, c["state"][i, j],
-                                       c["conv"][i, j], cfg)
-                x, h = _dense_decode(p["shared"], x, h, _layer(c, i), pos, cfg)
+                                       c["conv"][i, j], cfg, tp)
+                x, h = _dense_decode(p["shared"], x, h, _layer(c, i), pos, cfg, tp)
     return x, h, cache

@@ -79,7 +79,8 @@ def test_rmsnorm_forms_match_plain_on_card(cuda, d, rows, dtype):
     yg = ops.gated_rmsnorm_op(x, z, w)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rmsnorm"] == 3
-    assert ops.rmsnorm_form_counts() == {"plain": 1, "residual": 1, "gated": 1}
+    assert ops.rmsnorm_form_counts() == {"plain": 1, "residual": 1, "gated": 1,
+                                         "gated_ssq": 0, "gated_scale": 0}
     torch.testing.assert_close(y.float(), ref.rmsnorm_ref(x, w).float(), **tol)
     want_s, want_ys = ref.add_rmsnorm_ref(x, h, w)
     torch.testing.assert_close(s, want_s, atol=0, rtol=0)
@@ -162,6 +163,90 @@ def test_gated_rmsnorm_rounds_silu_before_the_product_on_card(cuda, rows, d):
     share = (ulps > 0).float().mean().item()
     assert ulps.max().item() <= GATE_ULPS and share <= GATE_DIFF_SHARE, (
         f"{ulps.max().item():.0f} bf16 ulps at most, {share:.3e} of the elements differ")
+
+
+def _split_gated(x, z, w, ranks: int, eps: float = 1e-5):
+    """The gated norm of each row split over ``ranks`` slices of its
+    channels: pass A on each slice, the sums added, pass B on each slice,
+    side by side; and the passes' sums."""
+    d = x.shape[-1]
+    cut = [slice(r * d // ranks, (r + 1) * d // ranks) for r in range(ranks)]
+    parts = [(x[:, c].contiguous(), z[:, c], w[c].contiguous()) for c in cut]
+    sums = [ops.gated_rmsnorm_ssq_op(xs, zs) for xs, zs, _ in parts]
+    ssq = torch.stack(sums).sum(0)
+    ys = [ops.gated_rmsnorm_scale_op(xs, zs, ws, ssq, d, eps) for xs, zs, ws in parts]
+    return torch.cat(ys, dim=-1), parts, sums, ssq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 512, 777])
+@pytest.mark.parametrize("d,ranks", [(5120, 2), (5120, 4), (2560, 2), (777, 1)])
+def test_gated_norm_split_over_ranks_matches_plain_on_card(cuda, d, ranks, rows, dtype):
+    """Mamba2's gated norm with its channels on ``ranks`` ranks (mamba2's
+    d_inner 5120 on 2 and 4, zamba2-sized 2560 on 2, an odd width on one):
+    each pass against its plain version, z a column slice of a rank's
+    in_proj row; the split norm against the one-pass gated kernel on the
+    whole row (bf16 within ``GATE_ULPS``); each pass counted as a form of
+    its own."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    z = _zxbcdt_z(cuda, g, rows, d, dtype)
+    w = torch.randn(d, device=cuda, generator=g)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    ops.reset_launch_counts()
+    y, parts, sums, ssq = _split_gated(x, z, w, ranks)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_form_counts() == {"plain": 0, "residual": 0, "gated": 0,
+                                         "gated_ssq": ranks, "gated_scale": ranks}
+    assert ops.launch_counts()["rmsnorm"] == 2 * ranks
+    for (xs, zs, ws), got in zip(parts, sums):
+        assert got.shape == (rows,) and got.dtype == torch.float32
+        torch.testing.assert_close(got, ref.gated_rmsnorm_ssq_ref(xs, zs), **F32_TOL)
+    for r, (xs, zs, ws) in enumerate(parts):
+        c = slice(r * d // ranks, (r + 1) * d // ranks)
+        torch.testing.assert_close(y[:, c].float(), ref.gated_rmsnorm_scale_ref(
+            xs, zs, ws, ssq, d).float(), **tol)
+    one = ops.gated_rmsnorm_op(x, z, w)
+    torch.testing.assert_close(y.float(), one.float(), **tol)
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(y, one).max().item() <= GATE_ULPS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4, 5120), (512, 2560), (777, 777), (3, 64)])
+def test_gated_passes_on_one_rank_are_the_one_pass_kernel_bit_for_bit(cuda, rows, d, dtype):
+    """Pass B of pass A's own sums over the whole row gives the one-pass
+    gated kernel's bits: the same ownership and order of sums, the same
+    rsqrt; the sums are the one-pass form's."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    z = _zxbcdt_z(cuda, g, rows, d, dtype)
+    w = torch.randn(d, device=cuda, generator=g)
+    ssq = ops.gated_rmsnorm_ssq_op(x, z)
+    y = ops.gated_rmsnorm_scale_op(x, z, w, ssq, d)
+    torch.testing.assert_close(y, ops.gated_rmsnorm_op(x, z, w), atol=0, rtol=0)
+    x3, z3 = x.view(1, rows, d), z.reshape(1, rows, d)   # leading dims as the model's
+    ssq3 = ops.gated_rmsnorm_ssq_op(x3, z3)
+    assert ssq3.shape == (1, rows)
+    torch.testing.assert_close(ssq3[0], ssq, atol=0, rtol=0)
+
+
+def test_gated_passes_raise_on_what_they_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    ssq = ops.gated_rmsnorm_ssq_op(x, x)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        ops.gated_rmsnorm_ssq_op(x.bfloat16(), x)
+    with pytest.raises(ValueError, match="ssq"):
+        ops.gated_rmsnorm_scale_op(x, x, w, ssq[:2], 128)
+    with pytest.raises(ValueError, match="ssq"):
+        ops.gated_rmsnorm_scale_op(x, x, w, ssq.double(), 128)
+    with pytest.raises(ValueError, match="ssq on"):
+        ops.gated_rmsnorm_scale_op(x, x, w, ssq.cpu(), 128)
+    with pytest.raises(ValueError, match="w shape"):
+        ops.gated_rmsnorm_scale_op(x, x, torch.ones(32, device=cuda), ssq, 128)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.gated_rmsnorm_ssq_op(x.requires_grad_(), x)
 
 
 def test_rmsnorm_forms_raise_on_what_they_do_not_take(cuda):
@@ -632,6 +717,9 @@ def _ssd_case(cuda, b, s, h, p, g, n, dtype, seed=0):
     (2, 256, 8, 64, 2, 128, 128),   # B 2, G 2 at full widths
     (1, 96, 3, 8, 1, 8, 32),        # P and N padded to 16; one row tile of 32
     (2, 200, 4, 24, 2, 40, 100),    # P, N not multiples of 16; chunk not of 64
+    (1, 256, 40, 64, 1, 128, 256),  # one of 2 ranks of mamba2: a 128-token admission
+    (1, 256, 40, 64, 1, 64, 256),   # one of 2 ranks of zamba2
+    (4, 256, 20, 64, 1, 128, 256),  # one of 4 ranks of mamba2, 4 rows
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
     """Against the plain version and, in bf16, against the plain mirror of

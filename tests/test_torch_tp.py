@@ -22,10 +22,10 @@ checks read what the ranks wrote.
   resized 4 -> 2 -> 4 -> 1.
 - The platform: ``sharded-serving`` over 2 ranks ends a short
   ``elastic_storm`` with ``repro``'s gang counters and outcomes.
-- The rules: the architectures tensor parallelism leaves out (SSM, hybrid,
-  the frontends) raise under a group of more than one rank, the dense and
-  MoE families get their rank's heads, and ranks that share a device use
-  gloo.
+- The rules: the architectures tensor parallelism leaves out (the
+  frontends) raise under a group of more than one rank, the dense, MoE,
+  SSM and hybrid families get their rank's heads (and SSM widths), and
+  ranks that share a device use gloo.
 """
 import dataclasses
 import itertools
@@ -405,11 +405,11 @@ def test_sharded_serving_over_two_ranks_ends_with_repros_counters(runs):
 # --- the rules ---------------------------------------------------------------------------
 def test_architectures_outside_the_slice_raise_under_a_group():
     group = T.TPGroup(None, 0, 2, torch.device("cpu"), (torch.device("cpu"),) * 2, "gloo")
-    covered = {a for a in ARCH_IDS if get_config(a).family in ("dense", "moe")
+    covered = {a for a in ARCH_IDS if get_config(a).family in ("dense", "moe", "ssm", "hybrid")
                and get_config(a).frontend is None}
-    assert {"qwen2.5-3b", "mixtral-8x22b", "deepseek-v2-lite-16b"} <= covered
-    assert set(ARCH_IDS) - covered == {"mamba2-2.7b", "zamba2-2.7b", "hubert-xlarge",
-                                       "internvl2-26b"}
+    assert {"qwen2.5-3b", "mixtral-8x22b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+            "zamba2-2.7b"} <= covered
+    assert set(ARCH_IDS) - covered == {"hubert-xlarge", "internvl2-26b"}
     for arch in sorted(ARCH_IDS):
         cfg = get_config(arch)
         assert T.tp_local(cfg, None) is cfg
@@ -417,8 +417,17 @@ def test_architectures_outside_the_slice_raise_under_a_group():
             local = T.tp_local(cfg, group)
             # the rank's heads; the MoE family keeps the global experts and top_k
             assert local.n_heads == cfg.n_heads // 2
-            assert local.n_kv_heads == max(1, cfg.n_kv_heads // 2)
+            assert local.n_kv_heads == (max(1, cfg.n_kv_heads // 2) if cfg.n_kv_heads else 0)
             assert (local.n_experts, local.top_k) == (cfg.n_experts, cfg.top_k)
+            if cfg.family in ("ssm", "hybrid"):
+                # the rank's SSM widths: half the heads, the one B/C group whole
+                loc = T.ssm_local(local, group)
+                assert (loc.n_heads, loc.first_head) == (cfg.n_ssm_heads // 2, 0)
+                assert loc.d_inner == cfg.d_inner // 2
+                assert (loc.n_groups, loc.first_group) == (cfg.ssm_ngroups, 0) == (1, 0)
+                assert loc.conv_dim == cfg.d_inner // 2 + 2 * cfg.ssm_state
+                assert T.ssm_local(local, None) == T.ssm_local(cfg, None)
+                assert T.ssm_local(cfg, None).conv_dim == cfg.conv_dim
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.tp_local(cfg, group)

@@ -481,8 +481,11 @@ def test_local_shards_of_full_configs_match_repros_spec_and_reassemble(arch):
     ``local_shard`` has the shape of ``repro``'s ``param_specs`` shard over
     a ``model`` axis of 2 and of 4 (where the port covers the architecture;
     with fewer KV heads than ranks the port replicates a KV head where
-    ``repro`` splits its columns), and ``assemble_shards`` of the ranks'
-    shards has the whole leaf's shape."""
+    ``repro`` splits its columns; Mamba2's ``in_proj``, ``conv_w`` and
+    ``conv_b`` take the rank's components of the fused axis, ``z``, ``x``
+    and ``dt`` of its heads and B and C of its groups, where ``repro``
+    cuts the axis evenly), and ``assemble_shards`` of the ranks' shards
+    has the whole leaf's shape."""
     tc, jc = get_config(arch), jax_get_config(arch)
     jshapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), jc))
     tree = tmodel.tree_map(lambda s: torch.empty(s.shape, device="meta"),
@@ -508,6 +511,19 @@ def test_local_shards_of_full_configs_match_repros_spec_and_reassemble(arch):
             replicated_kv = names[-1] in ("wk", "wv", "bk", "bv") and tc.n_kv_heads < n
             if replicated_kv:
                 want = leaf.shape[:-1] + (tc.head_dim,)
+            if names[-1] in ("in_proj", "conv_w", "conv_b"):
+                # the fused axis by components, where repro cuts it evenly:
+                # z, x and dt of the rank's heads, B and C of its groups
+                loc = T.ssm_local(tc, _group(0, n))
+                gn = loc.n_groups * tc.ssm_state
+                assert loc.d_inner == tc.d_inner // n and loc.n_heads == tc.n_ssm_heads // n
+                assert loc.n_groups == max(1, tc.ssm_ngroups // n)
+                width = (2 * loc.d_inner + 2 * gn + loc.n_heads if names[-1] == "in_proj"
+                         else loc.d_inner + 2 * gn)
+                axis = -2 if names[-1] == "conv_w" else -1
+                want = list(leaf.shape)
+                want[axis] = width
+                want = tuple(want)
             assert all(tuple(p.shape) == want for p in parts), (names, parts[0].shape, want)
 
         tshard.map_with_names(check, tree)
