@@ -130,8 +130,10 @@ Run from the root of a checkout on a machine with one CUDA card. It
    one card, each drawing only its shards (the Mamba2 channels of 40 of 80
    heads, ``in_proj`` cut into its z, x, B/C and dt; zamba2's shared block
    16 of 32 heads), serve each at TP 2 with the collectives timed, and
-   zamba2 cut to 12 layers shrinks 2 -> 1 and grows 1 -> 2 mid-stream
-   against its unbroken 2-rank run; gates as the ``tp moe`` phase's (the float32 prefills
+   full-depth zamba2 shrinks 2 -> 1 and grows 1 -> 2 mid-stream (leaf by
+   leaf: each rank's peak under its old and new shards and two layers of
+   its largest leaf) against its unbroken 2-rank run; gates as the
+   ``tp moe`` phase's (the float32 prefills
    within ``SLICE_TOL``, the bf16 admissions by ``tp_bf16_logits``, the
    streams by the near-tie rule, each rank's launches: the gated norm as
    the rmsnorm kernel's two passes, ``gated_ssq`` and ``gated_scale``, ssd
@@ -144,6 +146,23 @@ Run from the root of a checkout on a machine with one CUDA card. It
    and internvl2-26b (bf16 weights) on 256 patches + 256 text tokens,
    each with exact launch counts; and hubert at float32 cut to 2 layers,
    ``auto`` against ``reference``;
+10b. runs the frontends' loss and training under a group (the ``tp
+   train`` phase), two ranks on the one card against one rank on the same
+   seeded weights: full-width, full-depth hubert-xlarge's ``forward`` and
+   ``loss_fn`` at float32 (non-causal flash at q (2, 8, 512, 80) a rank)
+   within ``SLICE_TOL``, internvl2-26b's in bf16 (flash at q (2, 24, 512,
+   128) on 4 KV heads, rmsnorm) against a float32 witness on the same
+   weights (``tp_bf16_logits``; the loss no farther than twice the one-rank
+   leg's distance plus one bf16 ulp), each rank's launches as counted; then
+   full-width, full-depth internlm2-1.8b trains 3 steps of (2, 256) at
+   float32 on two ranks against one (losses and grad norms within
+   ``PARAM_TOL``, the first batch's gradient norm of every layer of every
+   leaf within its rtol, the final parameters by ``TPT_PARAM_MAX`` and
+   ``TPT_PARAM_SHARE``, every rank's copy of a leaf held whole rank 0's
+   bit for bit; the step's collectives timed, those of the backward
+   apart); at ``TPT_CKPT_LAYERS`` layers the group checkpoints the whole
+   arrays after step 2 and one rank restores them through
+   ``reshard_restore`` and takes step 3, equal to the group's;
 11. serves 4 requests of (512, 16) of full-width, full-depth stablelm-12b
    (bf16 weights; flash at head_dim 160) with exact launch counts;
 12. trains on the card under ``kernel_impls="reference"`` (the kernels
@@ -201,6 +220,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -994,6 +1014,11 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
     # one KV head
     cases += [(1, 8, 1, s, 128, True, None, dt) for s in (128, 512)
               for dt in (torch.float32, torch.bfloat16)]
+    # one of 2 ranks of the frontends' loss_fn (the tp train phase): hubert's
+    # encoder, 8 heads of 80 on 8 KV heads, not causal; internvl2-26b, 24
+    # heads on 4 KV heads over 256 patches + 256 tokens
+    cases += [(2, 8, 8, 512, 80, False, None, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 24, 4, 512, 128, True, None, dt) for dt in (torch.float32, torch.bfloat16)]
     for b, h, kv, s, dd, causal, window, dtype in cases:
         q, k, v = qkv(b, h, kv, s, dd, dtype)
         name = (f"flash (b={b},h={h},kv={kv},s={s},d={dd}) causal={causal} "
@@ -1020,6 +1045,8 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
             ("flash_attention head_dim 80", (1, 32, 32, 512, 80), True),
             ("flash_attention non-causal head_dim 80", (1, 16, 16, 512, 80), False),
             ("flash_attention tp rank", (1, 8, 1, 512, 128), True),
+            ("flash_attention hubert tp rank", (2, 8, 8, 512, 80), False),
+            ("flash_attention internvl2 tp rank", (2, 24, 4, 512, 128), True),
             ("flash_attention", (1, 16, 2, 512, 128), True)):
         q, k, v = qkv(b, h, kv, s, dd, torch.bfloat16)
         k_rep = k.repeat_interleave(h // kv, dim=1)
@@ -1036,6 +1063,10 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
         timed[label] = t
     results["flash_attention"].update(t)
     results["flash_attention"]["tp_rank"] = timed["flash_attention tp rank"]
+    results["flash_attention"]["tp_frontends"] = {
+        k.split()[1]: {f: timed[k][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "shape")}
+        for k in ("flash_attention hubert tp rank", "flash_attention internvl2 tp rank")}
     return results["flash_attention"]
 
 
@@ -2170,7 +2201,10 @@ def tp_phase(cfg, params, seed: int):
 
 
 # --- tensor parallelism from shards: the tp moe and tp ssm phases ----------------------
-TPM_CUT = 4   # deepseek's resize leg: 1 dense + 3 moe layers of its 27 (see tp_moe_phase)
+# deepseek's resize leg: 1 dense + 3 moe layers of its 27 (see tp_moe_phase). At
+# full depth it fits since the resize moves leaf by leaf (PERF.md §4), but
+# moves 15.7 GB each way through host memory: the phase took 98 s against 48
+TPM_CUT = 4
 TPM_MIXTRAL = 4   # mixtral's layers of its 56, as the moe phase serves it
 # a rank's serving peak above its shards (caches, activations, the float32
 # prefills' casts of one layer's weights), and the slack of a rank's init
@@ -2427,7 +2461,8 @@ def tp_shard_rank(tp, seed: int, legs) -> dict:
         del shards
         out.update(shard_bytes=M.nbytes(rep.params), whole_bytes=rep.param_bytes,
                    largest_leaf=max(int(np.prod(s.shape)) for s in
-                                    M.tree_leaves(M.param_specs(cfg))))
+                                    M.tree_leaves(M.param_specs(cfg))),
+                   largest_layer_bytes=largest_layer_leaf(cfg) * cfg.param_torch_dtype.itemsize)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         tpar.reset_stats()
@@ -2594,6 +2629,40 @@ def tp_gate(tag: str, cfg, one: dict, r0: dict, got: dict, leg_ranks) -> dict:
     return summary, counts
 
 
+def layer_lead(names, cfg) -> tuple:
+    """The layer axes that lead the parameter leaf at ``names``, counted
+    from the config as ``init_params`` stacks them: a segment's layers, a
+    hybrid group's mamba leaves (groups, then the ``attn_every`` mamba
+    layers of a group), none for the hybrid's shared block or a leaf
+    outside the stack."""
+    if names[0] != "stack":
+        return ()
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.attn_every, cfg.attn_every) if names[2] == "mamba" else ()
+    if cfg.family == "moe":
+        dense = cfg.first_dense_layers
+        return (dense,) if names[1] == "dense0" else (cfg.n_layers - dense,)
+    return (cfg.n_layers,)
+
+
+def largest_layer_leaf(cfg) -> int:
+    """Elements of the largest layer of one parameter leaf of ``cfg`` (a
+    stacked leaf's one layer, a leaf outside the stack whole): the most a
+    leaf-by-leaf resize holds whole at once."""
+    from repro_torch.distributed.sharding import map_with_names
+    from repro_torch.models import model as M
+    sizes = []
+
+    def one(names, t):
+        lead = layer_lead(names, cfg)
+        if tuple(t.shape[:len(lead)]) != lead:
+            raise AssertionError(f"{'.'.join(names)}: shape {tuple(t.shape)} does not lead "
+                                 f"with the layers {lead}")
+        sizes.append(t.numel() // max(int(np.prod(lead)), 1))
+    map_with_names(one, M.params_meta(cfg))
+    return max(sizes)
+
+
 def tp_leg(tag: str, cfg, rs, one, resize: bool) -> tuple:
     """The checks of one leg that ``tp_shard_rank`` served on 2 ranks (``rs``,
     each rank's results), against the one-rank leg ``one`` (None for a
@@ -2609,15 +2678,21 @@ def tp_leg(tag: str, cfg, rs, one, resize: bool) -> tuple:
         if r["backend"] != "gloo":
             raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
         init_limit = r["shard_bytes"] + 5 * r["largest_leaf"] + TP_INIT_SLACK
-        # a resize holds the old shards and the gathered whole leaves
-        held = r["shard_bytes"] + (r["whole_bytes"] if resize else 0)
+        # a resize (2 -> 1 -> 2) moves leaf by leaf: a rank holds its old
+        # shards, its new ones (rank 0 the whole tree at 1 rank, rank 1
+        # nothing) and one whole layer of one leaf, with its gathered parts
+        held = r["shard_bytes"] + ((r["whole_bytes"] if r["rank"] == 0 else 0)
+                                   + 2 * r["largest_layer_bytes"] if resize else 0)
         serve_limit = held + TP_SERVE_SLACK
+        why = (f": the old and new shards, twice a layer of the largest leaf "
+               f"({r['largest_layer_bytes']} bytes)" if resize else "")
         print(f"{tag} rank {r['rank']}: init {r['init_s']:.2f} s, shard {r['shard_bytes']} "
               f"of {r['whole_bytes']} parameter bytes, init peak {r['init_peak_bytes']} "
               f"(limit {init_limit:.0f}: the shards, one whole leaf of "
               f"{r['largest_leaf']} elements at float32 and its mask, "
               f"{TP_INIT_SLACK:.0f}), serving peak {r['serve_peak_bytes']} (limit "
-              f"{serve_limit:.0f}), card in use after both inits {r['card_used_bytes']}, "
+              f"{serve_limit:.0f}{why}, slack {TP_SERVE_SLACK:.0f}), card in use after both "
+              f"inits {r['card_used_bytes']}, "
               f"passes {r['passes']}, collectives {r['collectives']}")
         if r["init_peak_bytes"] > init_limit or r["serve_peak_bytes"] > serve_limit:
             raise AssertionError(f"{tag} rank {r['rank']}: peaks {r['init_peak_bytes']} / "
@@ -2627,8 +2702,9 @@ def tp_leg(tag: str, cfg, rs, one, resize: bool) -> tuple:
             raise AssertionError(f"{tag}: a rank holds {r['shard_bytes']} of "
                                  f"{r['whole_bytes']} bytes")
     both = sum(r["serve_peak_bytes"] for r in rs)
-    both_limit = (r0["whole_bytes"] * (3 if resize else 1) + sum(
-        r["shard_bytes"] for r in rs) * 0.1 + 2 * TP_SERVE_SLACK)
+    both_limit = (r0["whole_bytes"] * (2 if resize else 1) + sum(
+        r["shard_bytes"] for r in rs) * 0.1 + 2 * TP_SERVE_SLACK
+        + (4 * r0["largest_layer_bytes"] if resize else 0))
     print(f"{tag}: both ranks' serving peaks {both} bytes (limit {both_limit:.0f})")
     if both > both_limit:
         raise AssertionError(f"{tag}: both ranks' serving peaks {both} > {both_limit}")
@@ -2732,9 +2808,6 @@ def tp_moe_phase(seed: int):
 
 
 # --- tensor parallelism for SSM and hybrid (the tp ssm phase) ---------------------------
-TPS_CUT = 12   # zamba2's resize leg: 2 of its 9 groups of 6 mamba layers (see tp_ssm_phase)
-
-
 def tp_ssm_kernels(gen: torch.Generator) -> dict:
     """The kernels at the tp ssm phase's per-rank shapes, each against its
     plain version and timed: ssd at one of 2 ranks of mamba2 and of zamba2
@@ -2862,11 +2935,10 @@ def tp_ssm_phase(seed: int):
     channels of its 40 of 80 heads, the B/C group whole; zamba2's shared
     block on the dense split), against the one-rank replica on the same
     seeded bf16 weights, run first in this process and freed; (c) zamba2
-    cut to ``TPS_CUT`` layers shrinks 2 -> 1 and grows 1 -> 2 mid-stream
-    (``migrate``) against its unbroken 2-rank run (depth cut: at full depth
-    the stacked mamba ``in_proj``, 2.9 GB of zamba2's 4.8 GB, and its
-    gathered parts sit beside the whole tree a shrink gathers, beyond a
-    rank's serving limit; the widths stay full); then the kernels at the
+    at full depth (the resize moves leaf by leaf, a rank holding its old
+    and new shards and one layer of one leaf whole) shrinks 2 -> 1 and
+    grows 1 -> 2 mid-stream
+    (``migrate``) against its unbroken 2-rank run; then the kernels at the
     per-rank shapes. Every
     rank's gated norm is the two passes of the rmsnorm kernel around one
     float32 sum a layer. Returns (launches by path, numbers)."""
@@ -2875,7 +2947,7 @@ def tp_ssm_phase(seed: int):
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 25)
     m2a, z2a = "mamba2-2.7b", "zamba2-2.7b"
-    m2, z2, z2cut = tp_config(m2a), tp_config(z2a), tp_config(z2a, TPS_CUT)
+    m2, z2 = tp_config(m2a), tp_config(z2a)
     prompts = {a: rng.integers(0, c.vocab_size, size=(TP_REQ, TP_PROMPT)).tolist()
                for a, c in ((m2a, m2), (z2a, z2))}
     loc = ssm_span(m2, 0, 2)
@@ -2890,14 +2962,14 @@ def tp_ssm_phase(seed: int):
                            ("tp ssm zamba2 one rank", z2a, z2)):
         paths[tag], one[arch] = tp_one_rank(tag, cfg, seed, prompts[arch])
     legs = (("a", m2a, None, prompts[m2a], None), ("b", z2a, None, prompts[z2a], None),
-            ("c", z2a, TPS_CUT, prompts[z2a],
+            ("c", z2a, None, prompts[z2a],
              {TP_SHRINK_AFTER: 1, TP_SHRINK_AFTER + TP_GROW_AFTER: 2}))
     t1 = time.perf_counter()
     ranks = spawn_tp(tp_shard_rank, 2, device="cuda:0", args=(seed, legs), timeout=600)
     spawn_s = time.perf_counter() - t1
     out = {"spawn_s": spawn_s}
     for leg, cfg, ref_key, label in (("a", m2, m2a, "mamba2 tp 2"), ("b", z2, z2a, "zamba2 tp 2"),
-                                     ("c", z2cut, None, "zamba2 cut 2 -> 1 -> 2")):
+                                     ("c", z2, None, "zamba2 2 -> 1 -> 2")):
         out[f"leg_{leg}"], counts = tp_leg(f"tp ssm {leg} ({label})", cfg,
                                            [r[leg] for r in ranks], one.get(ref_key),
                                            resize=ref_key is None)
@@ -3433,6 +3505,490 @@ def frontend_phase(seed: int):
     del params, logits
     torch.cuda.empty_cache()
     return all_counts, out
+
+
+# --- the frontends' loss and the "model" axis of training under a group (tp train) -----
+TPT_FRONT_BATCH, TPT_FRONT_SEQ = 2, 512   # hubert's frames; internvl2's 256 patches + 256 tokens
+TPT_BATCH, TPT_SEQ, TPT_STEPS, TPT_SAVE_AFTER = 2, 256, 3, 2
+# the checkpoint round trip's depth: the training phase's restart depth
+TPT_CKPT_LAYERS = 2
+# tests/test_torch_train_step.py's optimizer and PARAM_TOL (atol, rtol): the
+# losses and grad norms of 2 ranks against one
+TPT_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+PARAM_TOL = (2e-5, 1e-4)
+# the final parameters of 2 ranks against one, set from PR 26's readings
+# with room (PERF.md §6): the largest difference of an element (1.617e-3
+# read at full depth after 3 steps; 4.738e-5 for one step from the same
+# state, the checkpoint's step), and the share of elements beyond
+# PARAM_TOL (2.16e-6 read)
+TPT_PARAM_MAX = {"3 steps": 3e-3, "1 step": 5e-4}
+TPT_PARAM_SHARE = 2e-5
+
+
+def tpt_front_cfg(arch: str, dtype: str = None):
+    """The frontend archs of the tp train phase under ``auto``: hubert-xlarge
+    with float32 weights computing at float32 (its loss and logits gated at
+    ``SLICE_TOL``), internvl2-26b with bf16 weights computing at bf16 (or at
+    ``dtype``: the float32 witness on the same bf16 values)."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    base = get_config(arch)
+    if arch == "hubert-xlarge":
+        cfg = dataclasses.replace(base, param_dtype="float32", dtype="float32")
+    else:
+        cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return with_kernel_impls(cfg, "auto")
+
+
+def tpt_train_cfg(n_layers: int = None):
+    """internlm2-1.8b FULL (cut to ``n_layers``) at float32 (weights and
+    compute) under ``reference``: the kernels have no backward."""
+    from repro_torch.configs import get_config, with_kernel_impls
+    base = get_config("internlm2-1.8b")
+    return with_kernel_impls(dataclasses.replace(base, dtype="float32",
+                                                 n_layers=n_layers or base.n_layers), "reference")
+
+
+def layer_grad_ssq(grads) -> dict:
+    """{leaf path: the float64 sum of squares of each layer of its gradient}
+    (one value for a leaf outside the stack), on the host."""
+    from repro_torch.distributed.sharding import map_with_names
+    out = {}
+
+    def one(names, g):
+        g = g.double().square()
+        out[tuple(names)] = (g.flatten(1).sum(1) if names[0] == "stack" else g.sum()[None]).cpu()
+    map_with_names(one, grads)
+    return out
+
+
+def tpt_front_leg(arch: str, seed: int, device, tp=None, witness: bool = False) -> dict:
+    """One leg of the frontends' ``loss_fn`` (on one rank, or on this rank
+    of ``tp``, the ranks drawing their shards in turn): the whole logits
+    (``forward``) and ``loss_fn``'s metrics, every launch of both counted,
+    the init and forward peaks; with ``witness`` also the float32 loss and
+    logits on the same bf16 weights."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import make_batch
+
+    cfg = tpt_front_cfg(arch)
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in range(1 if tp is None else tp.size):   # one rank draws at a time
+        if tp is None or r == tp.rank:
+            torch.cuda.reset_peak_memory_stats()
+            params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                                   device, tp=tp)
+            torch.cuda.synchronize()
+            out["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+        if tp is not None:
+            dist.barrier()
+    out["param_bytes"] = M.nbytes(params)
+    batch = make_batch(torch.Generator(device="cuda").manual_seed(seed + 9), cfg,
+                       TPT_FRONT_BATCH, TPT_FRONT_SEQ, device=device)
+    with torch.no_grad():
+        M.loss_fn(params, batch, cfg, tp=tp)   # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        logits = M.forward(params, batch, cfg, tp)[0][..., :cfg.vocab_size].float().cpu()
+        loss, metrics = M.loss_fn(params, batch, cfg, tp=tp)
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+        out["wall_ms"] = 1e3 * (time.perf_counter() - t)
+        out["counts"], out["forms"] = launch_counts(), rmsnorm_form_counts()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["logits"] = logits
+        if witness:
+            c32 = tpt_front_cfg(arch, "float32")
+            out["f32_logits"] = M.forward(params, batch, c32, tp)[0][..., :cfg.vocab_size].cpu()
+            out["f32_loss"] = float(M.loss_fn(params, batch, c32, tp=tp)[0])
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = None) -> dict:
+    """internlm2-1.8b (cut to ``n_layers``) trains ``TPT_STEPS`` steps of
+    (``TPT_BATCH``, ``TPT_SEQ``) tokens from ``DataPipeline`` at float32 on
+    one rank or on this rank of ``tp``, from the seeded ``init_params``.
+    Without ``ckpt_dir`` the first batch's gradient is taken once more
+    before the steps, for its layers' sums of squares; under ``tp`` the
+    collectives are timed (a synchronisation around each), those of the
+    backward apart. With ``ckpt_dir`` the group checkpoints there after step
+    ``TPT_SAVE_AFTER``. Returns the metrics, the steps' walls, the peaks and
+    the final parameters on the host."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.sharding import map_with_names, sum_shared
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = tpt_train_cfg(n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device, tp=tp)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    out = {"init_peak_bytes": torch.cuda.max_memory_allocated(), "param_bytes": M.nbytes(params),
+           "metrics": [], "step_ms": [], "collectives": []}
+    step = TS.make_train_step(cfg, OptimizerConfig(**TPT_OPT), 1, tp)
+    pipe = DataPipeline(cfg, TPT_BATCH, TPT_SEQ, seed=seed)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TPT_STEPS):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.next_batch().items()}
+        if i == 0 and ckpt_dir is None:
+            grads = TS._grads_of(params, batch, cfg, tp)[2]
+            if tp is not None:
+                grads = map_with_names(lambda names, g: sum_shared(g, names, cfg, tp), grads)
+            out["grad_ssq"] = layer_grad_ssq(grads)
+            del grads
+        tpar.reset_stats()
+        tpar.time_collectives(tp is not None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            params, opt, m = step(params, opt, batch)
+            metrics = {k: float(v) for k, v in m.items()}   # waits for the card
+        finally:
+            tpar.time_collectives(False)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t))
+        out["metrics"].append(metrics)
+        if tp is not None:
+            st = dict(tpar.STATS)
+            bwd = {k: st[f"backward_{k}"] for k in ("calls", "bytes", "seconds")}
+            out["collectives"].append({"backward": bwd, "rest": {
+                k: st[k] - bwd[k] for k in bwd}, "step": st})
+        if ckpt_dir is not None and i + 1 == TPT_SAVE_AFTER:
+            t = time.perf_counter()
+            ckpt.save({"params": params, "opt": opt}, ckpt_dir, i + 1,
+                      extra={"pipeline": pipe.state_dict()}, tp=tp, cfg=cfg)
+            out["save_s"] = time.perf_counter() - t
+    out["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = launch_counts()
+    out["params"] = M.tree_map(lambda t: t.cpu(), params)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_rank(tp, seed: int, ckpt_dir: str) -> dict:
+    """One of two ranks of the tp train phase (``spawn_tp``): the
+    frontends' ``loss_fn`` at TP 2 (hubert at float32, internvl2 in bf16),
+    internlm2-1.8b's training at TP 2, then its checkpoint round trip's
+    group run at ``TPT_CKPT_LAYERS`` layers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": tp.rank, "backend": tp.backend}
+    for arch in ("hubert-xlarge", "internvl2-26b"):
+        out[arch] = tpt_front_leg(arch, seed, tp.device, tp)
+    out["train"] = tpt_train_leg(seed, tp.device, tp)
+    out["ckpt"] = tpt_train_leg(seed, tp.device, tp, ckpt_dir, TPT_CKPT_LAYERS)
+    return out
+
+
+def tp_train_phase(seed: int):
+    """The frontends' ``loss_fn`` and the ``"model"`` axis of training under
+    a group of two ranks on the one card (gloo), each against one rank on
+    the same seeded weights, run in this process after the ranks end: (1)
+    full-width, full-depth hubert-xlarge's loss and logits at float32 (its
+    non-causal flash at q (2, 8, 512, 80) on 8 KV heads a rank) within
+    ``SLICE_TOL``, and internvl2-26b's in bf16 (q (2, 24, 512, 128) on 4 KV
+    heads a rank, rmsnorm), its logits no farther from the float32 witness
+    than the one-rank leg's (``tp_bf16_logits``) and its loss no farther
+    than twice the one-rank leg's distance plus ``PARAM_TOL``'s rtol of it;
+    each rank's
+    launches as the shapes predict; (2) internlm2-1.8b at full width and
+    depth trains ``TPT_STEPS`` steps of (2, 256) at float32: losses and
+    grad norms within ``PARAM_TOL``, the first batch's gradient norm of
+    every layer of every leaf within its rtol, the final parameters by
+    ``TPT_PARAM_MAX`` and ``TPT_PARAM_SHARE``, and each rank's copy of a
+    leaf held whole equal to rank 0's; (3) at ``TPT_CKPT_LAYERS`` layers
+    the group checkpoints after step 2 and one rank restores it through
+    ``reshard_restore`` and takes step 3, equal to the group's. Returns
+    (launches by path, numbers)."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.distributed.elastic import reshard_restore
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    hub, vl, lm = tpt_front_cfg("hubert-xlarge"), tpt_front_cfg("internvl2-26b"), tpt_train_cfg()
+    ck = tpt_train_cfg(TPT_CKPT_LAYERS)
+    print(f"tp train: 2 ranks on one card; hubert ({hub.n_layers} layers, float32) a rank "
+          f"{hub.n_heads // 2} of {hub.n_heads} heads of {hub.head_dim}, not causal; internvl2 "
+          f"({vl.n_layers} layers, bf16) {vl.n_heads // 2} heads on {vl.n_kv_heads // 2} KV "
+          f"heads; both on ({TPT_FRONT_BATCH}, {TPT_FRONT_SEQ}); internlm2-1.8b "
+          f"({lm.n_layers} layers, float32, reference) {TPT_STEPS} steps of ({TPT_BATCH}, "
+          f"{TPT_SEQ}), lr {TPT_OPT['lr']}, its checkpoint round trip at {ck.n_layers} layers")
+    need = 3 * 4 * sum(int(np.prod(s.shape)) for s in M.tree_leaves(M.param_specs(ck)))
+    d = tempfile.mkdtemp(prefix="chip_smoke_tp_train_")
+    if shutil.disk_usage(d).free < 1.5 * need:
+        raise AssertionError(f"tp train: {shutil.disk_usage(d).free} bytes free for a "
+                             f"{need}-byte checkpoint")
+    try:
+        # the ranks first, while this process holds nothing on the card: two
+        # ranks drawing internvl2's shards in turn peak near 60 GB together
+        free, total = torch.cuda.mem_get_info()
+        print(f"tp train: before the ranks this process has {torch.cuda.memory_allocated()} "
+              f"bytes allocated, {torch.cuda.memory_reserved()} reserved; the card "
+              f"{total - free} of {total} in use")
+        # each rank draws internvl2's stacked leaves whole at float32 (19.3 GB
+        # the largest) and keeps half in bf16: its live shards end up inside
+        # the freed leaves' segments, which the caching allocator can then
+        # neither release nor reuse (20 GB a rank stranded so); expandable
+        # segments return the freed pages
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t1 = time.perf_counter()
+        try:
+            ranks = spawn_tp(tpt_rank, 2, device="cuda:0", args=(seed, d), timeout=900)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        spawn_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        one = {arch: tpt_front_leg(arch, seed, "cuda", witness=arch == "internvl2-26b")
+               for arch in ("hubert-xlarge", "internvl2-26b")}
+        one["train"] = tpt_train_leg(seed, "cuda")
+        out, paths = {"spawn_s": spawn_s, "one_rank_s": time.perf_counter() - t1}, {}
+        # (1) the frontends
+        for arch, cfg in (("hubert-xlarge", hub), ("internvl2-26b", vl)):
+            tag = f"tp train {arch.split('-')[0]}"
+            ref = one[arch]
+            paths[f"{tag} one rank"] = check_counts(f"{tag} one rank", cfg, ref["counts"],
+                                                    ref["forms"], forward_counts(cfg, 2), 2)
+            leg = {"one_rank": {k: ref[k] for k in ("metrics", "wall_ms", "init_peak_bytes",
+                                                    "peak_bytes", "param_bytes")}}
+            for r in ranks:
+                got = r[arch]
+                if r["backend"] != "gloo":
+                    raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
+                paths[f"{tag} rank {r['rank']}"] = check_counts(
+                    f"{tag} rank {r['rank']}", cfg, got["counts"], got["forms"],
+                    forward_counts(cfg, {2: 2}), {2: 2})
+                if 2 * got["param_bytes"] > 1.1 * ref["param_bytes"]:
+                    raise AssertionError(f"{tag}: a rank holds {got['param_bytes']} of "
+                                         f"{ref['param_bytes']} bytes")
+                leg[f"rank_{r['rank']}"] = {k: got[k] for k in (
+                    "metrics", "wall_ms", "init_peak_bytes", "peak_bytes", "param_bytes")}
+            got = ranks[0][arch]
+            if arch == "hubert-xlarge":
+                errs = [check_close(f"{tag} loss_fn {k}, 2 ranks against one",
+                                    torch.tensor(got["metrics"][k]), torch.tensor(
+                                        ref["metrics"][k]), SLICE_TOL) for k in ref["metrics"]]
+                errs.append(check_close(f"{tag} forward logits, 2 ranks against one",
+                                        got["logits"], ref["logits"], SLICE_TOL))
+                leg["max_abs_err"] = max(errs)
+                print(f"{tag}: float32 loss {got['metrics']['loss']:.6f} at TP 2, "
+                      f"{ref['metrics']['loss']:.6f} on one rank; loss and logits max abs err "
+                      f"{max(errs):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
+            else:
+                leg["logits"] = tp_bf16_logits(tag, got["logits"].flatten(),
+                                               ref["logits"].flatten(),
+                                               ref["f32_logits"].flatten())
+                w, l1, l2 = ref["f32_loss"], ref["metrics"]["loss"], got["metrics"]["loss"]
+                allowed = 2 * abs(l1 - w) + PARAM_TOL[1] * abs(w)
+                leg.update(f32_loss=w, loss_tp2=l2, loss_one=l1, loss_allowed=allowed)
+                print(f"{tag}: bf16 loss {l2:.6f} at TP 2, {l1:.6f} on one rank, float32 "
+                      f"witness {w:.6f}: TP 2 {abs(l2 - w):.3e} from it (allowed {allowed:.3e}: "
+                      f"twice the one rank's {abs(l1 - w):.3e} plus rtol {PARAM_TOL[1]} of it)")
+                if abs(l2 - w) > allowed:
+                    raise AssertionError(f"{tag}: the TP loss {l2} is {abs(l2 - w)} from the "
+                                         f"float32 witness {w}, over {allowed}")
+            out[arch.split("-")[0]] = leg
+        # (2) training
+        tag = "tp train internlm2"
+        ref = one["train"]
+        rs = [r["train"] for r in ranks]
+        if any(any(r["launches"].values()) for r in rs + [ref]):
+            raise AssertionError(f"{tag}: training launched kernels {[r['launches'] for r in rs]}")
+        for r in rs:
+            for i, (g, w) in enumerate(zip(r["metrics"], ref["metrics"])):
+                for key in ("loss", "ce", "grad_norm", "lr"):
+                    check_close(f"{tag} step {i + 1} {key}, 2 ranks against one",
+                                torch.tensor(g[key]), torch.tensor(w[key]), PARAM_TOL)
+        if any(not np.isfinite(m["loss"]) for m in ref["metrics"]):
+            raise AssertionError(f"{tag}: losses {ref['metrics']}")
+        t1 = time.perf_counter()
+        leg = {"grad_norms": tpt_grad_norms(tag, lm, rs, ref),
+               "whole_leaves": tpt_whole_leaves(tag, lm, [r["params"] for r in rs]),
+               "params_vs_one_rank": tpt_params_against(
+                   f"{tag} 2 ranks against one", tpt_whole(lm, rs), ref["params"], "3 steps")}
+        out["compare_s"] = time.perf_counter() - t1
+        for r in rs + [ref]:
+            del r["params"]
+        # the checkpoint round trip at TPT_CKPT_LAYERS layers: one rank
+        # restores the group's checkpoint after step TPT_SAVE_AFTER and takes
+        # the last step
+        cs = [r["ckpt"] for r in ranks]
+        meta = M.params_meta(ck)   # shapes and dtypes
+        template = {"params": meta, "opt": init_opt_state(meta)}
+        t = time.perf_counter()
+        state, manifest = reshard_restore(ck, template, d, Mesh([torch.device("cuda")],
+                                                               ("model",)))
+        restore_s = time.perf_counter() - t
+        pipe = DataPipeline(ck, TPT_BATCH, TPT_SEQ, seed=seed)
+        pipe.load_state_dict(manifest["extra"]["pipeline"])
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.next_batch().items()}
+        step = make_train_step(ck, OptimizerConfig(**TPT_OPT))
+        p, _, m = step(state["params"], state["opt"], batch)
+        m = {k: float(v) for k, v in m.items()}
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            check_close(f"{tag} {ck.n_layers} layers step {TPT_STEPS} {key}, restored on one "
+                        f"rank against the group", torch.tensor(m[key]),
+                        torch.tensor(cs[0]["metrics"][-1][key]), PARAM_TOL)
+        leg["ckpt_whole_leaves"] = tpt_whole_leaves(f"{tag} {ck.n_layers} layers", ck,
+                                                    [c["params"] for c in cs])
+        leg["restored_vs_group"] = tpt_params_against(
+            f"{tag} {ck.n_layers} layers restored on one rank, step {TPT_STEPS}, against the "
+            f"group", M.tree_map(lambda t: t.cpu(), p), tpt_whole(ck, cs), "1 step")
+        del state, p
+        gc.collect()
+        torch.cuda.empty_cache()
+        coll = rs[0]["collectives"]
+        tp2 = [statistics.median(r["step_ms"]) for r in rs]
+        leg.update(
+            losses_tp2=[x["loss"] for x in rs[0]["metrics"]],
+            losses_one=[x["loss"] for x in ref["metrics"]],
+            grad_norms_tp2=[x["grad_norm"] for x in rs[0]["metrics"]],
+            step_ms_tp2=rs[0]["step_ms"], step_ms_one=ref["step_ms"],
+            collectives=coll, ckpt_layers=ck.n_layers, save_s=cs[0]["save_s"],
+            restore_s=restore_s,
+            checkpoint_bytes=sum(os.path.getsize(os.path.join(dp, f))
+                                 for dp, _, fs in os.walk(d) for f in fs),
+            rank_peak_bytes=[r["train_peak_bytes"] for r in rs],
+            one_rank_peak_bytes=ref["train_peak_bytes"],
+            rank_param_bytes=[r["param_bytes"] for r in rs], param_bytes=ref["param_bytes"])
+        share = [{w: c[w]["seconds"] * 1e3 / ms for w in ("rest", "backward")}
+                 for c, ms in zip(coll, rs[0]["step_ms"])]
+        leg["collective_share"] = share
+        print(f"{tag}: losses {['%.6f' % x for x in leg['losses_tp2']]} at TP 2, "
+              f"{['%.6f' % x for x in leg['losses_one']]} on one rank; steps "
+              f"{['%.1f' % x for x in rs[0]['step_ms']]} ms at TP 2 (median {tp2[0]:.1f}), "
+              f"{['%.1f' % x for x in ref['step_ms']]} ms on one rank; collectives a step "
+              + "; ".join(f"outside the backward (the forward, the norm) {c['rest']['calls']} "
+                          f"calls {c['rest']['bytes']} bytes {1e3 * c['rest']['seconds']:.1f} "
+                          f"ms, in the backward {c['backward']['calls']} calls "
+                          f"{c['backward']['bytes']} bytes "
+                          f"{1e3 * c['backward']['seconds']:.1f} ms" for c in coll[-1:])
+              + "; share of the step outside / in the backward "
+              + ", ".join(f"{s['rest']:.3f} / {s['backward']:.3f}" for s in share)
+              + f"; peaks {leg['rank_peak_bytes']} a rank, {leg['one_rank_peak_bytes']} on one "
+              f"rank; the {ck.n_layers}-layer checkpoint {leg['checkpoint_bytes']} bytes saved "
+              f"in {leg['save_s']:.2f} s by the group, restored on one rank in "
+              f"{restore_s:.2f} s")
+        out["train"] = leg
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"tp train: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s, "
+          f"the one-rank legs {out['one_rank_s']:.2f} s, the comparisons "
+          f"{out['compare_s']:.2f} s, the restore {out['train']['restore_s']:.2f} s)")
+    return paths, out
+
+
+def tpt_whole(cfg, rs) -> dict:
+    """The whole parameter tree from the two ranks' final shards (a leaf
+    every rank holds whole is rank 0's; :func:`tpt_whole_leaves` holds the
+    other rank's copy to it)."""
+    from repro_torch.distributed.sharding import assemble_shards, map_with_names
+    return map_with_names(lambda names, _: assemble_shards(
+        [_at_path(r["params"], names) for r in rs], names, cfg), rs[0]["params"])
+
+
+def tpt_whole_leaves(tag: str, cfg, trees) -> int:
+    """Every rank's copy of each leaf it holds whole equals rank 0's bit for
+    bit; returns how many leaves were held so."""
+    from repro_torch.distributed.sharding import map_with_names, tp_split
+    whole = []
+    map_with_names(lambda names, _: whole.append(tuple(names))
+                   if tp_split(names, cfg, len(trees)) is None else None, trees[0])
+    for names in whole:
+        for r, tree in enumerate(trees[1:], 1):
+            if not torch.equal(_at_path(tree, names), _at_path(trees[0], names)):
+                raise AssertionError(f"{tag}: rank {r}'s whole {'.'.join(names)} is not rank "
+                                     f"0's")
+    print(f"{tag}: every rank's copy of the {len(whole)} leaves held whole equals rank 0's "
+          f"bit for bit")
+    return len(whole)
+
+
+def tpt_grad_norms(tag: str, cfg, rs, ref) -> dict:
+    """The first batch's gradient norm of every layer of every leaf, two
+    ranks against one: a split leaf's sums of squares added over the
+    ranks, a whole leaf's equal on both; each within ``PARAM_TOL``'s rtol
+    of one rank's (a partial, doubled or missing gradient of any layer of
+    any leaf moves its norm far beyond it)."""
+    from repro_torch.distributed.sharding import tp_split
+    worst, n = 0.0, 0
+    for names, want in ref["grad_ssq"].items():
+        parts = [r["grad_ssq"][names] for r in rs]
+        if tp_split(names, cfg, len(rs)) is None:
+            if any(not torch.equal(x, parts[0]) for x in parts[1:]):
+                raise AssertionError(f"{tag}: the ranks' gradients of the whole "
+                                     f"{'.'.join(names)} differ")
+            got = parts[0]
+        else:
+            got = sum(parts)
+        got, want = got.sqrt(), want.sqrt()
+        if bool(((want == 0) != (got == 0)).any()):
+            raise AssertionError(f"{tag}: a layer of {'.'.join(names)} has a zero gradient on "
+                                 f"one leg only")
+        rel = ((got - want).abs() / want.clamp_min(1e-300))[want > 0]
+        if rel.numel():
+            worst = max(worst, float(rel.max()))
+        n += want.numel()
+        if bool((rel > PARAM_TOL[1]).any()):
+            raise AssertionError(f"{tag}: the gradient norm of {'.'.join(names)} is "
+                                 f"{float(rel.max()):.3e} from one rank's (limit {PARAM_TOL[1]})")
+    print(f"{tag}: first-batch gradient norms of {n} layers of {len(ref['grad_ssq'])} leaves, "
+          f"2 ranks against one: max rel err {worst:.3e} (limit {PARAM_TOL[1]})")
+    return {"layers": n, "max_rel_err": worst}
+
+
+def tpt_params_against(tag: str, whole_tp, whole_one, steps: str) -> dict:
+    """Two final parameter trees: every element within ``TPT_PARAM_MAX``
+    of ``steps`` apart, at most ``TPT_PARAM_SHARE`` of them beyond
+    ``PARAM_TOL``."""
+    from repro_torch.models import model as M
+    bound = TPT_PARAM_MAX[steps]
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(M.tree_leaves(whole_tp), M.tree_leaves(whole_one)):
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        beyond += int((diff > PARAM_TOL[0] + PARAM_TOL[1] * b.abs()).sum())
+        total += b.numel()
+    res = {"max_abs": worst, "beyond_param_tol": beyond, "elements": total,
+           "share": beyond / total, "bound": bound}
+    print(f"{tag}: final parameters max abs diff {worst:.3e} (bound {bound:.0e}), "
+          f"{beyond} of {total} elements beyond atol={PARAM_TOL[0]} rtol={PARAM_TOL[1]} "
+          f"({beyond / total:.2e}, limit {TPT_PARAM_SHARE:.0e})")
+    if worst > bound or beyond / total > TPT_PARAM_SHARE:
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def _at_path(tree, names):
+    for k in names:
+        tree = tree[k]
+    return tree
 
 
 def stablelm_phase(seed: int):
@@ -4304,6 +4860,8 @@ def main(argv=None) -> int:
     tp_ssm_counts, serving["tp_ssm"] = phase("tp ssm", tp_ssm_phase, args.seed)
     kern.update({name: serving["tp_ssm"]["kernels"][name] for name in RMS_TP_FORMS})
     frontend_counts, serving["frontend"] = phase("frontend", frontend_phase, args.seed)
+    tpt_counts, serving["tp_train"] = phase("tp train", tp_train_phase, args.seed)
+    serving["tp_train"]["flash_rank_shapes"] = kern["flash_attention"]["tp_frontends"]
     stablelm_counts, stablelm_serving = phase("stablelm", stablelm_phase, args.seed)
     serving.update(stablelm_serving)
     guard_counts, serving["training"] = phase("training", training_phase, args.seed)
@@ -4321,7 +4879,7 @@ def main(argv=None) -> int:
              **{f"platform {k}": serving["platform"][k]["launches"]
                 for k in ("dense", "paged", "registry")},
              **{f"elastic {k}": v for k, v in elastic_counts.items()}, **tp_counts,
-             **tp_moe_counts, **tp_ssm_counts,
+             **tp_moe_counts, **tp_ssm_counts, **tpt_counts,
              "dense score": serving["slice_score"]["launches"], "moe": moe_counts,
              "moe score": serving["moe_score"]["launches"], "mamba2": ssm_counts,
              "mamba2 score": serving["mamba2_score"]["launches"], "zamba2": hybrid_counts,

@@ -17,6 +17,14 @@ of :class:`repro_torch.distributed.sharding.NamedSharding` shaped like the
 template, as ``repro``'s) each on its sharding's mesh device: that is how a
 checkpoint moves between mesh shapes (elastic restore,
 ``distributed.elastic.reshard_restore``).
+
+Under a tensor-parallel group (``distributed.tensor_parallel``) a save
+still writes the WHOLE arrays, in the same format: the ranks gather each
+leaf from their shards (``sharding.gather_shards``), one leaf at a time,
+and rank 0 keeps its host copy and writes; so either package restores it.
+A restore onto a mesh that a group covers reads each whole array on the
+host and places only this rank's ``local_shard`` of it on the rank's
+device, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -52,21 +60,42 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
 
 
 def save(tree: Any, directory: str, step: int, extra: Optional[Dict] = None,
-         async_save: bool = False) -> str:
+         async_save: bool = False, tp=None, cfg=None) -> str:
     """Write a checkpoint of a tree of tensors; returns its path. With
     ``async_save``, snapshot to host first and write on a daemon thread
     (:func:`wait_for_saves` joins it): the tree may change as soon as this
-    returns."""
+    returns.
+
+    Under a tensor-parallel group ``tp`` every rank calls it with its
+    shards of a tree whose leaves are named as the parameters of the global
+    model config ``cfg`` (a parameter tree, or ``{"params": ..., "opt":
+    {"m": ..., "v": ..., "step": ...}}``, whose leaves split as the
+    parameters they shadow): each leaf is gathered whole over the group in
+    turn and only rank 0 keeps a host copy and writes (the other ranks
+    return the path without writing)."""
     path = os.path.join(directory, f"step_{step:08d}")
-    os.makedirs(path, exist_ok=True)
     leaves = _flatten(tree)
     if any(t.is_cuda for t in leaves.values()):
         torch.cuda.synchronize()
-    flat = {k: _host_array(t) for k, t in leaves.items()}  # host snapshot
+    if tp is None or tp.size == 1:
+        flat = {k: _host_array(t) for k, t in leaves.items()}  # host snapshot
+        shapes = {k: t.shape for k, t in leaves.items()}
+    else:
+        from repro_torch.distributed.sharding import gather_shards
+        flat, shapes = {}, {}
+        for k, t in leaves.items():
+            whole = gather_shards(t, k.split("/"), cfg, tp)
+            shapes[k] = whole.shape
+            if tp.rank == 0:
+                flat[k] = _host_array(whole)
+            del whole
+        if tp.rank != 0:
+            return path
+    os.makedirs(path, exist_ok=True)
     manifest = {
         "step": step,
         "extra": extra or {},
-        "arrays": {k: {"shape": list(t.shape), "dtype": str(t.dtype).removeprefix("torch.")}
+        "arrays": {k: {"shape": list(shapes[k]), "dtype": str(t.dtype).removeprefix("torch.")}
                    for k, t in leaves.items()},
     }
 
@@ -107,7 +136,7 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(template: Any, directory: str, step: Optional[int] = None,
-            device: DeviceLike = None, shardings: Optional[Any] = None
+            device: DeviceLike = None, shardings: Optional[Any] = None, cfg=None
             ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (nested dicts of tensors,
     ``meta`` ones too: only shapes and dtypes are read) on ``device``
@@ -116,8 +145,14 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
     is not read. Returns (tree, manifest). Raises ``FileNotFoundError``
     without a committed step, ``KeyError`` for a missing array and
     ``ValueError`` for a shape other than the template's, as ``repro``
-    does; a sharding over several distinct devices raises
-    ``NotImplementedError``."""
+    does; a sharding over several distinct devices that no group covers
+    raises ``NotImplementedError``.
+
+    A sharding over a mesh that an initialised tensor-parallel group covers
+    (``Mesh(..., tp=group)``) gives this rank its ``local_shard`` of each
+    leaf (the template holds the whole shapes; ``cfg`` is the global model
+    config whose parameters name the leaves): each whole array is read and
+    cut on the host, and only the rank's shard goes to its device."""
     shard_of = _flatten(shardings) if shardings is not None else None
     dev = resolve_device(device) if shardings is None else None
     if step is None:
@@ -138,7 +173,16 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(leaf.shape)}")
             target = dev if shard_of is None else shard_of[key].device
-            out[key] = torch.from_numpy(arr).to(device=target, dtype=leaf.dtype)
+            host = torch.from_numpy(arr)
+            tp = None if shard_of is None else getattr(shard_of[key].mesh, "tp", None)
+            if tp is not None and tp.size > 1:
+                if cfg is None:
+                    raise ValueError(f"{key}: restoring onto a group's mesh needs the model "
+                                     f"config that names the leaves (cfg=)")
+                from repro_torch.distributed.sharding import local_shard
+                host = local_shard(host, key.split("/"), cfg, tp)
+            out[key] = host.to(device=target, dtype=leaf.dtype)
+            del host, arr
     return _unflatten(template, out), manifest
 
 

@@ -15,14 +15,19 @@ codes and scales are ``repro``'s bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 
-def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8. Returns (q int8, scale f32 scalar)."""
-    amax = torch.max(torch.abs(x.to(torch.float32)))
+def quantize(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8. Returns (q int8, scale f32 scalar).
+    ``amax``: the largest magnitude of the tensor ``x`` is a piece of (its
+    scale then is the whole tensor's, so a tensor quantised piece by piece
+    gets the codes of one call on the whole); None takes ``x``'s own."""
+    if amax is None:
+        amax = torch.max(torch.abs(x.to(torch.float32)))
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
     return q, scale

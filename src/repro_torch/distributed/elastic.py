@@ -9,7 +9,8 @@ restore, continue; the deterministic data pipeline guarantees identical batch
 order afterwards.
 
 Placement follows the mesh. A mesh that a tensor-parallel group covers
-(``distributed.tensor_parallel``, one rank a device) gives each rank its
+(``distributed.tensor_parallel``, one rank a device; ``reshard_restore``
+included, which a training group resumes through) gives each rank its
 head-aligned shard of every leaf
 (:func:`repro_torch.distributed.sharding.local_shard`) on the rank's
 device; a mesh without a group places each leaf whole on its one device
@@ -38,9 +39,13 @@ def _place(leaf: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 def reshard_restore(cfg: ModelConfig, template: Any, directory: str,
                     mesh, step: Optional[int] = None) -> Tuple[Any, dict]:
-    """Restore a checkpoint onto ``mesh`` (any shape)."""
+    """Restore a checkpoint onto ``mesh`` (any shape). ``template`` holds
+    the whole shapes (``meta`` tensors will do); over a mesh that a group
+    covers each rank gets its ``local_shard`` of every leaf, read leaf by
+    leaf, so no rank's device holds the whole tree (a training state's
+    optimizer moments split as the parameters they shadow)."""
     shardings = param_shardings(template, cfg, mesh) if mesh is not None else None
-    return ckpt.restore(template, directory, step=step, shardings=shardings)
+    return ckpt.restore(template, directory, step=step, shardings=shardings, cfg=cfg)
 
 
 def reshard_in_place(params: Any, cfg: ModelConfig, mesh) -> Any:

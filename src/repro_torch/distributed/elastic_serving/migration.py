@@ -29,19 +29,28 @@ engine's. The sampling stream crosses the resize as the engine's
 
 Over a tensor-parallel group (a replica built with ``tp``) the resize is
 physical inside a fixed world of ranks, the active gang being the first
-``min(n, world)`` of them. A shrink gathers every sharded parameter and
-cache leaf over the old gang (``sharding.gather_shards``), the survivors cut
-their new shards from the whole leaves and the leaving ranks drop
-everything. A grow gathers the same way, then rank 0 sends each joining
-rank its shards (a broadcast over the new gang), with the decode state it
-adopts. ``migrate_int8`` rounds the gathered, whole cache through the wire
-format, as ``repro`` rounds its global cache. The :class:`MigrationRecord`
-keeps ``repro``'s logical accounting (its bytes equal ``repro``'s records);
-the bytes that crossed the group are the replica's ``last_resize``.
+``min(n, world)`` of them. It goes leaf by leaf, so no rank ever holds the
+whole tree: every rank first makes the new gang's subgroup and takes rank
+0's decode state and the skeleton (each whole leaf's shape, from the
+config, and dtype); then, for each parameter leaf and then each cache leaf
+in a fixed order, and for a stacked leaf one layer at a time, the old gang
+gathers the piece whole (``sharding.gather_shards``), the ranks of both
+gangs cut their new shard of it and rank 0 sends each joining rank its
+own (a broadcast over the new gang), and the whole piece is dropped before
+the next; an old rank lets go of each old leaf once it is moved. A rank's
+peak is its old shards, its new shards and one whole layer of one leaf.
+The leaving ranks end holding nothing; the joining ranks adopt rank 0's
+decode state. ``migrate_int8`` rounds each cache piece through the wire
+format at the scale of its whole leaf (the largest magnitude over the old
+gang), so the codes are those of the whole cache's rounding, as ``repro``
+rounds its global cache. The :class:`MigrationRecord` keeps ``repro``'s
+logical accounting (its bytes equal ``repro``'s records); the bytes that
+crossed the group are the replica's ``last_resize``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, List
 
@@ -52,7 +61,8 @@ from repro_torch.distributed.compression import dequantize, quantize
 from repro_torch.distributed.elastic_serving.mesh import tree_bytes
 from repro_torch.distributed.sharding import (gather_shards, local_shard, map_with_names,
                                              tp_split)
-from repro_torch.models.model import cache_spec, tree_leaves, tree_map
+from repro_torch.models.model import cache_spec, params_meta, tree_leaves, tree_map
+from repro_torch.models.transformer import segments_for
 
 KV_MODES = ("replay", "migrate", "migrate_int8")
 
@@ -208,9 +218,9 @@ class MigrationProtocol:
                    "migrate_int8": int(int8_wire_bytes(spec) * frac)}[self.kv_mode]
         transplant = self.kv_mode != "replay"
 
-        # --- pause: the old gang snapshots its (equal) decode state, gathers
-        # every leaf whole and lets go of its shards
-        state, whole, gathered = None, (None, None), 0
+        # --- pause: the old gang snapshots its (equal) decode state and lets
+        # go of its engine, keeping its shards until each is moved
+        state, old, gathered, rng = None, (None, None), 0, None
         if engine is not None:
             b = engine.batcher
             state = {"finished": list(b.finished), "live": len(b.active()) + len(b.waiting),
@@ -222,45 +232,48 @@ class MigrationProtocol:
                              gen_state=engine._gen.get_state())
             else:
                 state["replay"] = engine.drain()
-            trees = (replica.params, engine.cache if transplant else None)
+            old = (replica.params, engine.cache if transplant else None)
             gathered = (old_tp.size - 1) * sum(_split_bytes(t, cfg, old_tp.size, c)
-                                               for t, c in zip(trees, (False, True)) if t)
-            whole = tuple(None if t is None else
-                          map_with_names(lambda n, x, c=c: gather_shards(x, n, cfg, old_tp, c), t)
-                          for t, c in zip(trees, (False, True)))
-            if self.kv_mode == "migrate_int8":
-                whole = (whole[0], tree_map(lambda c: c.to(old_tp.device), _through_int8(whole[1])))
+                                               for t, c in zip(old, (False, True)) if t)
             rng = engine._gen
-        replica.engine = replica.params = engine = trees = None
+            # a caller's hook may keep the old engine alive: its references go
+            # now, so each old leaf is freed once it is moved
+            engine.params = engine.cache = None
+        replica.engine = replica.params = engine = None
 
         # --- the new gang: every rank makes the subgroup; rank 0's state and
-        # the leaves' shapes go to every rank, for the ones that join
+        # the skeleton (each whole leaf's shape, from the config, and dtype)
+        # go to every rank, for the ones that join
         new_mesh = replica._mesh(n_after)
         new_tp = new_mesh.tp
         shipped = None
         if world.rank == 0:
             shipped = dict(state, skeleton=tuple(
-                None if t is None else map_with_names(lambda n, x: (tuple(x.shape), x.dtype), t)
-                for t in whole))
+                None if t is None else map_with_names(
+                    lambda n, x, w=w: (tuple(_at(w, n).shape), x.dtype), t)
+                for t, w in zip(old, (params_meta(cfg), spec))))
         shipped = tpar.broadcast_object(shipped)
         was_out = state is None   # this rank held no shard before the resize
         if was_out:
             state = shipped
         replica.mesh, replica.n_members = new_mesh, n_after
-        sent = 0
+        params_skel, cache_skel = shipped["skeleton"]
+
+        # --- the parameters, leaf by leaf, then the cache into the new
+        # engine's own
+        mover = _LeafMover(cfg, old_tp, new_tp, first_joiner)
+        new_params = mover.tree(old[0], params_skel, cache=False)
+        old = (None, old[1])
         if new_tp is not None:
-            shards = []
-            for tree, skel, c in zip(whole, shipped["skeleton"], (False, True)):
-                got, n = (None, 0) if skel is None else _ship(tree, skel, cfg, new_tp, c,
-                                                               first_joiner)
-                shards.append(got)
-                sent += n
-            replica.params = shards[0]
+            replica.params = new_params
             new_engine = replica._fresh_engine()
+        if cache_skel is not None:
+            mover.tree(old[1], cache_skel, cache=True, int8=self.kv_mode == "migrate_int8",
+                       into=new_engine.cache if new_tp is not None else None)
+        old = None
+        if new_tp is not None:
             new_engine.batcher.finished = state["finished"]
             if transplant:
-                new_engine.cache = tree_map(lambda z, x: x.to(device=z.device, dtype=z.dtype),
-                                            new_engine.cache, shards[1])
                 new_engine.batcher.slots = state["slots"]
                 new_engine.batcher.waiting = state["waiting"]
                 new_engine.positions = state["positions"]
@@ -275,7 +288,7 @@ class MigrationProtocol:
             (new_engine.n_decode_steps, new_engine.n_emitted,
              new_engine.n_slot_steps, new_engine.prefill_tokens) = state["counters"]
             replica.engine = new_engine
-        replica.last_resize = {"gathered_bytes": gathered, "shipped_bytes": sent}
+        replica.last_resize = {"gathered_bytes": gathered, "shipped_bytes": mover.shipped}
         return MigrationRecord(
             n_before=n_before, n_after=n_after, kv_mode=self.kv_mode,
             param_bytes=param_bytes, kv_bytes=kv_bytes, wire_bytes=param_bytes + kv_wire,
@@ -295,29 +308,78 @@ def _at(tree: Any, names) -> Any:
     return tree
 
 
-def _ship(whole: Any, skeleton: Any, cfg, tp, cache: bool, first_joiner: int):
-    """(this rank's shards of the new gang ``tp``, the bytes rank 0 sent to
-    the joining ranks). A rank of the old gang (``whole`` not None) cuts its
-    own from the whole leaves; rank 0 sends every rank from ``first_joiner``
-    on its shard of each leaf, one broadcast over ``tp`` a leaf and joining
-    rank, in the order of ``skeleton`` ((shape, dtype) of every whole leaf)
-    on every rank."""
-    shipped = [0]
+def _stacked_axes(names, cfg, cache: bool) -> int:
+    """How many leading axes of the leaf at ``names`` stack layers: one for
+    a segment's leaves, two for a hybrid group's mamba leaves (groups, then
+    the mamba layers of a group) and its cache's ``state`` and ``conv``,
+    none for the hybrid's shared block and the leaves outside the stack."""
+    path = tuple(names) if cache else tuple(names[1:]) if names[0] == "stack" else ()
+    if not path:
+        return 0
+    kind = {seg.name: seg.kind for seg in segments_for(cfg)}[path[0]]
+    if kind != "hybrid_group":
+        return 1
+    if cache:
+        return 2 if path[-1] in ("state", "conv") else 1
+    return 2 if path[1] == "mamba" else 0
 
-    def one(names, meta):
+
+class _LeafMover:
+    """Moves trees leaf by leaf (a stacked leaf layer by layer) from the
+    old gang's shards to the new gang's (see the module docstring), and
+    counts the bytes rank 0 ships to the joining ranks."""
+
+    def __init__(self, cfg, old_tp, new_tp, first_joiner: int):
+        self.cfg, self.old_tp, self.new_tp = cfg, old_tp, new_tp
+        self.first_joiner, self.shipped = first_joiner, 0
+
+    def tree(self, old: Any, skeleton: Any, cache: bool, int8: bool = False,
+             into: Any = None) -> Any:
+        """This rank's new shards of ``skeleton``'s leaves (None off the new
+        gang), written into ``into``'s leaves where given. ``old`` (None off
+        the old gang) loses each leaf once it is moved."""
+        return map_with_names(lambda names, meta: self.leaf(old, names, meta, cache, int8, into),
+                              skeleton)
+
+    def leaf(self, old, names, meta, cache: bool, int8: bool, into) -> Any:
+        cfg, old_tp, new_tp = self.cfg, self.old_tp, self.new_tp
         shape, dtype = meta
-        mine = None if whole is None else local_shard(_at(whole, names), names, cfg, tp, cache)
-        for j in range(first_joiner, tp.size):
-            if tp.rank == 0:
-                buf = local_shard(_at(whole, names), names, cfg, tp, cache, rank=j).contiguous()
-            else:
-                like = local_shard(torch.empty(shape, dtype=dtype, device="meta"), names, cfg,
-                                   tp, cache, rank=j)
-                buf = torch.empty(like.shape, dtype=dtype, device=tp.device)
-            tpar.broadcast_(buf, tp, src=0)
-            shipped[0] += buf.numel() * buf.element_size()
-            if tp.rank == j:
-                mine = buf
+        local = None
+        if old is not None:
+            parent = _at(old, names[:-1])
+            local, parent[names[-1]] = parent[names[-1]], None
+        mine = None
+        if new_tp is not None:
+            mine = (_at(into, names) if into is not None else torch.empty(
+                local_shard(torch.empty(shape, device="meta"), names, cfg, new_tp, cache).shape,
+                dtype=dtype, device=new_tp.device))
+        amax = None
+        if int8 and local is not None:
+            amax = tpar.all_max(local.abs().amax().float(), old_tp)
+        lead = shape[:_stacked_axes(names, cfg, cache)]
+        for idx in itertools.product(*map(range, lead)):
+            whole = None
+            if local is not None:
+                whole = gather_shards(local[idx], names, cfg, old_tp, cache)
+                if amax is not None:
+                    q, scale = quantize(whole, amax)
+                    whole = dequantize(q, scale).to(whole.dtype)
+            dst = None if mine is None else mine[idx]
+            if dst is not None and whole is not None:
+                dst.copy_(local_shard(whole, names, cfg, new_tp, cache))
+            for j in range(self.first_joiner, 0 if new_tp is None else new_tp.size):
+                if new_tp.rank == 0:
+                    buf = local_shard(whole, names, cfg, new_tp, cache, rank=j).contiguous()
+                elif new_tp.rank == j:
+                    buf = dst if dst.is_contiguous() else torch.empty_like(dst)
+                else:
+                    like = local_shard(torch.empty(shape[len(lead):], dtype=dtype, device="meta"),
+                                       names, cfg, new_tp, cache, rank=j)
+                    buf = torch.empty(like.shape, dtype=dtype, device=new_tp.device)
+                tpar.broadcast_(buf, new_tp, src=0)
+                self.shipped += buf.numel() * buf.element_size()
+                if new_tp.rank == j and buf is not dst:
+                    dst.copy_(buf)
+                del buf
+            del whole, dst
         return mine
-
-    return map_with_names(one, skeleton), shipped[0]

@@ -66,8 +66,9 @@ import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.distributed.tensor_parallel import (all_gather, device_key, expert_parallel,
-                                                      ssm_span)
+from repro_torch.distributed.tensor_parallel import (ROADMAP_DATA_AXIS, ROADMAP_NCCL,
+                                                      all_gather, all_sum, device_key,
+                                                      expert_parallel, ssm_span)
 from repro_torch.models.model import tree_map
 
 
@@ -141,6 +142,13 @@ def mesh_device(mesh: AbstractMesh) -> torch.device:
         raise ValueError(f"{mesh} has no devices to place a leaf on")
     tp = getattr(mesh, "tp", None)
     if tp is not None and torch.distributed.is_initialized() and tp.size == devices.size:
+        split = {a: n for a, n in zip(mesh.axis_names, mesh.axis_sizes)
+                 if a != "model" and n > 1}
+        if split:
+            raise NotImplementedError(
+                f"a group covers {mesh}, whose axes {split} besides \"model\" a rank "
+                f"cannot cut yet: local_shard cuts the \"model\" axis only "
+                f"({ROADMAP_DATA_AXIS})")
         return tp.device
     distinct = {device_key(d) for d in devices.flat}
     if len(distinct) > 1:
@@ -148,9 +156,15 @@ def mesh_device(mesh: AbstractMesh) -> torch.device:
             f"a mesh over {len(distinct)} distinct devices "
             f"({sorted(str(d) for d in devices.flat)}) needs tensor parallelism across "
             f"cards: an initialised TPGroup (repro_torch.distributed.tensor_parallel.init_tp) "
-            f"with one rank a device must cover it, and none does (ROADMAP.md, section 1, "
-            f"item 8); a gang on one card uses a mesh of that card")
+            f"with one rank a device must cover it, and none does ({ROADMAP_NCCL}: NCCL "
+            f"with a rank a card); a gang on one card uses a mesh of that card")
     return devices.flat[0]
+
+
+def group_mesh(tp) -> Mesh:
+    """The 1-D ``"model"`` mesh over every rank of the group ``tp``, which
+    places each rank's shard on its device."""
+    return Mesh(np.asarray(list(tp.devices), dtype=object), ("model",), tp=tp)
 
 
 class NamedSharding:
@@ -535,3 +549,48 @@ def gather_shards(local: torch.Tensor, names: Sequence[str], cfg, tp,
     if size == 1 or tp_split(names, cfg, size, cache) is None:
         return local
     return assemble_shards(all_gather(local, tp), names, cfg, cache)
+
+
+def shared_segments(names: Sequence[str], cfg, size: int, rank: int,
+                    cache: bool = False) -> Optional[Tuple[int, List[Tuple[int, int, int, Tuple]]]]:
+    """(axis, [(local start, global start, length, the ranks that hold
+    it)]) for each segment rank ``rank`` holds of the leaf at ``names`` over
+    ``size`` ranks (:func:`tp_segments`, in its local order), or None for a
+    leaf every rank holds whole. A segment several ranks hold (a KV head
+    replicated because there are fewer KV heads than ranks, a Mamba2 B/C
+    group and its conv channels that several ranks' heads read) lists them
+    all."""
+    split = tp_split(names, cfg, size, cache) if size > 1 else None
+    if split is None:
+        return None
+    kind, axis = split
+    every = [tp_segments(kind, cfg, r, size) for r in range(size)]
+    out, at = [], 0
+    for start, stop in every[rank]:
+        out.append((at, start, stop - start,
+                    tuple(r for r in range(size) if (start, stop) in every[r])))
+        at += stop - start
+    return axis, out
+
+
+def sum_shared(local: torch.Tensor, names: Sequence[str], cfg, tp) -> torch.Tensor:
+    """A gradient of the leaf at ``names`` (this rank's shard of it) with
+    each segment that several ranks hold summed over exactly those ranks
+    (a collective over ``tp`` when the leaf has such a segment; every rank
+    calls it): each rank's gradient of a copy is only its own heads' part.
+    Segments one rank holds, and leaves without a shared segment, stay as
+    they are; ``local`` itself for no group or a group of one."""
+    size = 1 if tp is None else tp.size
+    segs = shared_segments(names, cfg, size, 0 if tp is None else tp.rank)
+    if segs is None or all(len(held) == 1 for r in range(size)
+                           for *_, held in shared_segments(names, cfg, size, r)[1]):
+        return local
+    axis, mine = segs
+    shape = list(local.shape)
+    shape[axis] = _tp_global_dim(tp_split(names, cfg, size)[0], cfg)
+    whole = torch.zeros(shape, dtype=local.dtype, device=local.device)
+    for at, start, n, _ in mine:
+        whole.narrow(axis, start, n).copy_(local.narrow(axis, at, n))
+    with torch.no_grad():
+        whole = all_sum(whole, tp)
+    return local_shard(whole, names, cfg, tp)

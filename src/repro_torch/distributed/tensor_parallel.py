@@ -18,15 +18,26 @@ columns after the head. This module is that plumbing:
   not a fallback: NCCL refuses two ranks on one card, and gloo's
   collectives take CUDA tensors through host memory;
 - :func:`tp_local`: the config one rank runs, at its local head and
-  feed-forward counts (the dense GQA family and the MoE family, with GQA
-  or MLA attention, and the SSM and hybrid families); :func:`expert_parallel`
+  feed-forward counts (every family: dense, MoE with GQA or MLA, SSM,
+  hybrid, and the audio and vision frontends); :func:`expert_parallel`
   and :func:`expert_span`, which experts a rank holds; :func:`ssm_local`,
   the rank's Mamba2 widths, which the config cannot state (they derive
   from ``d_model``);
 - the collectives :func:`all_sum` (with :func:`row_parallel`, the product
-  it follows), :func:`gather_last` and :func:`broadcast_`, each the identity
-  for no group or a group of one, and :func:`broadcast_object` for the
-  replica's commands.
+  it follows), :func:`copy_in`, :func:`gather_last`, :func:`all_max` and
+  :func:`broadcast_`, each the identity for no group or a group of one,
+  and :func:`broadcast_object` for the replica's commands.
+
+Autograd passes through the collectives as through Megatron's conjugate
+pair. :func:`all_sum` is the "reduce" (forward the sum over the group,
+backward the identity): it follows partial sums, whose result every rank
+then uses alike. :func:`copy_in` is the "copy" (forward the identity,
+backward a float32 sum over the group): it goes where a tensor every rank
+holds alike enters work split over the ranks, so the gradient that flows
+back is the sum of every rank's part. :func:`gather_last`'s backward is
+the rank's slice. Serving calls the same functions with grad mode off:
+they make the same one collective each and give the same bits. A backward
+collective counts in ``STATS`` too, and in ``STATS["backward_*"]`` apart.
 
 The default process group is always gloo: it carries the small control
 messages (the replica's commands, each rank's device). The data group is
@@ -48,16 +59,22 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-ROADMAP_ITEM = "ROADMAP.md, section 1, item 8"
+# where ROADMAP.md queues what the port does not run yet: the "data" axis
+# (FSDP) of a mesh a group covers, and NCCL with more than one rank
+ROADMAP_DATA_AXIS = 'ROADMAP.md, section 1, item 2 (the "data" axis)'
+ROADMAP_NCCL = "ROADMAP.md, section 1, item 3"
 
 # what the collectives moved since the last reset_stats(): calls, bytes this
-# rank sent into them, and their host seconds (see time_collectives)
-STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# rank sent into them, and their host seconds (see time_collectives); the
+# backward_ keys count again those that autograd's backward ran
+_ZERO = {"calls": 0, "bytes": 0, "seconds": 0.0,
+         "backward_calls": 0, "backward_bytes": 0, "backward_seconds": 0.0}
+STATS: Dict[str, float] = dict(_ZERO)
 _SYNC = [False]
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, seconds=0.0)
+    STATS.update(_ZERO)
 
 
 def time_collectives(on: bool) -> None:
@@ -161,17 +178,14 @@ def tp_local(cfg: ModelConfig, tp: Optional[TPGroup]) -> ModelConfig:
     whole on every rank. The vocabulary stays whole in the config: the
     embedding and the head split it themselves. The SSM and hybrid
     families keep their SSM fields: the rank's Mamba2 widths derive from
-    ``d_model`` and come from :func:`ssm_local`. ``cfg`` itself for no
-    group or a group of one. The dense, MoE, SSM and hybrid families are
-    covered; frontend architectures raise ``NotImplementedError``."""
+    ``d_model`` and come from :func:`ssm_local`. The frontends (hubert's
+    audio encoder, internvl2's vision-language model) split as the dense
+    family: their frames and patches enter whole on every rank. ``cfg``
+    itself for no group or a group of one; ``ValueError`` naming what does
+    not divide for a config that does not split over ``size``."""
     n = tp_size(tp)
     if n == 1:
         return cfg
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"tensor parallelism over {n} ranks covers the dense, MoE, SSM and hybrid "
-            f"families on the serving path; {cfg.arch_id} (family {cfg.family!r}, frontend "
-            f"{cfg.frontend!r}) is queued in {ROADMAP_ITEM}")
     bad = _unsplit(cfg, n)
     if bad:
         raise ValueError(f"{cfg.arch_id}: {', '.join(bad)} do not split over {n} ranks")
@@ -239,11 +253,15 @@ def expert_span(cfg: ModelConfig, tp: Optional[TPGroup]) -> Tuple[int, int]:
 
 
 def _unsplit(cfg: ModelConfig, n: int) -> List[str]:
+    """What of ``cfg`` does not divide over ``n`` ranks. The padded
+    vocabulary is the token embedding's rows and the head's columns alike
+    (hubert, with no token embedding, still splits its head's columns)."""
     kv = cfg.n_kv_heads
     checks = [(f"n_heads {cfg.n_heads}", cfg.n_heads % n == 0),
               (f"n_kv_heads {kv}", kv % n == 0 or n % kv == 0),
               (f"d_ff {cfg.d_ff}", cfg.d_ff % n == 0),
-              (f"vocab_padded {cfg.vocab_padded}", cfg.vocab_padded % n == 0)]
+              (f"vocab_padded {cfg.vocab_padded} (the embedding's rows, the head's columns)",
+               cfg.vocab_padded % n == 0)]
     if cfg.n_experts:
         checks.append((f"n_experts {cfg.n_experts} (or else moe_d_ff {cfg.moe_d_ff})",
                        cfg.n_experts % n == 0 or cfg.moe_d_ff % n == 0))
@@ -267,27 +285,96 @@ def gang_ranks(cfg: ModelConfig, n_members: int, tp: TPGroup) -> int:
 
 
 # --- collectives ------------------------------------------------------------------------
-def _run(op, t: torch.Tensor, *args, **kw) -> None:
+def _run(fn, t: torch.Tensor, *args, backward: bool = False, **kw) -> None:
     sync = _SYNC[0] and t.is_cuda
     if sync:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
-    op(*args, **kw)
+    fn(*args, **kw)
     if sync:
         torch.cuda.synchronize(t.device)
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["calls"] += 1
-    STATS["bytes"] += t.numel() * t.element_size()
+    took, moved = time.perf_counter() - t0, t.numel() * t.element_size()
+    for pre in ("", "backward_") if backward else ("",):
+        STATS[pre + "seconds"] += took
+        STATS[pre + "calls"] += 1
+        STATS[pre + "bytes"] += moved
+
+
+def _all_reduce(x: torch.Tensor, tp: TPGroup, op=dist.ReduceOp.SUM,
+                backward: bool = False) -> torch.Tensor:
+    """``x`` (contiguous, written in place) reduced over the group."""
+    _run(dist.all_reduce, x, x, op=op, group=tp.group, backward=backward)
+    return x
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's "reduce": forward the sum over the group, backward the
+    identity (every rank's output is used alike, so the gradient each rank
+    holds is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x.contiguous().clone(), tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's "copy": forward the identity, backward the float32 sum of
+    every rank's gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.to(torch.float32, copy=True).contiguous(), ctx.tp,
+                           backward=True).to(g.dtype), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Every rank's ``x`` side by side on the last dim; backward the rank's
+    slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.width = tp, x.shape[-1]
+        return torch.cat(all_gather(x, tp), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.tp.rank * ctx.width, ctx.width).contiguous(), None
 
 
 def all_sum(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
-    """The sum of ``x`` over the group (after a row-parallel product); ``x``
-    itself for no group or a group of one."""
+    """The sum of ``x`` over the group (after a row-parallel product): the
+    "reduce", whose backward is the identity; ``x`` itself for no group or
+    a group of one."""
     if tp_size(tp) == 1:
         return x
-    x = x.contiguous()
-    _run(dist.all_reduce, x, x, group=tp.group)
-    return x
+    return _Reduce.apply(x, tp)
+
+
+def copy_in(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """``x`` (the same on every rank) where it enters work split over the
+    group: the "copy", whose backward sums the ranks' gradients at float32.
+    ``x`` itself for no group or a group of one."""
+    if tp_size(tp) == 1:
+        return x
+    return _Copy.apply(x, tp)
+
+
+def all_max(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """The element-wise maximum of ``x`` over the group, with no gradient
+    (a detached copy); ``x`` detached for no group or a group of one."""
+    x = x.detach()
+    if tp_size(tp) == 1:
+        return x
+    return _all_reduce(x.contiguous().clone(), tp, dist.ReduceOp.MAX)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
@@ -317,8 +404,11 @@ def partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gather_last(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     """Every rank's ``x`` side by side on the last dim, by rank (the
-    vocab-parallel logits); ``x`` itself for no group or a group of one."""
-    return x if tp_size(tp) == 1 else torch.cat(all_gather(x, tp), dim=-1)
+    vocab-parallel logits); its backward is the rank's slice. ``x`` itself
+    for no group or a group of one."""
+    if tp_size(tp) == 1:
+        return x
+    return _GatherLast.apply(x, tp)
 
 
 def all_gather(x: torch.Tensor, tp: Optional[TPGroup]) -> List[torch.Tensor]:

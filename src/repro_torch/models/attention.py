@@ -26,7 +26,11 @@ the same at the rank's heads: each rank computes the latent ``c_kv`` and
 the rope'd key whole (``w_dkv`` and ``w_krope`` are whole) and writes the
 same entries into its own whole latent cache, while the query, the
 absorbed ``w_uk``, the scores, ``w_uv`` and the context run at its heads
-and ``wo`` is row-parallel.
+and ``wo`` is row-parallel. The full-sequence forward (:func:`attention`,
+the path of ``forward`` and ``loss_fn``) runs the same split; the input of
+the rank's projections, and MLA's latent and rope'd key before its
+head-split products, pass ``tensor_parallel.copy_in``, so a backward sums
+the ranks' gradients of them.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
-from repro_torch.distributed.tensor_parallel import row_parallel
+from repro_torch.distributed.tensor_parallel import copy_in, row_parallel
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
@@ -211,8 +215,10 @@ def _einsum_mha(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
 
 def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, tp=None) -> torch.Tensor:
-    """Full-sequence attention. x: (B,S,D)."""
-    q, k, v = _project_qkv(p, x, cfg)
+    """Full-sequence attention. x: (B,S,D); under ``tp`` the rank's heads
+    (``cfg`` the rank's, ``tensor_parallel.tp_local``) and a row-parallel
+    ``wo``."""
+    q, k, v = _project_qkv(p, copy_in(x, tp), cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return row_parallel(_full_seq_core(q, k, v, positions, cfg), p["wo"].to(x.dtype), tp)
@@ -222,7 +228,7 @@ def gqa_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, t
     """Full-seq attention that also returns (k, v) for the cache. x: (B,S,D).
     With a sliding window only the last ``sliding_window`` positions of K/V
     are returned (the ring the decode path addresses)."""
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, copy_in(x, tp), cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = row_parallel(_full_seq_core(q, k, v, positions, cfg), p["wo"].to(x.dtype), tp)
@@ -381,16 +387,17 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=
     k_rope). Always causal, as in ``repro``."""
     b, s, _ = x.shape
     dt = x.dtype
-    q_nope, q_rope = _mla_q(p, x, positions, cfg)
-    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
-    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim)
-    v = (c_kv @ p["w_uv"].to(dt)).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, copy_in(x, tp), positions, cfg)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg)      # whole weights, whole on every rank
+    c, kr = copy_in(c_kv, tp), copy_in(k_rope, tp)
+    k_nope = (c @ p["w_uk"].to(dt)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim)
+    v = (c @ p["w_uv"].to(dt)).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     q_nope = _shard(cfg, q_nope, BATCH_AXES, None, "model", None)
     k_nope = _shard(cfg, k_nope, BATCH_AXES, None, "model", None)
     v = _shard(cfg, v, BATCH_AXES, None, "model", None)
     scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
-              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)).float() * scale
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, kr)).float() * scale
     scores = _shard(cfg, scores, BATCH_AXES, "model", None, None)
     mask = _attn_mask(positions, positions, causal=True, window=None)
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
@@ -400,9 +407,9 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=
 
 
 def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Full-sequence MLA (forward / scoring). x: (B,S,D)."""
-    return _mla_full(p, x, positions, cfg)[0]
+    return _mla_full(p, x, positions, cfg, tp)[0]
 
 
 def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
@@ -450,8 +457,10 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig,
     return row_parallel(out, p["wo"].to(dt), tp), c_cache
 
 
-def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence attention of either kind (the forward path)."""
+def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """Full-sequence attention of either kind (the forward path); under
+    ``tp`` at the rank's heads, ``cfg`` the rank's."""
     if cfg.use_mla:
-        return mla_attention(p, x, positions, cfg)
-    return gqa_attention(p, x, positions, cfg)
+        return mla_attention(p, x, positions, cfg, tp)
+    return gqa_attention(p, x, positions, cfg, tp)

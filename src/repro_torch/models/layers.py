@@ -10,8 +10,12 @@ Under a tensor-parallel group ``tp`` (``distributed.tensor_parallel``) each
 rank holds its shard: the MLP is column-parallel in ``w_gate``/``w_up`` and
 row-parallel in ``w_down`` (a float32 sum over the group follows), the embedding
 and the head are vocab-parallel (a masked local lookup and a sum; the local
-columns of the logits and a gather), and Mamba2's gated norm sums its
-rows' squares over the group. ``tp=None`` is the one-device path.
+columns of the logits and a gather), Mamba2's gated norm sums its rows'
+squares over the group, and :func:`cross_entropy` takes the loss from the
+rank's columns of the logits without gathering the vocabulary. A tensor
+that every rank holds alike enters the split work through
+``tensor_parallel.copy_in``, so a backward sums the ranks' gradients of it.
+``tp=None`` is the one-device path.
 """
 from __future__ import annotations
 
@@ -21,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
-from repro_torch.distributed.tensor_parallel import (all_sum, gather_last, row_parallel,
-                                                      tp_size)
+from repro_torch.distributed.tensor_parallel import (all_max, all_sum, copy_in, gather_last,
+                                                      row_parallel, tp_size)
 
 
 # --- norms ------------------------------------------------------------------
@@ -89,7 +93,9 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
         return gated_rmsnorm_scale_op(x, gate, weight.float(), ssq, d, eps=eps)
     dt = x.dtype
     g = (x * F.silu(gate.to(dt))).float()
-    ssq = all_sum(g.square().sum(dim=-1, keepdim=True), tp)
+    # the summed squares feed every rank's channels: the sum's backward
+    # sums the ranks' gradients of it too
+    ssq = copy_in(all_sum(g.square().sum(dim=-1, keepdim=True), tp), tp)
     return (g * torch.rsqrt(ssq / d + eps)).to(dt) * weight.to(dt)
 
 
@@ -108,7 +114,7 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     rank's columns of ``d_ff``, then the sum of the row-parallel
     ``w_down``'s partial products over the group."""
     dt = x.dtype
-    x = _shard(cfg, x, ("pod", "data"), None, None)
+    x = copy_in(_shard(cfg, x, ("pod", "data"), None, None), tp)
     up = x @ p["w_up"].to(dt)
     if cfg.act == "silu":
         h = F.silu(x @ p["w_gate"].to(dt)) * up
@@ -151,13 +157,66 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Te
                                                                     device=rows.device)), tp)
 
 
+def local_logits(head_w: torch.Tensor, hidden: torch.Tensor, tp=None) -> torch.Tensor:
+    """hidden (B,S,D) -> the logits of the columns ``head_w`` holds, fp32,
+    unmasked: under ``tp`` the rank's vocabulary columns."""
+    return (copy_in(hidden, tp) @ head_w.to(hidden.dtype)).float()
+
+
 def logits_from_hidden(head_w: torch.Tensor, hidden: torch.Tensor,
                        cfg: ModelConfig, tp=None) -> torch.Tensor:
     """hidden (B,S,D) -> logits (B,S,Vpad) fp32 with padded columns masked.
     Under ``tp`` ``head_w`` holds the rank's vocabulary columns: their
     logits, gathered over the group by rank, then the mask."""
-    logits = _shard(cfg, gather_last((hidden @ head_w.to(hidden.dtype)).float(), tp),
+    logits = _shard(cfg, gather_last(local_logits(head_w, hidden, tp), tp),
                     ("pod", "data"), None, "model")
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9  # in place: logits is a fresh tensor
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
+    """The mean negative log-likelihood of ``labels`` (B,S) under
+    ``logits`` (B,S,V) fp32. With no group (or a group of one) ``logits``
+    is the whole masked vocabulary and this is ``repro``'s CE: a
+    ``log_softmax``, then the labels' entries by a gather or, under
+    ``shard_activations``, by ``repro``'s partition-friendly masked
+    reduction over the vocabulary.
+
+    Under ``tp`` ``logits`` holds the rank's columns of the padded
+    vocabulary (:func:`local_logits`), unmasked, and the vocabulary is
+    never gathered: the padded columns get ``repro``'s ``-1e9`` on whichever
+    rank holds them; each rank takes its rows' maximum and the ranks the
+    maximum of those (no gradient: the log-sum-exp does not depend on it);
+    each rank sums ``exp`` over its columns and the ranks sum those at
+    float32; the label's logit comes from the rank whose columns hold it
+    (by the same gather or masked reduction) and the ranks sum it. The
+    sums are the "reduce" of ``tensor_parallel``, so the gradient of each
+    rank's logits is its columns of ``softmax - onehot``."""
+    if tp_size(tp) == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -_pick(logp, labels, cfg).mean()
+    width = logits.shape[-1]
+    first = tp.rank * width
+    cols = first + torch.arange(width, device=logits.device)
+    logits = torch.where(cols < cfg.vocab_size, logits,
+                         torch.full((), -1e9, dtype=logits.dtype, device=logits.device))
+    m = all_max(logits.amax(dim=-1, keepdim=True), tp)
+    sum_exp = all_sum(torch.exp(logits - m).sum(dim=-1), tp)
+    local = labels - first
+    inside = (local >= 0) & (local < width)
+    picked = torch.where(inside, _pick(logits, local.clamp(0, width - 1), cfg),
+                         torch.zeros((), dtype=logits.dtype, device=logits.device))
+    label_logit = all_sum(picked, tp)
+    return (torch.log(sum_exp) + m[..., 0] - label_logit).mean()
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x[..., idx]`` for (B,S) ``idx``: a gather, or under
+    ``shard_activations`` ``repro``'s masked reduction over the last dim
+    (it stays sharded on batch and vocabulary there)."""
+    if cfg.shard_activations:
+        onehot = torch.arange(x.shape[-1], device=x.device) == idx[..., None]
+        return torch.where(onehot, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum(-1)
+    return x.gather(-1, idx[..., None].long())[..., 0]

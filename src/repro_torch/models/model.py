@@ -10,12 +10,15 @@ Batch conventions follow ``repro`` (tensors on the model's device):
                   (B,Vpad) fp32, cache)
   decode        : a (B,1) token, the cache and a scalar or (B,) position
 
-``prefill``, ``decode_step``, ``cache_spec`` and ``init_cache`` take a
-tensor-parallel group ``tp`` (``distributed.tensor_parallel``; None: one
-device): each rank passes its shard of the parameters
-(``distributed.sharding.local_shard``, or ``weights.params_from_numpy``
-with ``tp``) and of the cache, runs the same call, and gets the whole
-logits.
+``forward``, ``loss_fn``, ``prefill``, ``decode_step``, ``cache_spec`` and
+``init_cache`` take a tensor-parallel group ``tp``
+(``distributed.tensor_parallel``; None: one device): each rank passes its
+shard of the parameters (``distributed.sharding.local_shard``, or
+``weights.params_from_numpy`` or ``init_params`` with ``tp``) and of the
+cache, runs the same call, and gets the whole logits; ``loss_fn`` takes
+its cross-entropy from the rank's vocabulary columns
+(``layers.cross_entropy``), and a backward through it gives each rank the
+gradient of its shard (``training.train_step``).
 """
 from __future__ import annotations
 
@@ -26,10 +29,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.tensor_parallel import ssm_local, tp_local
+from repro_torch.distributed.tensor_parallel import ssm_local, tp_local, tp_size
 from repro_torch.models import transformer
 from repro_torch.models.attention import init_kv_cache_shape, paged_gqa_decode
-from repro_torch.models.layers import embed_tokens, logits_from_hidden
+from repro_torch.models.layers import (cross_entropy, embed_tokens, local_logits,
+                                       logits_from_hidden)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +222,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _map_named_specs(make, param_specs(cfg))
 
 
+def params_meta(cfg: ModelConfig) -> Dict[str, Any]:
+    """The whole parameter tree as ``meta`` tensors at ``param_dtype``
+    (shapes and dtypes, no storage): a template to restore a checkpoint
+    into, sharded or not (``init_opt_state`` of it, the optimizer's)."""
+    return _map_specs(lambda spec: torch.empty(spec.shape, dtype=cfg.param_torch_dtype,
+                                               device="meta"), param_specs(cfg))
+
+
 def _map_named_specs(fn, specs, names: Tuple[str, ...] = ()):
     """``fn(spec, path)`` over a spec tree, in its order."""
     if isinstance(specs, ParamSpec):
@@ -280,7 +292,7 @@ def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     if cfg.frontend == "audio":
         x = batch["frames"].to(cfg.compute_dtype)
     elif cfg.frontend == "vision":
-        tok = embed_tokens(params["embed"], batch["tokens"], cfg)
+        tok = embed_tokens(params["embed"], batch["tokens"], cfg, tp)
         x = torch.cat([batch["vision_embeds"].to(cfg.compute_dtype), tok], dim=1)
     else:
         x = embed_tokens(params["embed"], batch["tokens"], cfg, tp)
@@ -291,37 +303,43 @@ def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
-def forward(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Full-sequence forward -> (logits (B,S,Vpad) fp32, aux), the logits
-    on the text positions only under the vision frontend; ``aux["lb_loss"]``
-    is the MoE load-balance loss summed over layers."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, h, aux = transformer.stack_forward(params["stack"], x, positions, cfg)
+def _hidden(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
+    """(the final norm's output on the positions that get logits, aux): the
+    text positions only under the vision frontend."""
+    local = tp_local(cfg, tp)   # raises first for a config that does not split
+    x, positions = _embed_inputs(params, batch, cfg, tp)
+    x, h, aux = transformer.stack_forward(params["stack"], x, positions, local, tp)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     if cfg.frontend == "vision":
         x = x[:, batch["vision_embeds"].shape[1]:]
-    return logits_from_hidden(_head_weight(params, cfg), x, cfg), aux
+    return x, aux
 
 
-def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.01):
+def forward(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
+    """Full-sequence forward -> (logits (B,S,Vpad) fp32, aux), the logits
+    on the text positions only under the vision frontend; ``aux["lb_loss"]``
+    is the MoE load-balance loss summed over layers. Under ``tp`` the
+    whole logits, gathered as ``prefill`` gathers them, on every rank."""
+    x, aux = _hidden(params, batch, cfg, tp)
+    return logits_from_hidden(_head_weight(params, cfg), x, cfg, tp), aux
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.01, tp=None):
     """Mean next-token (or, encoder-only, frame-label) cross-entropy plus
     ``lb_coef`` times the MoE load-balance loss. Returns (loss, metrics
-    {"ce", "lb_loss", "loss"})."""
-    logits, aux = forward(params, batch, cfg)
+    {"ce", "lb_loss", "loss"}). Under ``tp`` the cross-entropy comes from
+    each rank's vocabulary columns, never gathered
+    (``layers.cross_entropy``); every rank returns the same values."""
     labels = batch["labels"]
+    if tp_size(tp) == 1:
+        logits, aux = forward(params, batch, cfg)
+    else:
+        x, aux = _hidden(params, batch, cfg, tp)
+        logits = local_logits(_head_weight(params, cfg), x, tp)
     if cfg.is_autoregressive:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
-    logp = torch.log_softmax(logits, dim=-1)
-    if cfg.shard_activations:
-        # repro's partition-friendly CE: a masked reduction over the vocab
-        # instead of a gather (it stays sharded on batch and vocab there)
-        onehot = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
-        ll = torch.where(onehot, logp, torch.zeros((), dtype=logp.dtype,
-                                                   device=logp.device)).sum(dim=-1)
-    else:
-        ll = logp.gather(-1, labels[..., None].long())[..., 0]
-    ce = -ll.mean()
+    ce = cross_entropy(logits, labels, cfg, tp)
     total = ce + lb_coef * aux["lb_loss"]
     return total, {"ce": ce, "lb_loss": aux["lb_loss"], "loss": total}
 

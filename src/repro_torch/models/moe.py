@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
-from repro_torch.distributed.tensor_parallel import all_sum, expert_span, partial_f32, tp_size
+from repro_torch.distributed.tensor_parallel import (all_sum, copy_in, expert_span, partial_f32,
+                                                      tp_size)
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -328,7 +329,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, impl: Optional[str] = None,
         if cfg.n_shared_experts:
             y = y + _shared_ffn(p["shared"], xt)
         return y.reshape(b, s, d), aux
-    y = _IMPLS[name](p, xt, weights, idx, cfg, expert_span(cfg, tp)[0]).float()
+    # the routing is whole on every rank; its tokens and combine weights
+    # enter the rank's experts (and shared width) through the "copy"
+    xs = copy_in(xt, tp)
+    y = _IMPLS[name](p, xs, copy_in(weights, tp), idx, cfg, expert_span(cfg, tp)[0]).float()
     if cfg.n_shared_experts:
-        y = y + _shared_ffn(p["shared"], xt, f32=True)
+        y = y + _shared_ffn(p["shared"], xs, f32=True)
     return all_sum(y, tp).to(x.dtype).reshape(b, s, d), aux

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
-from repro_torch.distributed.tensor_parallel import SSMLocal, row_parallel, ssm_local
+from repro_torch.distributed.tensor_parallel import SSMLocal, copy_in, row_parallel, ssm_local
 from repro_torch.models.layers import gated_rms_norm
 
 NEG_INF = -1e9
@@ -133,7 +133,7 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
     bsz, s, _ = u.shape
     dtc = u.dtype
     loc = ssm_local(cfg, tp)
-    zxbcdt = u @ p["in_proj"].to(dtc)
+    zxbcdt = copy_in(u, tp) @ p["in_proj"].to(dtc)
     z, xbc, dt_raw = _split_in_proj(zxbcdt, loc, cfg)
     conv_tail = xbc[:, -(cfg.d_conv - 1):, :].clone()
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))

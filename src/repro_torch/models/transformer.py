@@ -15,9 +15,10 @@ prefill (forward + cache emission) and decode (one token against the
 cache). Dense and moe blocks attend with GQA or, under ``use_mla``, MLA
 (a latent cache ``{"c": ...}`` in place of ``{"k", "v"}``).
 
-Prefill and decode take a tensor-parallel group ``tp`` (None: one device)
-with the rank's config (``distributed.tensor_parallel.tp_local``) and its
-shard of the weights and the cache; every rank runs the same loop and a
+The forward, prefill and decode take a tensor-parallel group ``tp`` (None:
+one device) with the rank's config (``distributed.tensor_parallel.tp_local``)
+and its shard of the weights (and of the cache); every rank runs the same
+loop and a
 dense or moe block's attention (GQA or MLA) and its MLP or MoE meet at a
 sum over the group each; a mamba block's gated norm and ``out_proj`` meet
 at one each (zamba2's shared block is a dense block).
@@ -138,10 +139,10 @@ def _ssm_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], cfg: ModelConfig
 
 
 def _dense_forward(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, tp=None):
     """A dense or moe block of the full-sequence forward: (x, delta, lb)."""
-    return _dense_block(p, x, h, lambda y: (attn_mod.attention(p["attn"], y, positions, cfg),),
-                        cfg)
+    return _dense_block(
+        p, x, h, lambda y: (attn_mod.attention(p["attn"], y, positions, cfg, tp),), cfg, tp)
 
 
 # the products whose outputs ``"dots_saveable"`` keeps for the backward, as
@@ -173,26 +174,30 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(cfg.remat)
 
 
-def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                  tp=None):
     """Full-sequence forward, no cache. Returns (x, h, aux): the hidden
     state x + h as in :func:`stack_prefill`, and ``aux["lb_loss"]``, the
-    MoE load-balance loss summed over the moe layers (0 without any).
+    MoE load-balance loss summed over the moe layers (0 without any; the
+    same on every rank of ``tp``, since every rank routes every token).
 
     ``cfg.remat`` wraps each unit ``repro`` wraps (:func:`_remat`): every
     dense, moe and ssm layer, and every hybrid group (its ``attn_every``
     mamba layers and the shared block). A unit maps (x, h) to (x, h, lb),
-    so the residual delta carried to the next norm stays inside it."""
+    so the residual delta carried to the next norm stays inside it. Under
+    ``tp`` a unit's collectives sit inside it, so ``"full"`` repeats them
+    in the backward's recompute, every rank in the same order."""
     def dense(lp, x, h):
-        return _dense_forward(lp, x, h, positions, cfg)
+        return _dense_forward(lp, x, h, positions, cfg, tp)
 
     def ssm(lp, x, h):
-        x, h, _, _ = _ssm_prefill(lp, x, h, cfg)
+        x, h, _, _ = _ssm_prefill(lp, x, h, cfg, tp)
         return x, h, None
 
     def group(gp, shared, x, h):
         for lp in _layers(gp, cfg.attn_every):
-            x, h, _, _ = _ssm_prefill(lp, x, h, cfg)
-        return _dense_forward(shared, x, h, positions, cfg)
+            x, h, _, _ = _ssm_prefill(lp, x, h, cfg, tp)
+        return _dense_forward(shared, x, h, positions, cfg, tp)
 
     h = None
     lbs = []

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -57,17 +57,57 @@ def init_opt_state(params) -> Dict[str, Any]:
                                                             device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def _named_leaves(tree, names: Tuple[str, ...] = ()):
+    """(path, leaf) of nested dicts in :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in _named_leaves(tree[k], names + (k,))]
+    return [(names, tree)]
+
+
+def global_norm(tree, tp=None, cfg=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, summed leaf by
-    leaf in ``jax.tree.leaves`` order."""
+    leaf in ``jax.tree.leaves`` order.
+
+    Under a tensor-parallel group ``tp`` ``tree`` holds this rank's shards
+    (of a parameter tree of the global model config ``cfg``), and the norm
+    is the whole tree's, the same on every rank: each rank squares and sums
+    what it owns, one float32 sum over the group adds the ranks' sums leaf
+    by leaf, and the leaves are summed in order. A leaf every rank holds
+    whole is counted once (rank 0's), and so is a segment several ranks
+    hold (a replicated KV head, a shared Mamba2 B/C group: the lowest
+    holder's), whose gradient every holder holds whole once
+    ``sharding.sum_shared`` has summed it."""
+    if tp is None or tp.size == 1:
+        total = 0.0
+        for g in tree_leaves(tree):
+            total = total + g.float().square().sum()
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    from repro_torch.distributed.sharding import shared_segments
+    from repro_torch.distributed.tensor_parallel import all_sum
+    parts = []
+    for names, g in _named_leaves(tree):
+        segs = shared_segments(names, cfg, tp.size, tp.rank)
+        g = g.float()
+        if segs is None:
+            part = g.square().sum() if tp.rank == 0 else g.new_zeros(())
+        else:
+            axis, mine = segs
+            part = g.new_zeros(())
+            for at, _, n, held in mine:
+                if held[0] == tp.rank:
+                    part = part + g.narrow(axis, at, n).square().sum()
+        parts.append(part)
+    with torch.no_grad():
+        sums = all_sum(torch.stack(parts), tp)
     total = 0.0
-    for g in tree_leaves(tree):
-        total = total + g.float().square().sum()
+    for part in sums:
+        total = total + part
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
+def adamw_update(grads, opt_state, params, cfg: OptimizerConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
     """Returns (params, opt_state, metrics {"grad_norm", "lr"}).
 
     The update is ``repro``'s: the gradients clipped to ``grad_clip`` by
@@ -76,10 +116,13 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
     float32 and cast back to ``p.dtype``. It works in place, the counterpart
     of ``repro``'s ``donate_argnums=(0, 1)``: ``params``, ``opt_state`` and
     ``grads`` are consumed (overwritten), and the returned trees are the
-    same objects as the ones passed in."""
+    same objects as the ones passed in. ``grad_norm``: the gradients'
+    global norm when the caller has it (a tensor-parallel step passes the
+    whole tree's, :func:`global_norm` under its group, so every rank clips
+    by the same scale); None computes it from ``grads``."""
     step = opt_state["step"]
     step += 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.betas
     lr = schedule(cfg, step)

@@ -1094,3 +1094,83 @@ def test_chunked_mha_on_card_matches_the_cpu_at_f32(cuda, causal, window, s):
     got = chunked_mha(q.to(cuda), k.to(cuda), v.to(cuda), cfg)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,causal", [
+    (2, 8, 8, 512, 80, False),    # hubert-xlarge's encoder at one of 2 ranks
+    (2, 24, 4, 512, 128, True),   # internvl2-26b at one of 2 ranks: 256 patches + 256 tokens
+])
+def test_flash_kernel_at_the_frontends_rank_shapes_on_card(cuda, b, h, kv, s, d, causal,
+                                                           dtype):
+    """The shapes ``loss_fn`` gives flash on a rank of two under a group:
+    against the plain version, bf16 also against the mirror of its tiles."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, kv, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(
+        q, k, v, causal=causal).float(), **tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.flash_attention_tiles_ref(
+            q, k, v, causal=causal).float(), **TILES_TOL)
+
+
+def _tp_loss_rank(tp):
+    """One of two gloo ranks on the card: internlm2-1.8b's smoke loss at
+    float32 over the group (the vocab-parallel CE, the "copy" and "reduce"
+    collectives) and this rank's gradients, summed where ranks share a
+    segment."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import map_with_names, sum_shared
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import make_batch
+    from repro_torch.training.train_step import _grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), tp.device, tp=tp)
+    batch = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg, 2, 32,
+                       device=tp.device)
+    loss, _, grads = _grads_of(params, batch, cfg, tp)
+    grads = map_with_names(lambda names, g: sum_shared(g, names, cfg, tp), grads)
+    return {"loss": float(loss), "grads": M.tree_map(lambda g: g.cpu(), grads)}
+
+
+def test_vocab_parallel_loss_and_gradient_on_two_ranks_of_the_card(cuda):
+    """Two gloo ranks sharing the card: the loss over vocab-parallel logits
+    and every rank's gradient of its shard equal the one-rank loss and the
+    cut of its gradient on the card at float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import local_shard, map_with_names
+    from repro_torch.distributed.tensor_parallel import TPGroup, spawn_tp
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import make_batch
+    from repro_torch.training.train_step import _grads_of
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), dtype="float32")
+    ranks = spawn_tp(_tp_loss_rank, 2, device="cuda:0", timeout=300)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+    batch = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg, 2, 32, device=cuda)
+    loss, _, grads = _grads_of(params, batch, cfg)
+    for rank, got in enumerate(ranks):
+        torch.testing.assert_close(torch.tensor(got["loss"]), loss.cpu(), **F32_TOL)
+        group = TPGroup(None, rank, 2, torch.device("cpu"), (torch.device("cpu"),) * 2, "gloo")
+        map_with_names(lambda names, g: torch.testing.assert_close(
+            _at(got["grads"], names), local_shard(g.cpu(), names, cfg, group), **F32_TOL),
+            grads)
+
+
+def _at(tree, names):
+    for k in names:
+        tree = tree[k]
+    return tree

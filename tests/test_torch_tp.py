@@ -22,10 +22,9 @@ checks read what the ranks wrote.
   resized 4 -> 2 -> 4 -> 1.
 - The platform: ``sharded-serving`` over 2 ranks ends a short
   ``elastic_storm`` with ``repro``'s gang counters and outcomes.
-- The rules: the architectures tensor parallelism leaves out (the
-  frontends) raise under a group of more than one rank, the dense, MoE,
-  SSM and hybrid families get their rank's heads (and SSM widths), and
-  ranks that share a device use gloo.
+- The rules: every family gets its rank's heads (and SSM widths) under a
+  group of more than one rank, the frontends included; a config that
+  does not split raises; ranks that share a device use gloo.
 """
 import dataclasses
 import itertools
@@ -404,6 +403,10 @@ def test_sharded_serving_over_two_ranks_ends_with_repros_counters(runs):
 
 # --- the rules ---------------------------------------------------------------------------
 def test_architectures_outside_the_slice_raise_under_a_group():
+    """Every family now splits, the frontends too (hubert's audio encoder
+    and internvl2's vision model get their rank's heads like the dense
+    family); what still raises is a config that does not divide over the
+    ranks, naming what does not."""
     group = T.TPGroup(None, 0, 2, torch.device("cpu"), (torch.device("cpu"),) * 2, "gloo")
     covered = {a for a in ARCH_IDS if get_config(a).family in ("dense", "moe", "ssm", "hybrid")
                and get_config(a).frontend is None}
@@ -413,26 +416,28 @@ def test_architectures_outside_the_slice_raise_under_a_group():
     for arch in sorted(ARCH_IDS):
         cfg = get_config(arch)
         assert T.tp_local(cfg, None) is cfg
-        if arch in covered:
-            local = T.tp_local(cfg, group)
-            # the rank's heads; the MoE family keeps the global experts and top_k
-            assert local.n_heads == cfg.n_heads // 2
-            assert local.n_kv_heads == (max(1, cfg.n_kv_heads // 2) if cfg.n_kv_heads else 0)
-            assert (local.n_experts, local.top_k) == (cfg.n_experts, cfg.top_k)
-            if cfg.family in ("ssm", "hybrid"):
-                # the rank's SSM widths: half the heads, the one B/C group whole
-                loc = T.ssm_local(local, group)
-                assert (loc.n_heads, loc.first_head) == (cfg.n_ssm_heads // 2, 0)
-                assert loc.d_inner == cfg.d_inner // 2
-                assert (loc.n_groups, loc.first_group) == (cfg.ssm_ngroups, 0) == (1, 0)
-                assert loc.conv_dim == cfg.d_inner // 2 + 2 * cfg.ssm_state
-                assert T.ssm_local(local, None) == T.ssm_local(cfg, None)
-                assert T.ssm_local(cfg, None).conv_dim == cfg.conv_dim
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.tp_local(cfg, group)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ElasticReplica(get_config(arch, smoke=True), {}, 2, tp=group)
+        local = T.tp_local(cfg, group)
+        # the rank's heads; the MoE family keeps the global experts and top_k
+        assert local.n_heads == cfg.n_heads // 2
+        assert local.n_kv_heads == (max(1, cfg.n_kv_heads // 2) if cfg.n_kv_heads else 0)
+        assert (local.n_experts, local.top_k) == (cfg.n_experts, cfg.top_k)
+        assert (local.d_ff, local.vocab_padded, local.frontend) == (
+            cfg.d_ff // 2, cfg.vocab_padded, cfg.frontend)
+        if cfg.family in ("ssm", "hybrid"):
+            # the rank's SSM widths: half the heads, the one B/C group whole
+            loc = T.ssm_local(local, group)
+            assert (loc.n_heads, loc.first_head) == (cfg.n_ssm_heads // 2, 0)
+            assert loc.d_inner == cfg.d_inner // 2
+            assert (loc.n_groups, loc.first_group) == (cfg.ssm_ngroups, 0) == (1, 0)
+            assert loc.conv_dim == cfg.d_inner // 2 + 2 * cfg.ssm_state
+            assert T.ssm_local(local, None) == T.ssm_local(cfg, None)
+            assert T.ssm_local(cfg, None).conv_dim == cfg.conv_dim
+    # hubert at TP 2: 8 query heads of 80 on 8 KV heads, its padded
+    # vocabulary of 512 split in the head's columns; internvl2: 24 on 4
+    hub = T.tp_local(get_config("hubert-xlarge"), group)
+    assert (hub.n_heads, hub.n_kv_heads, hub.head_dim) == (8, 8, 80)
+    vl = T.tp_local(get_config("internvl2-26b"), group)
+    assert (vl.n_heads, vl.n_kv_heads, vl.head_dim) == (24, 4, 128)
     assert T.backend_for(["cpu", "cpu"]) == "gloo"
     assert T.backend_for(["cuda:0", "cuda:0"]) == "gloo"   # two ranks on one card
     assert T.backend_for(["cuda:0", "cpu"]) == "gloo"
@@ -440,6 +445,12 @@ def test_architectures_outside_the_slice_raise_under_a_group():
     assert T.backend_for(["cuda:0"]) == "nccl"
     with pytest.raises(ValueError, match="do not split"):
         T.tp_local(dataclasses.replace(get_config("qwen2.5-3b"), n_heads=15), group)
+    three = T.TPGroup(None, 0, 3, torch.device("cpu"), (torch.device("cpu"),) * 3, "gloo")
+    with pytest.raises(ValueError, match="vocab_padded 512 .*the head's columns"):
+        T.tp_local(get_config("hubert-xlarge"), three)
+    with pytest.raises(ValueError, match="do not split"):
+        ElasticReplica(dataclasses.replace(get_config("internvl2-26b", smoke=True), n_heads=7),
+                       {}, 2, tp=group)
 
 
 def test_init_tp_needs_cuda_unless_asked_for_cpu(monkeypatch):
