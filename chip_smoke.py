@@ -146,23 +146,32 @@ Run from the root of a checkout on a machine with one CUDA card. It
    and internvl2-26b (bf16 weights) on 256 patches + 256 text tokens,
    each with exact launch counts; and hubert at float32 cut to 2 layers,
    ``auto`` against ``reference``;
-10b. runs the frontends' loss and training under a group (the ``tp
-   train`` phase), two ranks on the one card against one rank on the same
-   seeded weights: full-width, full-depth hubert-xlarge's ``forward`` and
-   ``loss_fn`` at float32 (non-causal flash at q (2, 8, 512, 80) a rank)
-   within ``SLICE_TOL``, internvl2-26b's in bf16 (flash at q (2, 24, 512,
-   128) on 4 KV heads, rmsnorm) against a float32 witness on the same
-   weights (``tp_bf16_logits``; the loss no farther than twice the one-rank
-   leg's distance plus one bf16 ulp), each rank's launches as counted; then
-   full-width, full-depth internlm2-1.8b trains 3 steps of (2, 256) at
-   float32 on two ranks against one (losses and grad norms within
-   ``PARAM_TOL``, the first batch's gradient norm of every layer of every
-   leaf within its rtol, the final parameters by ``TPT_PARAM_MAX`` and
+10b. runs the frontends' loss and training under a group and a grid (the
+   ``tp train`` phase), ranks on the one card over gloo against one rank
+   on the same seeded weights: two ranks run full-width, full-depth
+   hubert-xlarge's ``forward`` and ``loss_fn`` at float32 (non-causal
+   flash at q (2, 8, 512, 80) a rank) within ``SLICE_TOL``, internvl2-26b's
+   in bf16 (flash at q (2, 24, 512, 128) on 4 KV heads, rmsnorm) against a
+   float32 witness on the same weights (``tp_bf16_logits``; the loss no
+   farther than twice the one-rank leg's distance plus one bf16 ulp), each
+   rank's launches as counted; then full-width internlm2-1.8b cut to
+   ``TPT_TP2_LAYERS`` layers trains 3 steps of (2, 256) at float32 on the
+   two ranks against one (losses and grad norms within ``PARAM_TOL`` at
+   the first step, ``TPT_LATER_TOL`` after it, the
+   first batch's gradient norm of every layer of every leaf within its
+   rtol, the final parameters by ``TPT_PARAM_MAX`` and
    ``TPT_PARAM_SHARE``, every rank's copy of a leaf held whole rank 0's
    bit for bit; the step's collectives timed, those of the backward
-   apart); at ``TPT_CKPT_LAYERS`` layers the group checkpoints the whole
-   arrays after step 2 and one rank restores them through
-   ``reshard_restore`` and takes step 3, equal to the group's;
+   apart); then at full width and full depth the same steps on four ranks
+   as the grid (data 2, model 2) against the one-rank leg, run first and
+   its final tree written once (the same gates, each rank comparing its
+   cut on the card; each rank's parameter and moment bytes at most 1.1
+   times a quarter of the tree's; every leaf several ranks hold equal
+   across them bit for bit; init and training peaks a rank, the step
+   walls, the collectives by axis); at ``TPT_CKPT_LAYERS`` layers the grid
+   checkpoints the whole arrays after step 2 (each leaf gathered to rank 0
+   alone), and (data 1, model 2) and one rank each restore them through
+   ``reshard_restore`` and take step 3, equal to the grid's;
 11. serves 4 requests of (512, 16) of full-width, full-depth stablelm-12b
    (bf16 weights; flash at head_dim 160) with exact launch counts;
 12. trains on the card under ``kernel_impls="reference"`` (the kernels
@@ -2225,8 +2234,8 @@ class RouteProbe:
         self.calls, self.current = {}, None
         self._mod, self._orig = moe_mod, moe_mod.route
 
-        def probed(router_w, x, cfg):
-            out = self._orig(router_w, x, cfg)
+        def probed(router_w, x, cfg, dp=None):
+            out = self._orig(router_w, x, cfg, dp)
             if self.current is not None:
                 top = torch.topk(torch.softmax(x.float() @ router_w.float(), dim=-1),
                                  cfg.top_k + 1).values
@@ -3507,11 +3516,18 @@ def frontend_phase(seed: int):
     return all_counts, out
 
 
-# --- the frontends' loss and the "model" axis of training under a group (tp train) -----
+# --- the frontends' loss and training under a group and a grid (tp train) ------------
 TPT_FRONT_BATCH, TPT_FRONT_SEQ = 2, 512   # hubert's frames; internvl2's 256 patches + 256 tokens
 TPT_BATCH, TPT_SEQ, TPT_STEPS, TPT_SAVE_AFTER = 2, 256, 3, 2
 # the checkpoint round trip's depth: the training phase's restart depth
 TPT_CKPT_LAYERS = 2
+# the depth of the two-rank "model"-axis training leg: the (data 2, model 2)
+# leg trains the "model" axis at full depth, so this one is cut (PERF.md §4)
+TPT_TP2_LAYERS = 6
+# the data-axis leg's grid, (pod, data, model), and the file of the one-rank
+# leg's final parameters that its ranks compare their cuts with
+DPT_GRID = (1, 2, 2)
+DPT_ONE_RANK = "one_rank_internlm2.pt"
 # tests/test_torch_train_step.py's optimizer and PARAM_TOL (atol, rtol): the
 # losses and grad norms of 2 ranks against one
 TPT_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -3523,6 +3539,15 @@ PARAM_TOL = (2e-5, 1e-4)
 # PARAM_TOL (2.16e-6 read)
 TPT_PARAM_MAX = {"3 steps": 3e-3, "1 step": 5e-4}
 TPT_PARAM_SHARE = 2e-5
+# a step's metrics after the first, against one rank's: three times
+# PARAM_TOL. From the first step on the parameters are apart as
+# TPT_PARAM_MAX admits, and Adam's update of the elements whose gradient is
+# near zero turns the order of the float32 sums into steps 2-3's metrics:
+# tools/dp_step_witness.py (PERF.md §6) read up to 1.064 of PARAM_TOL's
+# limit on layouts that only reorder the sums (one rank against itself as
+# 2 microbatches included), 0.016 from the same state, and 6.93 for a
+# grid whose norms' gradients go unsummed over "data"
+TPT_LATER_TOL = (6e-5, 3e-4)
 
 
 def tpt_front_cfg(arch: str, dtype: str = None):
@@ -3615,19 +3640,23 @@ def tpt_front_leg(arch: str, seed: int, device, tp=None, witness: bool = False) 
     return out
 
 
-def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = None) -> dict:
+def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = None,
+                  host_params: bool = True) -> dict:
     """internlm2-1.8b (cut to ``n_layers``) trains ``TPT_STEPS`` steps of
     (``TPT_BATCH``, ``TPT_SEQ``) tokens from ``DataPipeline`` at float32 on
-    one rank or on this rank of ``tp``, from the seeded ``init_params``.
-    Without ``ckpt_dir`` the first batch's gradient is taken once more
-    before the steps, for its layers' sums of squares; under ``tp`` the
-    collectives are timed (a synchronisation around each), those of the
-    backward apart. With ``ckpt_dir`` the group checkpoints there after step
-    ``TPT_SAVE_AFTER``. Returns the metrics, the steps' walls, the peaks and
-    the final parameters on the host."""
+    one rank or on this rank of ``tp`` (a group, or a grid whose rank takes
+    its rows of each batch), from the seeded ``init_params``. Without
+    ``ckpt_dir`` the first batch's gradient is taken once more before the
+    steps, for its layers' sums of squares; under ``tp`` the collectives
+    are timed (a synchronisation around each), those of the backward apart
+    and each under its axis. With ``ckpt_dir`` the group checkpoints there
+    after step ``TPT_SAVE_AFTER``. Returns the metrics, the steps' walls, the
+    peaks, the parameter and moment bytes and the final parameters, on the
+    host (``host_params``) or where they are."""
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.data_parallel import batch_rows, reduce_grads
     from repro_torch.distributed.sharding import map_with_names, sum_shared
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
@@ -3636,11 +3665,13 @@ def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = Non
 
     cfg = tpt_train_cfg(n_layers)
     torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device, tp=tp)
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     out = {"init_peak_bytes": torch.cuda.max_memory_allocated(), "param_bytes": M.nbytes(params),
-           "metrics": [], "step_ms": [], "collectives": []}
+           "moment_bytes": M.nbytes(opt["m"]) + M.nbytes(opt["v"]),
+           "init_s": time.perf_counter() - t, "metrics": [], "step_ms": [], "collectives": []}
     step = TS.make_train_step(cfg, OptimizerConfig(**TPT_OPT), 1, tp)
     pipe = DataPipeline(cfg, TPT_BATCH, TPT_SEQ, seed=seed)
     reset_launch_counts()
@@ -3648,7 +3679,7 @@ def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = Non
     for i in range(TPT_STEPS):
         batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.next_batch().items()}
         if i == 0 and ckpt_dir is None:
-            grads = TS._grads_of(params, batch, cfg, tp)[2]
+            grads = reduce_grads(TS._grads_of(params, batch_rows(batch, tp), cfg, tp)[2], cfg, tp)
             if tp is not None:
                 grads = map_with_names(lambda names, g: sum_shared(g, names, cfg, tp), grads)
             out["grad_ssq"] = layer_grad_ssq(grads)
@@ -3676,70 +3707,220 @@ def tpt_train_leg(seed: int, device, tp=None, ckpt_dir=None, n_layers: int = Non
             out["save_s"] = time.perf_counter() - t
     out["train_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = launch_counts()
-    out["params"] = M.tree_map(lambda t: t.cpu(), params)
+    out["params"] = M.tree_map(lambda t: t.cpu(), params) if host_params else params
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def tpt_rank(tp, seed: int, ckpt_dir: str) -> dict:
+def tpt_rank(tp, seed: int) -> dict:
     """One of two ranks of the tp train phase (``spawn_tp``): the
     frontends' ``loss_fn`` at TP 2 (hubert at float32, internvl2 in bf16),
-    internlm2-1.8b's training at TP 2, then its checkpoint round trip's
-    group run at ``TPT_CKPT_LAYERS`` layers."""
+    then internlm2-1.8b's training at TP 2, cut to ``TPT_TP2_LAYERS``
+    layers."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": tp.rank, "backend": tp.backend}
     for arch in ("hubert-xlarge", "internvl2-26b"):
         out[arch] = tpt_front_leg(arch, seed, tp.device, tp)
-    out["train"] = tpt_train_leg(seed, tp.device, tp)
-    out["ckpt"] = tpt_train_leg(seed, tp.device, tp, ckpt_dir, TPT_CKPT_LAYERS)
+    out["train"] = tpt_train_leg(seed, tp.device, tp, n_layers=TPT_TP2_LAYERS)
     return out
 
 
-def tp_train_phase(seed: int):
-    """The frontends' ``loss_fn`` and the ``"model"`` axis of training under
-    a group of two ranks on the one card (gloo), each against one rank on
-    the same seeded weights, run in this process after the ranks end: (1)
-    full-width, full-depth hubert-xlarge's loss and logits at float32 (its
-    non-causal flash at q (2, 8, 512, 80) on 8 KV heads a rank) within
-    ``SLICE_TOL``, and internvl2-26b's in bf16 (q (2, 24, 512, 128) on 4 KV
-    heads a rank, rmsnorm), its logits no farther from the float32 witness
-    than the one-rank leg's (``tp_bf16_logits``) and its loss no farther
-    than twice the one-rank leg's distance plus ``PARAM_TOL``'s rtol of it;
-    each rank's
-    launches as the shapes predict; (2) internlm2-1.8b at full width and
-    depth trains ``TPT_STEPS`` steps of (2, 256) at float32: losses and
-    grad norms within ``PARAM_TOL``, the first batch's gradient norm of
-    every layer of every leaf within its rtol, the final parameters by
-    ``TPT_PARAM_MAX`` and ``TPT_PARAM_SHARE``, and each rank's copy of a
-    leaf held whole equal to rank 0's; (3) at ``TPT_CKPT_LAYERS`` layers
-    the group checkpoints after step 2 and one rank restores it through
-    ``reshard_restore`` and takes step 3, equal to the group's. Returns
-    (launches by path, numbers)."""
+def dpt_rank(world, seed: int, d: str) -> dict:
+    """One of four ranks of the tp train phase's data-axis leg
+    (``spawn_tp``), as the grid ``DPT_GRID`` (data 2, model 2): (1)
+    full-width, full-depth internlm2-1.8b trains ``TPT_STEPS`` steps, and
+    the rank compares its final 2-D shard on the card with its cut of the
+    one-rank leg's final tree (read from ``d`` on the host, a leaf at a
+    time), and each leaf it shares with other ranks with theirs; (2) the
+    checkpoint round trip at ``TPT_CKPT_LAYERS`` layers (:func:`dpt_ckpt`).
+    Returns readings only: no parameter leaves the ranks."""
+    from repro_torch.distributed.data_parallel import make_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid(world, DPT_GRID[1], DPT_GRID[2], DPT_GRID[0])
+    out = {"rank": world.rank, "coords": (grid.pod_rank, grid.data_rank, grid.rank),
+           "backend": grid.backend}
+    cfg = tpt_train_cfg()
+    leg = tpt_train_leg(seed, grid.device, grid, host_params=False)
+    params = leg.pop("params")
+    t = time.perf_counter()
+    leg["against_one"] = dpt_against(params, os.path.join(d, DPT_ONE_RANK), cfg, grid)
+    leg["shared_leaves"], unequal = dpt_shared_unequal(params, cfg, grid)
+    if unequal:
+        raise AssertionError(f"dp train: rank {world.rank}'s copies of {unequal} are not "
+                             f"those of every rank that holds the same piece")
+    leg["compare_s"] = time.perf_counter() - t
+    out["train"] = leg
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ckpt"] = dpt_ckpt(seed, world, grid, d)
+    return out
+
+
+def dpt_against(params, path: str, cfg, grid) -> dict:
+    """{leaf path: the largest difference, the elements beyond
+    ``PARAM_TOL`` and the element count} of this rank's final shards
+    against its cut (``local_shard``) of the one-rank tree at ``path``,
+    memory-mapped: each cut is read on the host and compared on the
+    card."""
+    from repro_torch.distributed.sharding import local_shard, map_with_names
+
+    ref = torch.load(path, mmap=True, weights_only=True)
+    stats = {}
+
+    def one(names, p):
+        want = local_shard(_at_path(ref, names), names, cfg, grid).to(p.device)
+        stats[tuple(names)] = params_diff_stats([(p, want)])
+    map_with_names(one, params)
+    del ref
+    return stats
+
+
+def dpt_shared_unequal(params, cfg, grid) -> tuple:
+    """(how many leaves several ranks of the grid hold, those of them whose
+    copies differ anywhere): a leaf ``"data"`` or ``"model"`` leaves whole
+    is held by every rank with its piece (``holder_key``), whose copies,
+    gathered over every rank, must be equal bit for bit. Every rank calls
+    it."""
+    from repro_torch.distributed.data_parallel import holder_key
+    from repro_torch.distributed.sharding import map_with_names
+    from repro_torch.distributed.tensor_parallel import all_gather
+
+    leaves = []
+    map_with_names(lambda names, p: leaves.append((tuple(names), p)), params)
+    n, unequal = 0, []
+    for names, p in leaves:
+        if len({holder_key(names, cfg, grid.dims, r) for r in range(grid.world.size)}) == \
+                grid.world.size:
+            continue
+        mine = holder_key(names, cfg, grid.dims, grid.world.rank)
+        if any(holder_key(names, cfg, grid.dims, r) == mine and not torch.equal(part, p)
+               for r, part in enumerate(all_gather(p, grid.world))):
+            unequal.append(".".join(names))
+        n += 1
+    return n, unequal
+
+
+def dpt_ckpt(seed: int, world, grid, d: str) -> dict:
+    """The checkpoint round trip at ``TPT_CKPT_LAYERS`` layers on the
+    grid: it trains, checkpoints after step ``TPT_SAVE_AFTER`` (the whole
+    arrays, each leaf gathered to rank 0 alone) and takes step 3, whose
+    parameters are gathered to rank 0; then ranks 0 and 1 as ``(data 1,
+    model 2)``, and rank 0 alone, each restore the checkpoint through
+    ``reshard_restore`` and take step 3 (:func:`dpt_restore_step`)."""
+    from repro_torch.distributed.sharding import Mesh, gather_to_root, group_mesh, map_with_names
+
+    ck = tpt_train_cfg(TPT_CKPT_LAYERS)
+    leg = tpt_train_leg(seed, grid.device, grid, ckpt_dir=d, n_layers=TPT_CKPT_LAYERS,
+                        host_params=False)
+    params = leg.pop("params")
+    whole = map_with_names(lambda names, t: gather_to_root(t, names, ck, grid), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"group": leg}
+    tp2 = world.subgroup(2)
+    if tp2 is not None:
+        out["model2"] = dpt_restore_step(seed, ck, d, group_mesh(tp2), tp2, whole)
+    if world.rank == 0:
+        out["one_rank"] = dpt_restore_step(seed, ck, d, Mesh([grid.device], ("model",)), None,
+                                           whole)
+    return out
+
+
+def dpt_restore_step(seed: int, ck, d: str, mesh, tp, whole) -> dict:
+    """Restore ``d``'s checkpoint onto ``mesh`` (``reshard_restore``: each
+    rank of ``tp`` its shards, read leaf by leaf) and take step 3 from the
+    restored pipeline; on rank 0 the parameters, gathered to it, against
+    the grid's step-3 tree ``whole``."""
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.distributed.elastic import reshard_restore
-    from repro_torch.distributed.sharding import Mesh
-    from repro_torch.distributed.tensor_parallel import spawn_tp
+    from repro_torch.distributed.sharding import gather_to_root, map_with_names, mesh_device
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_step import make_train_step
 
+    meta = M.params_meta(ck)   # shapes and dtypes
+    template = {"params": meta, "opt": init_opt_state(meta)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, manifest = reshard_restore(ck, template, d, mesh)
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t}
+    pipe = DataPipeline(ck, TPT_BATCH, TPT_SEQ, seed=seed)
+    pipe.load_state_dict(manifest["extra"]["pipeline"])
+    dev = mesh_device(mesh)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    step = make_train_step(ck, OptimizerConfig(**TPT_OPT), 1, tp)
+    p, _, m = step(state["params"], state["opt"], batch)
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    del state
+    got = map_with_names(lambda names, x: gather_to_root(x, names, ck, tp), p)
+    del p
+    if whole is not None and got is not None and all(
+            x is not None for x in M.tree_leaves(got)):
+        out["against_group"] = params_diff_stats(zip(M.tree_leaves(got), M.tree_leaves(whole)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_phase(seed: int):
+    """The frontends' ``loss_fn`` and training under a group of two ranks
+    and a grid of four on the one card (gloo), each against one rank on
+    the same seeded weights: (1) full-width, full-depth hubert-xlarge's
+    loss and logits at float32 (its non-causal flash at q (2, 8, 512, 80)
+    on 8 KV heads a rank) within ``SLICE_TOL``, and internvl2-26b's in bf16
+    (q (2, 24, 512, 128) on 4 KV heads a rank, rmsnorm), its logits no
+    farther from the float32 witness than the one-rank leg's
+    (``tp_bf16_logits``) and its loss no farther than twice the one-rank
+    leg's distance plus ``PARAM_TOL``'s rtol of it; each rank's launches as
+    the shapes predict; (2) internlm2-1.8b at full width cut to
+    ``TPT_TP2_LAYERS`` layers trains ``TPT_STEPS`` steps of (2, 256) at
+    float32 at TP 2: losses and grad norms within ``PARAM_TOL`` at the
+    first step and ``TPT_LATER_TOL`` after it, the first batch's gradient norm of every layer of every leaf within its rtol,
+    the final parameters by ``TPT_PARAM_MAX`` and ``TPT_PARAM_SHARE``, and
+    each rank's copy of a leaf held whole equal to rank 0's; (3) at full
+    width and full depth the same steps on four ranks as (data 2, model 2)
+    against the one-rank leg (run first, its final tree written once),
+    under the same gates, each rank's parameter and moment bytes at most
+    1.1 times a quarter of the tree's, every leaf several ranks hold equal
+    across them bit for bit; (4) at ``TPT_CKPT_LAYERS`` layers the grid
+    checkpoints after step 2 and (data 1, model 2) and one rank each
+    restore it through ``reshard_restore`` and take step 3, equal to the
+    grid's. Returns (launches by path, numbers)."""
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+    from repro_torch.models import model as M
+
     t0 = time.perf_counter()
-    hub, vl, lm = tpt_front_cfg("hubert-xlarge"), tpt_front_cfg("internvl2-26b"), tpt_train_cfg()
-    ck = tpt_train_cfg(TPT_CKPT_LAYERS)
+    hub, vl = tpt_front_cfg("hubert-xlarge"), tpt_front_cfg("internvl2-26b")
+    lm, lm6, ck = tpt_train_cfg(), tpt_train_cfg(TPT_TP2_LAYERS), tpt_train_cfg(TPT_CKPT_LAYERS)
     print(f"tp train: 2 ranks on one card; hubert ({hub.n_layers} layers, float32) a rank "
           f"{hub.n_heads // 2} of {hub.n_heads} heads of {hub.head_dim}, not causal; internvl2 "
           f"({vl.n_layers} layers, bf16) {vl.n_heads // 2} heads on {vl.n_kv_heads // 2} KV "
-          f"heads; both on ({TPT_FRONT_BATCH}, {TPT_FRONT_SEQ}); internlm2-1.8b "
-          f"({lm.n_layers} layers, float32, reference) {TPT_STEPS} steps of ({TPT_BATCH}, "
-          f"{TPT_SEQ}), lr {TPT_OPT['lr']}, its checkpoint round trip at {ck.n_layers} layers")
-    need = 3 * 4 * sum(int(np.prod(s.shape)) for s in M.tree_leaves(M.param_specs(ck)))
+          f"heads; both on ({TPT_FRONT_BATCH}, {TPT_FRONT_SEQ}); internlm2-1.8b (float32, "
+          f"reference) {TPT_STEPS} steps of ({TPT_BATCH}, {TPT_SEQ}), lr {TPT_OPT['lr']}, at "
+          f"TP 2 cut to {lm6.n_layers} layers, on 4 ranks as (pod, data, model) {DPT_GRID} at "
+          f"{lm.n_layers} layers, the grid's checkpoint round trip at {ck.n_layers} layers")
+    n_lm = sum(int(np.prod(s.shape)) for s in M.tree_leaves(M.param_specs(lm)))
+    need = 3 * 4 * sum(int(np.prod(s.shape)) for s in M.tree_leaves(M.param_specs(ck))) \
+        + 4 * n_lm
     d = tempfile.mkdtemp(prefix="chip_smoke_tp_train_")
     if shutil.disk_usage(d).free < 1.5 * need:
-        raise AssertionError(f"tp train: {shutil.disk_usage(d).free} bytes free for a "
-                             f"{need}-byte checkpoint")
+        raise AssertionError(f"tp train: {shutil.disk_usage(d).free} bytes free for "
+                             f"{need} bytes of checkpoint and one-rank tree")
+    walls = {}
+    # each rank draws internvl2's stacked leaves (and internlm2's) whole at
+    # float32 and keeps its shard: its live shards end up inside the freed
+    # leaves' segments, which the caching allocator can then neither release
+    # nor reuse (20 GB a rank stranded so); expandable segments return them
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         # the ranks first, while this process holds nothing on the card: two
         # ranks drawing internvl2's shards in turn peak near 60 GB together
@@ -3747,161 +3928,297 @@ def tp_train_phase(seed: int):
         print(f"tp train: before the ranks this process has {torch.cuda.memory_allocated()} "
               f"bytes allocated, {torch.cuda.memory_reserved()} reserved; the card "
               f"{total - free} of {total} in use")
-        # each rank draws internvl2's stacked leaves whole at float32 (19.3 GB
-        # the largest) and keeps half in bf16: its live shards end up inside
-        # the freed leaves' segments, which the caching allocator can then
-        # neither release nor reuse (20 GB a rank stranded so); expandable
-        # segments return the freed pages
-        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         t1 = time.perf_counter()
-        try:
-            ranks = spawn_tp(tpt_rank, 2, device="cuda:0", args=(seed, d), timeout=900)
-        finally:
-            if alloc_conf is None:
-                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-            else:
-                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
-        spawn_s = time.perf_counter() - t1
+        ranks = spawn_tp(tpt_rank, 2, device="cuda:0", args=(seed,), timeout=900)
+        walls["tp2_ranks"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         one = {arch: tpt_front_leg(arch, seed, "cuda", witness=arch == "internvl2-26b")
                for arch in ("hubert-xlarge", "internvl2-26b")}
-        one["train"] = tpt_train_leg(seed, "cuda")
-        out, paths = {"spawn_s": spawn_s, "one_rank_s": time.perf_counter() - t1}, {}
-        # (1) the frontends
-        for arch, cfg in (("hubert-xlarge", hub), ("internvl2-26b", vl)):
-            tag = f"tp train {arch.split('-')[0]}"
-            ref = one[arch]
-            paths[f"{tag} one rank"] = check_counts(f"{tag} one rank", cfg, ref["counts"],
-                                                    ref["forms"], forward_counts(cfg, 2), 2)
-            leg = {"one_rank": {k: ref[k] for k in ("metrics", "wall_ms", "init_peak_bytes",
-                                                    "peak_bytes", "param_bytes")}}
-            for r in ranks:
-                got = r[arch]
-                if r["backend"] != "gloo":
-                    raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
-                paths[f"{tag} rank {r['rank']}"] = check_counts(
-                    f"{tag} rank {r['rank']}", cfg, got["counts"], got["forms"],
-                    forward_counts(cfg, {2: 2}), {2: 2})
-                if 2 * got["param_bytes"] > 1.1 * ref["param_bytes"]:
-                    raise AssertionError(f"{tag}: a rank holds {got['param_bytes']} of "
-                                         f"{ref['param_bytes']} bytes")
-                leg[f"rank_{r['rank']}"] = {k: got[k] for k in (
-                    "metrics", "wall_ms", "init_peak_bytes", "peak_bytes", "param_bytes")}
-            got = ranks[0][arch]
-            if arch == "hubert-xlarge":
-                errs = [check_close(f"{tag} loss_fn {k}, 2 ranks against one",
-                                    torch.tensor(got["metrics"][k]), torch.tensor(
-                                        ref["metrics"][k]), SLICE_TOL) for k in ref["metrics"]]
-                errs.append(check_close(f"{tag} forward logits, 2 ranks against one",
-                                        got["logits"], ref["logits"], SLICE_TOL))
-                leg["max_abs_err"] = max(errs)
-                print(f"{tag}: float32 loss {got['metrics']['loss']:.6f} at TP 2, "
-                      f"{ref['metrics']['loss']:.6f} on one rank; loss and logits max abs err "
-                      f"{max(errs):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
-            else:
-                leg["logits"] = tp_bf16_logits(tag, got["logits"].flatten(),
-                                               ref["logits"].flatten(),
-                                               ref["f32_logits"].flatten())
-                w, l1, l2 = ref["f32_loss"], ref["metrics"]["loss"], got["metrics"]["loss"]
-                allowed = 2 * abs(l1 - w) + PARAM_TOL[1] * abs(w)
-                leg.update(f32_loss=w, loss_tp2=l2, loss_one=l1, loss_allowed=allowed)
-                print(f"{tag}: bf16 loss {l2:.6f} at TP 2, {l1:.6f} on one rank, float32 "
-                      f"witness {w:.6f}: TP 2 {abs(l2 - w):.3e} from it (allowed {allowed:.3e}: "
-                      f"twice the one rank's {abs(l1 - w):.3e} plus rtol {PARAM_TOL[1]} of it)")
-                if abs(l2 - w) > allowed:
-                    raise AssertionError(f"{tag}: the TP loss {l2} is {abs(l2 - w)} from the "
-                                         f"float32 witness {w}, over {allowed}")
-            out[arch.split("-")[0]] = leg
-        # (2) training
-        tag = "tp train internlm2"
-        ref = one["train"]
-        rs = [r["train"] for r in ranks]
-        if any(any(r["launches"].values()) for r in rs + [ref]):
-            raise AssertionError(f"{tag}: training launched kernels {[r['launches'] for r in rs]}")
-        for r in rs:
-            for i, (g, w) in enumerate(zip(r["metrics"], ref["metrics"])):
-                for key in ("loss", "ce", "grad_norm", "lr"):
-                    check_close(f"{tag} step {i + 1} {key}, 2 ranks against one",
-                                torch.tensor(g[key]), torch.tensor(w[key]), PARAM_TOL)
-        if any(not np.isfinite(m["loss"]) for m in ref["metrics"]):
-            raise AssertionError(f"{tag}: losses {ref['metrics']}")
+        one["train"] = tpt_train_leg(seed, "cuda", n_layers=TPT_TP2_LAYERS)
+        walls["one_rank_legs"] = time.perf_counter() - t1
+        out, paths = {}, {}
         t1 = time.perf_counter()
-        leg = {"grad_norms": tpt_grad_norms(tag, lm, rs, ref),
-               "whole_leaves": tpt_whole_leaves(tag, lm, [r["params"] for r in rs]),
-               "params_vs_one_rank": tpt_params_against(
-                   f"{tag} 2 ranks against one", tpt_whole(lm, rs), ref["params"], "3 steps")}
-        out["compare_s"] = time.perf_counter() - t1
-        for r in rs + [ref]:
-            del r["params"]
-        # the checkpoint round trip at TPT_CKPT_LAYERS layers: one rank
-        # restores the group's checkpoint after step TPT_SAVE_AFTER and takes
-        # the last step
-        cs = [r["ckpt"] for r in ranks]
-        meta = M.params_meta(ck)   # shapes and dtypes
-        template = {"params": meta, "opt": init_opt_state(meta)}
-        t = time.perf_counter()
-        state, manifest = reshard_restore(ck, template, d, Mesh([torch.device("cuda")],
-                                                               ("model",)))
-        restore_s = time.perf_counter() - t
-        pipe = DataPipeline(ck, TPT_BATCH, TPT_SEQ, seed=seed)
-        pipe.load_state_dict(manifest["extra"]["pipeline"])
-        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.next_batch().items()}
-        step = make_train_step(ck, OptimizerConfig(**TPT_OPT))
-        p, _, m = step(state["params"], state["opt"], batch)
-        m = {k: float(v) for k, v in m.items()}
-        for key in ("loss", "ce", "grad_norm", "lr"):
-            check_close(f"{tag} {ck.n_layers} layers step {TPT_STEPS} {key}, restored on one "
-                        f"rank against the group", torch.tensor(m[key]),
-                        torch.tensor(cs[0]["metrics"][-1][key]), PARAM_TOL)
-        leg["ckpt_whole_leaves"] = tpt_whole_leaves(f"{tag} {ck.n_layers} layers", ck,
-                                                    [c["params"] for c in cs])
-        leg["restored_vs_group"] = tpt_params_against(
-            f"{tag} {ck.n_layers} layers restored on one rank, step {TPT_STEPS}, against the "
-            f"group", M.tree_map(lambda t: t.cpu(), p), tpt_whole(ck, cs), "1 step")
-        del state, p
+        out.update(tpt_front_check(ranks, one, hub, vl, paths))
+        out["train"] = tpt_tp2_check(ranks, one["train"], lm6)
+        walls["tp2_compare"] = time.perf_counter() - t1
+        del ranks, one
+        # the data-axis leg: the one-rank leg first, its final tree on disk
+        t1 = time.perf_counter()
+        ref = tpt_train_leg(seed, "cuda")
+        torch.save(ref.pop("params"), os.path.join(d, DPT_ONE_RANK))
+        walls["one_rank_full"] = time.perf_counter() - t1
         gc.collect()
         torch.cuda.empty_cache()
-        coll = rs[0]["collectives"]
-        tp2 = [statistics.median(r["step_ms"]) for r in rs]
-        leg.update(
-            losses_tp2=[x["loss"] for x in rs[0]["metrics"]],
-            losses_one=[x["loss"] for x in ref["metrics"]],
-            grad_norms_tp2=[x["grad_norm"] for x in rs[0]["metrics"]],
-            step_ms_tp2=rs[0]["step_ms"], step_ms_one=ref["step_ms"],
-            collectives=coll, ckpt_layers=ck.n_layers, save_s=cs[0]["save_s"],
-            restore_s=restore_s,
-            checkpoint_bytes=sum(os.path.getsize(os.path.join(dp, f))
-                                 for dp, _, fs in os.walk(d) for f in fs),
-            rank_peak_bytes=[r["train_peak_bytes"] for r in rs],
-            one_rank_peak_bytes=ref["train_peak_bytes"],
-            rank_param_bytes=[r["param_bytes"] for r in rs], param_bytes=ref["param_bytes"])
-        share = [{w: c[w]["seconds"] * 1e3 / ms for w in ("rest", "backward")}
-                 for c, ms in zip(coll, rs[0]["step_ms"])]
-        leg["collective_share"] = share
-        print(f"{tag}: losses {['%.6f' % x for x in leg['losses_tp2']]} at TP 2, "
-              f"{['%.6f' % x for x in leg['losses_one']]} on one rank; steps "
-              f"{['%.1f' % x for x in rs[0]['step_ms']]} ms at TP 2 (median {tp2[0]:.1f}), "
-              f"{['%.1f' % x for x in ref['step_ms']]} ms on one rank; collectives a step "
-              + "; ".join(f"outside the backward (the forward, the norm) {c['rest']['calls']} "
-                          f"calls {c['rest']['bytes']} bytes {1e3 * c['rest']['seconds']:.1f} "
-                          f"ms, in the backward {c['backward']['calls']} calls "
-                          f"{c['backward']['bytes']} bytes "
-                          f"{1e3 * c['backward']['seconds']:.1f} ms" for c in coll[-1:])
-              + "; share of the step outside / in the backward "
-              + ", ".join(f"{s['rest']:.3f} / {s['backward']:.3f}" for s in share)
-              + f"; peaks {leg['rank_peak_bytes']} a rank, {leg['one_rank_peak_bytes']} on one "
-              f"rank; the {ck.n_layers}-layer checkpoint {leg['checkpoint_bytes']} bytes saved "
-              f"in {leg['save_s']:.2f} s by the group, restored on one rank in "
-              f"{restore_s:.2f} s")
-        out["train"] = leg
+        t1 = time.perf_counter()
+        grid = spawn_tp(dpt_rank, int(np.prod(DPT_GRID)), device="cuda:0", args=(seed, d),
+                        timeout=900)
+        walls["grid_ranks"] = time.perf_counter() - t1
+        out["data_axis"] = dpt_check(grid, ref, lm, ck, d)
     finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
         shutil.rmtree(d, ignore_errors=True)
+    out["walls"] = walls
     out["phase_wall_s"] = time.perf_counter() - t0
-    print(f"tp train: phase wall {out['phase_wall_s']:.2f} s (the ranks {spawn_s:.2f} s, "
-          f"the one-rank legs {out['one_rank_s']:.2f} s, the comparisons "
-          f"{out['compare_s']:.2f} s, the restore {out['train']['restore_s']:.2f} s)")
+    print(f"tp train: phase wall {out['phase_wall_s']:.2f} s ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()) + ")")
     return paths, out
+
+
+def tpt_front_check(ranks, one, hub, vl, paths) -> dict:
+    """The frontends' legs: every rank's launches as counted, its shard
+    bytes, and the loss and logits of two ranks against one."""
+    out = {}
+    for arch, cfg in (("hubert-xlarge", hub), ("internvl2-26b", vl)):
+        tag = f"tp train {arch.split('-')[0]}"
+        ref = one[arch]
+        paths[f"{tag} one rank"] = check_counts(f"{tag} one rank", cfg, ref["counts"],
+                                                ref["forms"], forward_counts(cfg, 2), 2)
+        leg = {"one_rank": {k: ref[k] for k in ("metrics", "wall_ms", "init_peak_bytes",
+                                                "peak_bytes", "param_bytes")}}
+        for r in ranks:
+            got = r[arch]
+            if r["backend"] != "gloo":
+                raise AssertionError(f"{tag}: two ranks on one card took {r['backend']}")
+            paths[f"{tag} rank {r['rank']}"] = check_counts(
+                f"{tag} rank {r['rank']}", cfg, got["counts"], got["forms"],
+                forward_counts(cfg, {2: 2}), {2: 2})
+            if 2 * got["param_bytes"] > 1.1 * ref["param_bytes"]:
+                raise AssertionError(f"{tag}: a rank holds {got['param_bytes']} of "
+                                     f"{ref['param_bytes']} bytes")
+            leg[f"rank_{r['rank']}"] = {k: got[k] for k in (
+                "metrics", "wall_ms", "init_peak_bytes", "peak_bytes", "param_bytes")}
+        got = ranks[0][arch]
+        if arch == "hubert-xlarge":
+            errs = [check_close(f"{tag} loss_fn {k}, 2 ranks against one",
+                                torch.tensor(got["metrics"][k]), torch.tensor(
+                                    ref["metrics"][k]), SLICE_TOL) for k in ref["metrics"]]
+            errs.append(check_close(f"{tag} forward logits, 2 ranks against one",
+                                    got["logits"], ref["logits"], SLICE_TOL))
+            leg["max_abs_err"] = max(errs)
+            print(f"{tag}: float32 loss {got['metrics']['loss']:.6f} at TP 2, "
+                  f"{ref['metrics']['loss']:.6f} on one rank; loss and logits max abs err "
+                  f"{max(errs):.3e} (atol={SLICE_TOL[0]} rtol={SLICE_TOL[1]})")
+        else:
+            leg["logits"] = tp_bf16_logits(tag, got["logits"].flatten(),
+                                           ref["logits"].flatten(),
+                                           ref["f32_logits"].flatten())
+            w, l1, l2 = ref["f32_loss"], ref["metrics"]["loss"], got["metrics"]["loss"]
+            allowed = 2 * abs(l1 - w) + PARAM_TOL[1] * abs(w)
+            leg.update(f32_loss=w, loss_tp2=l2, loss_one=l1, loss_allowed=allowed)
+            print(f"{tag}: bf16 loss {l2:.6f} at TP 2, {l1:.6f} on one rank, float32 "
+                  f"witness {w:.6f}: TP 2 {abs(l2 - w):.3e} from it (allowed {allowed:.3e}: "
+                  f"twice the one rank's {abs(l1 - w):.3e} plus rtol {PARAM_TOL[1]} of it)")
+            if abs(l2 - w) > allowed:
+                raise AssertionError(f"{tag}: the TP loss {l2} is {abs(l2 - w)} from the "
+                                     f"float32 witness {w}, over {allowed}")
+        out[arch.split("-")[0]] = leg
+    return out
+
+
+def tpt_metric_misses(tag: str, legs, ref):
+    """(each step's metric's largest distance from the one-rank leg's over
+    ``legs`` as a share of its limit, the misses): the losses, ``ce``, grad
+    norms and ``lr`` step by step, the first step's within ``PARAM_TOL``
+    (the same parameters), a later step's within ``TPT_LATER_TOL``. Raises
+    if a leg launched a kernel or the one-rank losses are not finite."""
+    if any(any(r["launches"].values()) for r in list(legs) + [ref]):
+        raise AssertionError(f"{tag}: training launched kernels {[r['launches'] for r in legs]}")
+    if any(not np.isfinite(m["loss"]) for m in ref["metrics"]):
+        raise AssertionError(f"{tag}: losses {ref['metrics']}")
+    shares, misses = {}, []
+    for r in legs:
+        for i, (g, w) in enumerate(zip(r["metrics"], ref["metrics"])):
+            tol = PARAM_TOL if i == 0 else TPT_LATER_TOL
+            for key in ("loss", "ce", "grad_norm", "lr"):
+                err = abs(g[key] - w[key])
+                limit = tol[0] + tol[1] * abs(w[key])
+                shares[f"step {i + 1} {key}"] = max(shares.get(f"step {i + 1} {key}", 0.0),
+                                                    err / limit)
+                if not err <= limit:
+                    misses.append(f"{tag} step {i + 1} {key}: {g[key]!r} against one rank's "
+                                  f"{w[key]!r}, {err:.3e} apart, over atol={tol[0]} "
+                                  f"rtol={tol[1]} ({limit:.3e})")
+    return shares, list(dict.fromkeys(misses))
+
+
+def tpt_tp2_check(ranks, ref, lm6) -> dict:
+    """The two-rank training leg at ``TPT_TP2_LAYERS`` layers against its
+    one-rank leg."""
+    from repro_torch.models import model as M
+
+    tag = f"tp train internlm2 {lm6.n_layers} layers"
+    rs = [r["train"] for r in ranks]
+    _, misses = tpt_metric_misses(tag, rs, ref)
+    if misses:
+        raise AssertionError("; ".join(misses))
+    leg = {"layers": lm6.n_layers, "grad_norms": tpt_grad_norms(tag, lm6, rs, ref),
+           "whole_leaves": tpt_whole_leaves(tag, lm6, [r["params"] for r in rs]),
+           "params_vs_one_rank": tpt_params_against(
+               f"{tag} 2 ranks against one", params_diff_stats(zip(
+                   M.tree_leaves(tpt_whole(lm6, rs)), M.tree_leaves(ref["params"]))),
+               "3 steps")}
+    coll = rs[0]["collectives"]
+    share = [{w: c[w]["seconds"] * 1e3 / ms for w in ("rest", "backward")}
+             for c, ms in zip(coll, rs[0]["step_ms"])]
+    leg.update(
+        losses_tp2=[x["loss"] for x in rs[0]["metrics"]],
+        losses_one=[x["loss"] for x in ref["metrics"]],
+        grad_norms_tp2=[x["grad_norm"] for x in rs[0]["metrics"]],
+        step_ms_tp2=rs[0]["step_ms"], step_ms_one=ref["step_ms"], collectives=coll,
+        collective_share=share, rank_peak_bytes=[r["train_peak_bytes"] for r in rs],
+        one_rank_peak_bytes=ref["train_peak_bytes"],
+        rank_param_bytes=[r["param_bytes"] for r in rs], param_bytes=ref["param_bytes"])
+    print(f"{tag}: losses {['%.6f' % x for x in leg['losses_tp2']]} at TP 2, "
+          f"{['%.6f' % x for x in leg['losses_one']]} on one rank; steps "
+          f"{['%.1f' % x for x in rs[0]['step_ms']]} ms at TP 2 (median "
+          f"{statistics.median(rs[0]['step_ms']):.1f}), "
+          f"{['%.1f' % x for x in ref['step_ms']]} ms on one rank; collectives a step "
+          + "; ".join(f"outside the backward (the forward, the norm) {c['rest']['calls']} "
+                      f"calls {c['rest']['bytes']} bytes {1e3 * c['rest']['seconds']:.1f} "
+                      f"ms, in the backward {c['backward']['calls']} calls "
+                      f"{c['backward']['bytes']} bytes "
+                      f"{1e3 * c['backward']['seconds']:.1f} ms" for c in coll[-1:])
+          + "; share of the step outside / in the backward "
+          + ", ".join(f"{s['rest']:.3f} / {s['backward']:.3f}" for s in share)
+          + f"; peaks {leg['rank_peak_bytes']} a rank, {leg['one_rank_peak_bytes']} on one "
+          f"rank")
+    return leg
+
+
+def dpt_pieces(names, cfg, grid) -> list:
+    """The ranks (indexes into ``grid``, the readings by world rank) that
+    hold each piece of the leaf at ``names`` (``holder_key``), a list a
+    piece (internlm2 shares no segment between ``"model"`` ranks)."""
+    from repro_torch.distributed.data_parallel import holder_key
+    pieces = {}
+    for i in range(len(grid)):
+        pieces.setdefault(holder_key(names, cfg, DPT_GRID, i), []).append(i)
+    return list(pieces.values())
+
+
+def dpt_check(grid, ref, lm, ck, d) -> dict:
+    """The data-axis leg's gates and readings from the four ranks'
+    readings and the one-rank leg's (``ref``)."""
+    from repro_torch.models import model as M
+
+    tag = "tp train internlm2 (data 2, model 2)"
+    rs = [r["train"] for r in grid]
+    if any(r["backend"] != "gloo" for r in grid):
+        raise AssertionError(f"{tag}: four ranks on one card took {[r['backend'] for r in grid]}")
+    if [r["coords"] for r in grid] != [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)]:
+        raise AssertionError(f"{tag}: the ranks' coordinates {[r['coords'] for r in grid]}")
+    print(f"{tag}: metrics by step on the grid (rank 0) and on one rank: "
+          + "; ".join(f"step {i + 1} " + ", ".join(f"{k} {g[k]:.7g} / {w[k]:.7g}" for k in (
+              "loss", "ce", "grad_norm", "lr")) for i, (g, w) in enumerate(
+                  zip(rs[0]["metrics"], ref["metrics"]))))
+    # the first batch's gradient norms: each piece once, every holder's equal
+    worst, n = 0.0, 0
+    for names, want in ref["grad_ssq"].items():
+        pieces = dpt_pieces(names, lm, grid)
+        for held in pieces:
+            if any(not torch.equal(rs[i]["grad_ssq"][names], rs[held[0]]["grad_ssq"][names])
+                   for i in held[1:]):
+                raise AssertionError(f"{tag}: the ranks' gradients of {'.'.join(names)} "
+                                     f"differ where they hold the same piece")
+        got = sum(rs[held[0]]["grad_ssq"][names] for held in pieces)
+        got, want = got.sqrt(), want.sqrt()
+        if bool(((want == 0) != (got == 0)).any()):
+            raise AssertionError(f"{tag}: a layer of {'.'.join(names)} has a zero gradient on "
+                                 f"one leg only")
+        rel = ((got - want).abs() / want.clamp_min(1e-300))[want > 0]
+        if rel.numel():
+            worst = max(worst, float(rel.max()))
+        n += want.numel()
+        if bool((rel > PARAM_TOL[1]).any()):
+            raise AssertionError(f"{tag}: the gradient norm of {'.'.join(names)} is "
+                                 f"{float(rel.max()):.3e} from one rank's (limit {PARAM_TOL[1]})")
+    print(f"{tag}: first-batch gradient norms of {n} layers of {len(ref['grad_ssq'])} leaves, "
+          f"4 ranks against one: max rel err {worst:.3e} (limit {PARAM_TOL[1]})")
+    shares, misses = tpt_metric_misses(tag, rs, ref)
+    print(f"{tag}: each step's metric against one rank as a share of its limit: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    if misses:
+        raise AssertionError("; ".join(misses))
+    # the final parameters: each rank's cut against the one-rank tree's
+    stats = {"max_abs": max(st["max_abs"] for r in rs for st in r["against_one"].values()),
+             "beyond": 0, "elements": 0}
+    for names in rs[0]["against_one"]:
+        for held in dpt_pieces(names, lm, grid):
+            stats["beyond"] += rs[held[0]]["against_one"][names]["beyond"]
+            stats["elements"] += rs[held[0]]["against_one"][names]["elements"]
+    params = tpt_params_against(f"{tag} 4 ranks against one", stats, "3 steps")
+    if stats["elements"] != sum(int(np.prod(s.shape)) for s in M.tree_leaves(M.param_specs(lm))):
+        raise AssertionError(f"{tag}: the pieces hold {stats['elements']} elements")
+    quarter = 1.1 * ref["param_bytes"] / 4
+    for r in rs:
+        if r["param_bytes"] > quarter or r["moment_bytes"] > 2 * quarter:
+            raise AssertionError(f"{tag}: a rank holds {r['param_bytes']} parameter and "
+                                 f"{r['moment_bytes']} moment bytes of {ref['param_bytes']} "
+                                 f"and {2 * ref['param_bytes']}")
+    shared = {r["shared_leaves"] for r in rs}
+    print(f"{tag}: every leaf several ranks hold ({shared} of them) equal across its holders "
+          f"bit for bit; a rank holds {[r['param_bytes'] for r in rs]} parameter and "
+          f"{[r['moment_bytes'] for r in rs]} moment bytes of {ref['param_bytes']} and "
+          f"{2 * ref['param_bytes']} (limit 1.1 x a quarter)")
+    coll = [r["collectives"] for r in rs]
+    axes = ("model", "data", "batch", "world")
+    by_axis = [{ax: {w: {k: st[f"{pre}{ax}_{k}"] for k in ("calls", "bytes", "seconds")}
+                     for w, pre in (("all", ""), ("backward", "backward_"))} for ax in axes}
+               for st in (c["step"] for c in coll[0])]
+    leg = {"grad_norms": {"layers": n, "max_rel_err": worst}, "params_vs_one_rank": params,
+           "metric_limit_shares": shares,
+           "shared_leaves": min(shared),
+           "losses": [x["loss"] for x in rs[0]["metrics"]],
+           "losses_one": [x["loss"] for x in ref["metrics"]],
+           "grad_norms_grid": [x["grad_norm"] for x in rs[0]["metrics"]],
+           "step_ms": [r["step_ms"] for r in rs], "step_ms_one": ref["step_ms"],
+           "collectives_by_axis": by_axis,
+           "init_peak_bytes": [r["init_peak_bytes"] for r in rs],
+           "train_peak_bytes": [r["train_peak_bytes"] for r in rs],
+           "one_rank_peak_bytes": ref["train_peak_bytes"],
+           "param_bytes": [r["param_bytes"] for r in rs],
+           "moment_bytes": [r["moment_bytes"] for r in rs], "whole_param_bytes":
+           ref["param_bytes"], "init_s": [r["init_s"] for r in rs],
+           "compare_s": [r["compare_s"] for r in rs]}
+    print(f"{tag}: losses {['%.6f' % x for x in leg['losses']]} on the grid, "
+          f"{['%.6f' % x for x in leg['losses_one']]} on one rank; steps "
+          f"{['%.1f' % x for x in rs[0]['step_ms']]} ms on the grid (rank 0; median "
+          f"{statistics.median(rs[0]['step_ms']):.1f}), "
+          f"{['%.1f' % x for x in ref['step_ms']]} ms on one rank; collectives of the last "
+          f"step by axis (calls, bytes, ms; the backward's apart) "
+          + "; ".join(f"{ax} {v['all']['calls']}, {v['all']['bytes']}, "
+                      f"{1e3 * v['all']['seconds']:.1f} (backward {v['backward']['calls']}, "
+                      f"{v['backward']['bytes']}, {1e3 * v['backward']['seconds']:.1f})"
+                      for ax, v in by_axis[-1].items())
+          + f"; peaks a rank: init {leg['init_peak_bytes']}, training "
+          f"{leg['train_peak_bytes']}; one rank {leg['one_rank_peak_bytes']}")
+    # the checkpoint round trip
+    tag = f"tp train internlm2 {ck.n_layers} layers"
+    group = grid[0]["ckpt"]["group"]
+    cks = {"save_s": group["save_s"],
+           "checkpoint_bytes": sum(os.path.getsize(os.path.join(dp, f))
+                                   for dp, _, fs in os.walk(d) for f in fs
+                                   if not f.endswith(".pt"))}
+    for name, what in (("model2", "(data 1, model 2)"), ("one_rank", "one rank")):
+        res = grid[0]["ckpt"][name]
+        for r in grid[:2 if name == "model2" else 1]:
+            for key in ("loss", "ce", "grad_norm", "lr"):
+                check_close(f"{tag} step {TPT_STEPS} {key}, restored on {what} (rank "
+                            f"{r['rank']}) against the grid",
+                            torch.tensor(r["ckpt"][name]["metrics"][key]),
+                            torch.tensor(group["metrics"][-1][key]), PARAM_TOL)
+        cks[name] = {"restore_s": res["restore_s"], "params_vs_grid": tpt_params_against(
+            f"{tag} restored on {what}, step {TPT_STEPS}, against the grid",
+            res["against_group"], "1 step")}
+    print(f"{tag}: the grid's checkpoint of {cks['checkpoint_bytes']} bytes saved in "
+          f"{cks['save_s']:.2f} s (each leaf gathered to rank 0 alone), restored in "
+          f"{cks['model2']['restore_s']:.2f} s on (data 1, model 2) and "
+          f"{cks['one_rank']['restore_s']:.2f} s on one rank")
+    leg["ckpt"] = cks
+    return leg
 
 
 def tpt_whole(cfg, rs) -> dict:
@@ -3963,18 +4280,24 @@ def tpt_grad_norms(tag: str, cfg, rs, ref) -> dict:
     return {"layers": n, "max_rel_err": worst}
 
 
-def tpt_params_against(tag: str, whole_tp, whole_one, steps: str) -> dict:
-    """Two final parameter trees: every element within ``TPT_PARAM_MAX``
-    of ``steps`` apart, at most ``TPT_PARAM_SHARE`` of them beyond
-    ``PARAM_TOL``."""
-    from repro_torch.models import model as M
-    bound = TPT_PARAM_MAX[steps]
+def params_diff_stats(pairs) -> dict:
+    """The largest difference over (got, want) tensor pairs, the elements
+    beyond ``PARAM_TOL`` of ``want`` and the element count."""
     worst, beyond, total = 0.0, 0, 0
-    for a, b in zip(M.tree_leaves(whole_tp), M.tree_leaves(whole_one)):
+    for a, b in pairs:
         diff = (a - b).abs()
         worst = max(worst, float(diff.max()))
         beyond += int((diff > PARAM_TOL[0] + PARAM_TOL[1] * b.abs()).sum())
         total += b.numel()
+    return {"max_abs": worst, "beyond": beyond, "elements": total}
+
+
+def tpt_params_against(tag: str, stats: dict, steps: str) -> dict:
+    """Two final parameter trees' :func:`params_diff_stats`: every element
+    within ``TPT_PARAM_MAX`` of ``steps`` apart, at most
+    ``TPT_PARAM_SHARE`` of them beyond ``PARAM_TOL``."""
+    bound = TPT_PARAM_MAX[steps]
+    worst, beyond, total = stats["max_abs"], stats["beyond"], stats["elements"]
     res = {"max_abs": worst, "beyond_param_tol": beyond, "elements": total,
            "share": beyond / total, "bound": bound}
     print(f"{tag}: final parameters max abs diff {worst:.3e} (bound {bound:.0e}), "

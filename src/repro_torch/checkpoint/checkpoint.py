@@ -18,13 +18,14 @@ template, as ``repro``'s) each on its sharding's mesh device: that is how a
 checkpoint moves between mesh shapes (elastic restore,
 ``distributed.elastic.reshard_restore``).
 
-Under a tensor-parallel group (``distributed.tensor_parallel``) a save
-still writes the WHOLE arrays, in the same format: the ranks gather each
-leaf from their shards (``sharding.gather_shards``), one leaf at a time,
-and rank 0 keeps its host copy and writes; so either package restores it.
-A restore onto a mesh that a group covers reads each whole array on the
-host and places only this rank's ``local_shard`` of it on the rank's
-device, leaf by leaf.
+Under a tensor-parallel group (``distributed.tensor_parallel``) or a grid
+(``distributed.data_parallel``) a save still writes the WHOLE arrays, in
+the same format: each leaf in turn is gathered from its shards to rank 0's
+host alone (``sharding.gather_to_root``: over ``"data"``, then over
+``"model"``; pod 0's ranks take part), and rank 0 writes; so either
+package restores it. A restore onto a mesh that a group or a grid covers
+reads each whole array on the host and places only this rank's
+``local_shard`` of it on the rank's device, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -66,30 +67,30 @@ def save(tree: Any, directory: str, step: int, extra: Optional[Dict] = None,
     (:func:`wait_for_saves` joins it): the tree may change as soon as this
     returns.
 
-    Under a tensor-parallel group ``tp`` every rank calls it with its
-    shards of a tree whose leaves are named as the parameters of the global
-    model config ``cfg`` (a parameter tree, or ``{"params": ..., "opt":
-    {"m": ..., "v": ..., "step": ...}}``, whose leaves split as the
-    parameters they shadow): each leaf is gathered whole over the group in
-    turn and only rank 0 keeps a host copy and writes (the other ranks
-    return the path without writing)."""
+    Under a tensor-parallel group or a grid ``tp`` every rank calls it with
+    its shards of a tree whose leaves are named as the parameters of the
+    global model config ``cfg`` (a parameter tree, or ``{"params": ...,
+    "opt": {"m": ..., "v": ..., "step": ...}}``, whose leaves split as the
+    parameters they shadow): each leaf in turn is gathered whole to rank
+    0's host alone (``sharding.gather_to_root``), and only rank 0 writes
+    (the other ranks return the path without writing)."""
     path = os.path.join(directory, f"step_{step:08d}")
     leaves = _flatten(tree)
     if any(t.is_cuda for t in leaves.values()):
         torch.cuda.synchronize()
-    if tp is None or tp.size == 1:
+    if tp is None or tp.world.size == 1:
         flat = {k: _host_array(t) for k, t in leaves.items()}  # host snapshot
         shapes = {k: t.shape for k, t in leaves.items()}
     else:
-        from repro_torch.distributed.sharding import gather_shards
+        from repro_torch.distributed.sharding import gather_to_root
         flat, shapes = {}, {}
         for k, t in leaves.items():
-            whole = gather_shards(t, k.split("/"), cfg, tp)
-            shapes[k] = whole.shape
-            if tp.rank == 0:
+            whole = gather_to_root(t, k.split("/"), cfg, tp)
+            if whole is not None:
+                shapes[k] = whole.shape
                 flat[k] = _host_array(whole)
             del whole
-        if tp.rank != 0:
+        if tp.world.rank != 0:
             return path
     os.makedirs(path, exist_ok=True)
     manifest = {
@@ -148,11 +149,12 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
     does; a sharding over several distinct devices that no group covers
     raises ``NotImplementedError``.
 
-    A sharding over a mesh that an initialised tensor-parallel group covers
-    (``Mesh(..., tp=group)``) gives this rank its ``local_shard`` of each
-    leaf (the template holds the whole shapes; ``cfg`` is the global model
-    config whose parameters name the leaves): each whole array is read and
-    cut on the host, and only the rank's shard goes to its device."""
+    A sharding over a mesh that an initialised tensor-parallel group or
+    grid covers (``Mesh(..., tp=group)``, ``sharding.group_mesh``) gives
+    this rank its ``local_shard`` of each leaf (the template holds the
+    whole shapes; ``cfg`` is the global model config whose parameters name
+    the leaves): each whole array is read and cut on the host, and only the
+    rank's shard goes to its device."""
     shard_of = _flatten(shardings) if shardings is not None else None
     dev = resolve_device(device) if shardings is None else None
     if step is None:
@@ -175,7 +177,7 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
             target = dev if shard_of is None else shard_of[key].device
             host = torch.from_numpy(arr)
             tp = None if shard_of is None else getattr(shard_of[key].mesh, "tp", None)
-            if tp is not None and tp.size > 1:
+            if tp is not None and tp.world.size > 1:
                 if cfg is None:
                     raise ValueError(f"{key}: restoring onto a group's mesh needs the model "
                                      f"config that names the leaves (cfg=)")

@@ -62,7 +62,7 @@ def reshard_in_place(params: Any, cfg: ModelConfig, mesh) -> Any:
     device."""
     dev = mesh_device(mesh)
     tp = getattr(mesh, "tp", None)
-    if tp is None or tp.size == 1:
+    if tp is None or tp.world.size == 1:
         return tree_map(lambda leaf: _place(leaf, dev), params)
     return map_with_names(lambda names, leaf: _place(local_shard(leaf, names, cfg, tp), dev),
                           params)

@@ -49,6 +49,15 @@ the components of its own heads, and with fewer B/C groups than ranks
 layout GSPMD would take. A mesh over several distinct devices that no
 group covers raises: there is nothing to run the shards.
 
+Training also runs on a grid (``data_parallel.Grid``: ``"pod"`` x
+``"data"`` x ``"model"`` ranks, :func:`group_mesh` its mesh). A rank's
+shard of a parameter is then cut twice: on ``"model"`` by the path as
+above, then evenly on the axis where ``param_specs`` puts ``"data"``
+(:func:`data_axis`; never the axis ``"model"`` splits). ``"pod"``
+replicates every leaf. :func:`local_shard`, :func:`assemble_shards` and
+:func:`gather_shards` cut and join both axes; :func:`gather_to_root`
+gathers a leaf to rank 0 alone, as a checkpoint's save does.
+
 The sharded-activation path (``cfg.shard_activations``) calls
 :func:`maybe_shard` at ``repro``'s sites with ``repro``'s axes. torch has no
 GSPMD and so no ambient mesh of its own: ``with mesh:`` on one of the port's
@@ -60,15 +69,15 @@ constrains nothing, and the tensor-parallel path splits its tensors itself.
 from __future__ import annotations
 
 import contextvars
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.distributed.tensor_parallel import (ROADMAP_DATA_AXIS, ROADMAP_NCCL,
-                                                      all_gather, all_sum, device_key,
-                                                      expert_parallel, ssm_span)
+from repro_torch.distributed.tensor_parallel import (ROADMAP_NCCL, _run, all_gather, all_sum,
+                                                      device_key, expert_parallel, ssm_span)
 from repro_torch.models.model import tree_map
 
 
@@ -131,24 +140,28 @@ class Mesh(AbstractMesh):
         super().__init__(arr.shape, axis_names)
 
 
+def mesh_dims(mesh: AbstractMesh) -> Tuple[int, int, int]:
+    """The mesh's (pod, data, model) sizes (1 for an axis it lacks)."""
+    return _axis(mesh, "pod"), _axis(mesh, "data"), _axis(mesh, "model")
+
+
 def mesh_device(mesh: AbstractMesh) -> torch.device:
     """The device that holds this process's leaves on ``mesh``: this rank's
-    device when an initialised tensor-parallel group covers the mesh (one
-    rank a device), else the mesh's one device. A mesh over several
-    distinct devices that no group covers raises: a process holds one
-    device's shards, and without a group nothing runs the others."""
+    device when an initialised group covers the mesh (one rank a device: a
+    ``TPGroup`` a 1-D ``"model"`` mesh, a ``data_parallel.Grid`` the mesh of
+    its pod x data x model ranks), else the mesh's one device. A group of
+    as many ranks as the mesh has devices but another layout raises
+    ``ValueError``; a mesh over several distinct devices that no group
+    covers raises ``NotImplementedError``: a process holds one device's
+    shards, and without a group nothing runs the others."""
     devices = getattr(mesh, "devices", None)
     if devices is None:
         raise ValueError(f"{mesh} has no devices to place a leaf on")
     tp = getattr(mesh, "tp", None)
-    if tp is not None and torch.distributed.is_initialized() and tp.size == devices.size:
-        split = {a: n for a, n in zip(mesh.axis_names, mesh.axis_sizes)
-                 if a != "model" and n > 1}
-        if split:
-            raise NotImplementedError(
-                f"a group covers {mesh}, whose axes {split} besides \"model\" a rank "
-                f"cannot cut yet: local_shard cuts the \"model\" axis only "
-                f"({ROADMAP_DATA_AXIS})")
+    if tp is not None and torch.distributed.is_initialized() and \
+            tp.world.size == devices.size:
+        if mesh_dims(mesh) != tp.dims:
+            raise ValueError(f"a group of (pod, data, model) {tp.dims} does not cover {mesh}")
         return tp.device
     distinct = {device_key(d) for d in devices.flat}
     if len(distinct) > 1:
@@ -162,9 +175,17 @@ def mesh_device(mesh: AbstractMesh) -> torch.device:
 
 
 def group_mesh(tp) -> Mesh:
-    """The 1-D ``"model"`` mesh over every rank of the group ``tp``, which
-    places each rank's shard on its device."""
-    return Mesh(np.asarray(list(tp.devices), dtype=object), ("model",), tp=tp)
+    """The mesh of every rank of ``tp``, which places each rank's shard on
+    its device: the 1-D ``"model"`` mesh of a ``TPGroup``; a grid's world
+    laid out as ``repro``'s mesh lays out its devices, ``("data",
+    "model")``, or ``("pod", "data", "model")`` with a ``"pod"`` axis."""
+    pod, data, model = tp.dims
+    devices = np.asarray(list(tp.world.devices), dtype=object)
+    if pod == data == 1:
+        return Mesh(devices, ("model",), tp=tp)
+    if pod == 1:
+        return Mesh(devices.reshape(data, model), ("data", "model"), tp=tp)
+    return Mesh(devices.reshape(pod, data, model), ("pod", "data", "model"), tp=tp)
 
 
 class NamedSharding:
@@ -293,20 +314,21 @@ def map_with_names(fn, tree, path: Tuple[str, ...] = ()):
 def param_specs(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
     """PartitionSpec tree matching a params tree (tensors, ``meta`` tensors,
     or anything with a ``shape``)."""
+    return map_with_names(lambda names, leaf: _leaf_spec(names, tuple(leaf.shape), cfg, mesh),
+                          params_shape)
+
+
+def _leaf_spec(names: Sequence[str], shape, cfg, mesh: AbstractMesh) -> PartitionSpec:
+    """``param_specs``' spec of the one leaf at ``names`` of ``shape``."""
     expert_parallel = cfg.n_experts > 0 and cfg.n_experts % _axis(mesh, "model") == 0
     expert_rules = _EXPERT_RULES_EP if expert_parallel else _EXPERT_RULES_TP
-
-    def spec(names, leaf):
-        key = names[-1]
-        shape = tuple(leaf.shape)
-        if "moe" in names and "shared" not in names and key in expert_rules:
-            return _fit(expert_rules[key], shape, mesh)
-        rule = _RULES.get(key)
-        if rule is None:
-            return P()
-        return _fit(rule, shape, mesh)
-
-    return map_with_names(spec, params_shape)
+    key = names[-1]
+    if "moe" in names and "shared" not in names and key in expert_rules:
+        return _fit(expert_rules[key], shape, mesh)
+    rule = _RULES.get(key)
+    if rule is None:
+        return P()
+    return _fit(rule, shape, mesh)
 
 
 def param_shardings(params_shape: Any, cfg, mesh: AbstractMesh) -> Any:
@@ -489,22 +511,48 @@ def _tp_global_dim(kind: str, cfg) -> int:
             "ssm_inner": cfg.d_inner}[kind]
 
 
-def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool = False,
-                rank: Optional[int] = None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Rank ``rank``'s (default: ``tp.rank``'s) share of the whole ``leaf``
-    at ``names`` of the global ``cfg`` (a cache leaf with ``cache``; see
-    :func:`tp_split`): its segments of the split axis side by side
-    (:func:`tp_segments`), as a tensor of its own so the whole leaf can be
-    freed; the leaf itself for a whole leaf, no group or a group of one.
-    ``dtype`` casts the share (the whole leaf under a whole leaf, no group
-    or a group of one), read from the leaf in place, so no whole copy at
-    ``dtype`` is made."""
-    size = 1 if tp is None else tp.size
+@functools.lru_cache(maxsize=64)
+def _data_axes(cfg, dims: Tuple[int, int, int]) -> Dict[Tuple[str, ...], Optional[int]]:
+    """{parameter path: the axis, from the end, that ``param_specs`` puts
+    ``"data"`` on over a mesh of ``dims`` (pod, data, model), or None}."""
+    from repro_torch.models.model import param_specs as model_param_specs
+    mesh = AbstractMesh(dims, ("pod", "data", "model"))
+    out = {}
+
+    def one(names, spec):
+        placed = _leaf_spec(names, spec.shape, cfg, mesh)
+        out[tuple(names)] = next((i - len(placed) for i, ax in enumerate(placed)
+                                  if ax == "data"), None)
+    map_with_names(one, model_param_specs(cfg))
+    return out
+
+
+def data_axis(names: Sequence[str], cfg, dims: Tuple[int, int, int]) -> Optional[int]:
+    """The axis, counted from the end (so a stacked leaf's layer keeps it),
+    that the ``"data"`` axis of a grid of ``dims`` (pod, data, model) cuts
+    on the leaf at ``names`` of the global ``cfg``, as ``repro``'s
+    ``param_specs`` places ``"data"`` on the whole leaf (``_fit`` leaves it
+    whole where the dimension does not divide); None for a leaf ``"data"``
+    replicates, and for no ``"data"`` axis. ``names`` is a parameter's path
+    or ends in one (an optimizer moment's, a checkpoint key's)."""
+    if dims[1] == 1:
+        return None
+    axes = _data_axes(cfg, tuple(dims))
+    for i in range(len(names)):
+        if tuple(names[i:]) in axes:
+            return axes[tuple(names[i:])]
+    return None
+
+
+def _model_shard(leaf: torch.Tensor, names: Sequence[str], cfg, size: int, rank: int,
+                 cache: bool = False, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rank ``rank``'s share of ``size`` of ``leaf`` on the ``"model"``
+    axis (see :func:`local_shard`)."""
     split = tp_split(names, cfg, size, cache) if size > 1 else None
     if split is None:
         return leaf if dtype is None else leaf.to(dtype)
     kind, axis = split
-    segments = tp_segments(kind, cfg, tp.rank if rank is None else rank, size)
+    segments = tp_segments(kind, cfg, rank, size)
     shape = list(leaf.shape)
     shape[axis] = sum(stop - start for start, stop in segments)
     out = torch.empty(shape, dtype=dtype or leaf.dtype, device=leaf.device)
@@ -515,11 +563,55 @@ def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool =
     return out
 
 
+def local_shard(leaf: torch.Tensor, names: Sequence[str], cfg, tp, cache: bool = False,
+                rank: Optional[int] = None, dtype: Optional[torch.dtype] = None,
+                data_rank: Optional[int] = None) -> torch.Tensor:
+    """Rank ``rank``'s (default: ``tp.rank``'s) share of the whole ``leaf``
+    at ``names`` of the global ``cfg`` (a cache leaf with ``cache``; see
+    :func:`tp_split`): its segments of the split axis side by side
+    (:func:`tp_segments`), as a tensor of its own so the whole leaf can be
+    freed; the leaf itself for a whole leaf, no group or a group of one.
+    ``dtype`` casts the share (the whole leaf under a whole leaf, no group
+    or a group of one), read from the leaf in place, so no whole copy at
+    ``dtype`` is made.
+
+    Under a grid (``data_parallel.Grid``) the ``"model"`` cut is followed by
+    the ``"data"`` cut of a parameter leaf: the ``data_rank``'s (default:
+    ``tp.data_rank``'s) even slice of :func:`data_axis` (a copy of its own
+    too). ``"pod"`` replicates every leaf."""
+    size = 1 if tp is None else tp.size
+    r = 0 if size == 1 else (tp.rank if rank is None else rank)
+    axis = None if cache or tp is None else data_axis(names, cfg, tp.dims)
+    if axis is None:
+        return _model_shard(leaf, names, cfg, size, r, cache, dtype)
+    # "data" never cuts the axis "model" splits: the data slice first, a view
+    n = leaf.shape[axis] // tp.data_size
+    piece = leaf.narrow(axis, (tp.data_rank if data_rank is None else data_rank) * n, n)
+    if size > 1 and tp_split(names, cfg, size) is not None:
+        return _model_shard(piece, names, cfg, size, r, dtype=dtype)   # a copy
+    return piece.to(dtype or leaf.dtype, memory_format=torch.contiguous_format, copy=True)
+
+
 def assemble_shards(parts: Sequence[torch.Tensor], names: Sequence[str], cfg,
-                    cache: bool = False) -> torch.Tensor:
+                    cache: bool = False, dims: Optional[Tuple[int, int, int]] = None
+                    ) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` of it, by rank
-    (``len(parts)`` ranks). A segment that several ranks hold (a replicated
-    KV head, or B/C group) is written once, from the first of them."""
+    (``len(parts)`` ranks of the ``"model"`` axis; under a grid of ``dims``
+    (pod, data, model) every rank's by world rank, of which pod 0's are
+    read): each data slice assembled over ``"model"``, then the slices side
+    by side on :func:`data_axis`. A segment that several ranks hold (a
+    replicated KV head, or B/C group) is written once, from the first of
+    them."""
+    pod, data, model = dims or (1, 1, len(parts))
+    if len(parts) != pod * data * model:
+        raise ValueError(f"{len(parts)} parts for a grid of {(pod, data, model)}")
+    axis = None if cache else data_axis(names, cfg, (pod, data, model))
+    slices = [_assemble_model(parts[d * model:(d + 1) * model], names, cfg, cache)
+              for d in range(data if axis is not None else 1)]
+    return slices[0] if len(slices) == 1 else torch.cat(slices, dim=axis)
+
+
+def _assemble_model(parts, names, cfg, cache: bool) -> torch.Tensor:
     size = len(parts)
     split = tp_split(names, cfg, size, cache) if size > 1 else None
     if split is None:
@@ -543,12 +635,60 @@ def gather_shards(local: torch.Tensor, names: Sequence[str], cfg, tp,
                   cache: bool = False) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` of it (a
     collective over ``tp``: every rank calls it and every rank gets the
-    whole leaf, :func:`assemble_shards` of the gathered parts); ``local``
-    itself for a whole leaf, no group or a group of one."""
+    whole leaf, :func:`assemble_shards` of the gathered parts; under a grid
+    over ``"model"``, then over ``"data"``); ``local`` itself for a whole
+    leaf, no group or a group of one."""
     size = 1 if tp is None else tp.size
-    if size == 1 or tp_split(names, cfg, size, cache) is None:
+    if size > 1 and tp_split(names, cfg, size, cache) is not None:
+        local = _assemble_model(all_gather(local, tp), names, cfg, cache)
+    axis = None if cache or tp is None else data_axis(names, cfg, tp.dims)
+    if axis is None:
         return local
-    return assemble_shards(all_gather(local, tp), names, cfg, cache)
+    return torch.cat(all_gather(local, tp.data), dim=axis)
+
+
+def gather_to_root(local: torch.Tensor, names: Sequence[str], cfg, tp,
+                   cache: bool = False) -> Optional[torch.Tensor]:
+    """The whole leaf, on the host of world rank 0 alone (None on every
+    other rank), from every rank's :func:`local_shard` of it: a checkpoint's
+    gather. Pod 0's ranks take part (every ``"pod"`` replica is the same):
+    the data slices go to data rank 0 of their ``"model"`` rank (a gather
+    over ``"data"``), then those to rank 0 (a gather over ``"model"``), who
+    assembles them (:func:`assemble_shards`). Over gloo a part moves to the
+    host before it is sent, since gloo carries a CUDA tensor through host
+    memory in any case; over NCCL it is sent from the card. For no group
+    or a group of one, ``local`` on the host."""
+    if tp is None or tp.world.size == 1:
+        return local.to("cpu")
+    if tp.pod_rank != 0:
+        return None
+    axis = None if cache else data_axis(names, cfg, tp.dims)
+    if axis is not None:
+        parts = _gather_root(local, tp.data)
+        if parts is None:
+            return None
+        local = torch.cat(parts, dim=axis)
+    elif tp.data_rank != 0:
+        return None
+    if tp.size > 1 and tp_split(names, cfg, tp.size, cache) is not None:
+        parts = _gather_root(local, tp)
+        if parts is None:
+            return None
+        local = _assemble_model(parts, names, cfg, cache)
+    elif tp.rank != 0:
+        return None
+    return local.to("cpu")
+
+
+def _gather_root(x: torch.Tensor, group) -> Optional[list]:
+    """Every rank's ``x`` by rank on the group's rank 0 (None elsewhere)."""
+    if group.backend != "nccl":
+        x = x.to("cpu")
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group.size)] if group.rank == 0 else None
+    _run(torch.distributed.gather, x, x, parts, dst=group.global_rank(0), group=group.group,
+         axis=group.axis)
+    return parts
 
 
 def shared_segments(names: Sequence[str], cfg, size: int, rank: int,
@@ -579,7 +719,9 @@ def sum_shared(local: torch.Tensor, names: Sequence[str], cfg, tp) -> torch.Tens
     (a collective over ``tp`` when the leaf has such a segment; every rank
     calls it): each rank's gradient of a copy is only its own heads' part.
     Segments one rank holds, and leaves without a shared segment, stay as
-    they are; ``local`` itself for no group or a group of one."""
+    they are; ``local`` itself for no group or a group of one. Under a grid
+    the sums run over the ``"model"`` group, whose ranks hold one data
+    slice (``"data"`` never cuts the axis ``"model"`` splits)."""
     size = 1 if tp is None else tp.size
     segs = shared_segments(names, cfg, size, 0 if tp is None else tp.rank)
     if segs is None or all(len(held) == 1 for r in range(size)
@@ -593,4 +735,4 @@ def sum_shared(local: torch.Tensor, names: Sequence[str], cfg, tp) -> torch.Tens
         whole.narrow(axis, start, n).copy_(local.narrow(axis, at, n))
     with torch.no_grad():
         whole = all_sum(whole, tp)
-    return local_shard(whole, names, cfg, tp)
+    return _model_shard(whole, names, cfg, size, tp.rank)

@@ -9,8 +9,11 @@ group after each row-parallel product and a gather of the vocabulary's
 columns after the head. This module is that plumbing:
 
 - :class:`TPGroup`: a process group, this rank, the group's size and this
-  rank's device, with the first ``n`` ranks as subgroups of their own (an
-  elastic gang is always the first ``n`` ranks of a fixed world);
+  rank's device, with any set of the world's ranks as a group of its own
+  (:meth:`TPGroup.group_of`: an elastic gang is the first ``n`` ranks of a
+  fixed world, a grid's ``"data"`` group a strided set of them); a
+  ``TPGroup`` is a grid of one ``"model"`` axis (``data_parallel.Grid``
+  adds the ``"data"`` and ``"pod"`` axes of training);
 - :func:`init_tp`, :func:`spawn_tp`: start the ranks (``spawn``, a
   ``file://`` store) and join them;
 - :func:`backend_for`: ``"nccl"`` when every rank has a card of its own,
@@ -37,7 +40,9 @@ holds alike enters work split over the ranks, so the gradient that flows
 back is the sum of every rank's part. :func:`gather_last`'s backward is
 the rank's slice. Serving calls the same functions with grad mode off:
 they make the same one collective each and give the same bits. A backward
-collective counts in ``STATS`` too, and in ``STATS["backward_*"]`` apart.
+collective counts in ``STATS`` too, and in ``STATS["backward_*"]`` apart;
+each is counted again under its group's axis (``STATS["data_bytes"]``,
+``STATS["backward_model_calls"]``, ...).
 
 The default process group is always gloo: it carries the small control
 messages (the replica's commands, each rank's device). The data group is
@@ -59,16 +64,21 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-# where ROADMAP.md queues what the port does not run yet: the "data" axis
-# (FSDP) of a mesh a group covers, and NCCL with more than one rank
-ROADMAP_DATA_AXIS = 'ROADMAP.md, section 1, item 2 (the "data" axis)'
+# where ROADMAP.md queues what the port does not run yet: NCCL with more
+# than one rank
 ROADMAP_NCCL = "ROADMAP.md, section 1, item 3"
 
+# the axes a group's collectives count under: a grid's "model", "data" and
+# "pod" groups, "batch" for its (pod, data) plane (the loss's and the MoE
+# statistics' sums) and "world" for all of its ranks
+AXES = ("model", "data", "pod", "batch", "world")
 # what the collectives moved since the last reset_stats(): calls, bytes this
 # rank sent into them, and their host seconds (see time_collectives); the
-# backward_ keys count again those that autograd's backward ran
-_ZERO = {"calls": 0, "bytes": 0, "seconds": 0.0,
-         "backward_calls": 0, "backward_bytes": 0, "backward_seconds": 0.0}
+# backward_ keys count again those that autograd's backward ran, and the
+# <axis>_ keys (backward_<axis>_) count each again under its group's axis
+_ZERO = {f"{pre}{axis}{what}": 0.0 if what == "seconds" else 0
+         for pre in ("", "backward_") for axis in ("",) + tuple(f"{a}_" for a in AXES)
+         for what in ("calls", "bytes", "seconds")}
 STATS: Dict[str, float] = dict(_ZERO)
 _SYNC = [False]
 
@@ -90,15 +100,43 @@ def time_collectives(on: bool) -> None:
 class TPGroup:
     """``group`` is the data process group (None for a group of one),
     ``rank`` this rank's place in it, ``devices`` every rank's device by
-    rank, ``backend`` the data group's backend."""
+    rank, ``backend`` the data group's backend, ``axis`` the axis its
+    collectives count under in ``STATS``, ``ranks`` its ranks' places in the
+    world by rank (empty: the world's first ``size`` ranks).
+
+    A ``TPGroup`` is also a grid of one ``"model"`` axis: its ``pod_size``
+    and ``data_size`` are 1, its ``data``, ``pod`` and ``batch`` groups
+    None and its ``world`` itself (``data_parallel.Grid`` is the grid of
+    all three axes)."""
     group: Any
     rank: int
     size: int
     device: torch.device
     devices: tuple
     backend: str
-    _subgroups: Dict[int, Optional["TPGroup"]] = dataclasses.field(default_factory=dict,
+    _subgroups: Dict[Any, Optional["TPGroup"]] = dataclasses.field(default_factory=dict,
                                                                    repr=False)
+    axis: str = "model"
+    ranks: Tuple[int, ...] = ()
+
+    pod_size = data_size = 1
+    pod_rank = data_rank = 0
+    data = pod = batch = None
+
+    @property
+    def world(self) -> "TPGroup":
+        """Every rank of the grid: for a group of the ``"model"`` axis alone,
+        itself."""
+        return self
+
+    @property
+    def dims(self) -> Tuple[int, int, int]:
+        """The grid's sizes (pod, data, model)."""
+        return self.pod_size, self.data_size, self.size
+
+    def global_rank(self, rank: int) -> int:
+        """The world rank of this group's rank ``rank``."""
+        return self.ranks[rank] if self.ranks else rank
 
     def subgroup(self, n: int) -> Optional["TPGroup"]:
         """The first ``n`` ranks as a group of their own, or None on a rank
@@ -109,13 +147,31 @@ class TPGroup:
             raise ValueError(f"a subgroup of {n} ranks of a group of {self.size}")
         if n == self.size:
             return self
-        if n not in self._subgroups:
+        return self.group_of(range(n))
+
+    def group_of(self, ranks: Sequence[int], axis: str = "model") -> Optional["TPGroup"]:
+        """The ranks ``ranks`` of this group (the world: a group whose ranks
+        are the world's first ``size``) as a group of their own, by their
+        order in ``ranks``, or None on a rank outside it; its collectives
+        count under ``axis``. Every rank of this group calls it with the
+        same ranks in the same order (``new_group`` is collective, members
+        or not); each set is made once."""
+        ranks = tuple(int(r) for r in ranks)
+        if self.ranks and self.ranks != tuple(range(self.size)):
+            raise ValueError("group_of makes groups of the world's ranks: call it on the world")
+        if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < self.size
+                                                                 for r in ranks):
+            raise ValueError(f"ranks {ranks} of a group of {self.size}")
+        key = (ranks, axis)
+        if key not in self._subgroups:
             group = None
-            if n > 1:
-                group = dist.new_group(list(range(n)), backend=self.backend)
-            self._subgroups[n] = (TPGroup(group, self.rank, n, self.device, self.devices[:n],
-                                          self.backend) if self.rank < n else None)
-        return self._subgroups[n]
+            if len(ranks) > 1:
+                group = dist.new_group(list(ranks), backend=self.backend)
+            self._subgroups[key] = (
+                TPGroup(group, ranks.index(self.rank), len(ranks), self.device,
+                        tuple(self.devices[r] for r in ranks), self.backend, axis=axis,
+                        ranks=ranks) if self.rank in ranks else None)
+        return self._subgroups[key]
 
 
 def device_key(d: torch.device) -> tuple:
@@ -162,6 +218,12 @@ def init_tp(world_size: int, rank: int, init_method: str,
 
 def tp_size(tp: Optional[TPGroup]) -> int:
     return 1 if tp is None else tp.size
+
+
+def dp_size(tp: Optional[TPGroup]) -> int:
+    """The ranks of a grid's ``(pod, data)`` plane: how many ways the batch
+    splits (1 for no group or a ``TPGroup``)."""
+    return 1 if tp is None else tp.pod_size * tp.data_size
 
 
 def tp_local(cfg: ModelConfig, tp: Optional[TPGroup]) -> ModelConfig:
@@ -285,7 +347,10 @@ def gang_ranks(cfg: ModelConfig, n_members: int, tp: TPGroup) -> int:
 
 
 # --- collectives ------------------------------------------------------------------------
-def _run(fn, t: torch.Tensor, *args, backward: bool = False, **kw) -> None:
+def _run(fn, t: torch.Tensor, *args, backward: bool = False, axis: str = "model",
+         **kw) -> None:
+    """``fn(*args, **kw)``, a collective of ``t``'s bytes over a group of
+    ``axis``, counted in ``STATS``."""
     sync = _SYNC[0] and t.is_cuda
     if sync:
         torch.cuda.synchronize(t.device)
@@ -295,15 +360,16 @@ def _run(fn, t: torch.Tensor, *args, backward: bool = False, **kw) -> None:
         torch.cuda.synchronize(t.device)
     took, moved = time.perf_counter() - t0, t.numel() * t.element_size()
     for pre in ("", "backward_") if backward else ("",):
-        STATS[pre + "seconds"] += took
-        STATS[pre + "calls"] += 1
-        STATS[pre + "bytes"] += moved
+        for key in (pre, f"{pre}{axis}_"):
+            STATS[key + "seconds"] += took
+            STATS[key + "calls"] += 1
+            STATS[key + "bytes"] += moved
 
 
 def _all_reduce(x: torch.Tensor, tp: TPGroup, op=dist.ReduceOp.SUM,
                 backward: bool = False) -> torch.Tensor:
     """``x`` (contiguous, written in place) reduced over the group."""
-    _run(dist.all_reduce, x, x, op=op, group=tp.group, backward=backward)
+    _run(dist.all_reduce, x, x, op=op, group=tp.group, backward=backward, axis=tp.axis)
     return x
 
 
@@ -417,7 +483,7 @@ def all_gather(x: torch.Tensor, tp: Optional[TPGroup]) -> List[torch.Tensor]:
         return [x]
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(tp.size)]
-    _run(dist.all_gather, x, parts, x, group=tp.group)
+    _run(dist.all_gather, x, parts, x, group=tp.group, axis=tp.axis)
     return parts
 
 
@@ -427,7 +493,7 @@ def broadcast_(x: torch.Tensor, tp: Optional[TPGroup], src: int = 0) -> torch.Te
     one."""
     if tp_size(tp) == 1:
         return x
-    _run(dist.broadcast, x, x, src=src, group=tp.group)
+    _run(dist.broadcast, x, x, src=tp.global_rank(src), group=tp.group, axis=tp.axis)
     return x
 
 

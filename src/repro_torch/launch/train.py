@@ -5,13 +5,15 @@ checkpoint/restart — the port of ``repro.launch.train``.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 12    # card, full width
 
-Under a tensor-parallel group (``train(tc, tp=group)``, every rank of a
-``torch.distributed`` group calling it; see
-``distributed.tensor_parallel.spawn_tp``) each rank draws only its shards
-(``init_params(..., tp=)``), reads the whole batch from its own pipeline,
-runs the split train step, checkpoints the whole arrays with the group
-(rank 0 writes) and resumes onto the group's mesh through
-``distributed.elastic.reshard_restore``; rank 0 logs.
+Under a tensor-parallel group or a grid (``train(tc, tp=group)``, every
+rank of a ``torch.distributed`` group calling it; see
+``distributed.tensor_parallel.spawn_tp`` and
+``distributed.data_parallel.make_grid``) each rank draws only its shards
+(``init_params(..., tp=)``), reads the whole batch from its own pipeline
+(the train step takes the rank's rows of it under a grid), runs the split
+train step, checkpoints the whole arrays with the group (rank 0 writes)
+and resumes onto the group's mesh (``sharding.group_mesh``: the grid's
+shape) through ``distributed.elastic.reshard_restore``; rank 0 logs.
 
 Fault tolerance: checkpoints every ``ckpt_every`` steps (async), resumes
 from the latest committed step, and, because the data pipeline is
@@ -72,7 +74,7 @@ def train(tc: TrainConfig, device: DeviceLike = None, tp=None):
     opt_state = init_opt_state(params)
     start_step = 0
     pipe = DataPipeline(cfg, tc.global_batch, tc.seq_len, seed=tc.seed)
-    lead = tp is None or tp.rank == 0
+    lead = tp is None or tp.world.rank == 0
     if tc.ckpt_dir:
         latest = ckpt.latest_step(tc.ckpt_dir)
         if latest is not None:

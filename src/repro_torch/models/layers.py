@@ -176,9 +176,11 @@ def logits_from_hidden(head_w: torch.Tensor, hidden: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
-                  tp=None) -> torch.Tensor:
+                  tp=None, count: Optional[int] = None) -> torch.Tensor:
     """The mean negative log-likelihood of ``labels`` (B,S) under
-    ``logits`` (B,S,V) fp32. With no group (or a group of one) ``logits``
+    ``logits`` (B,S,V) fp32; with ``count`` the sum over ``count`` instead
+    (a grid's rank: its labels' share of the global batch's mean, whose
+    count it passes). With no group (or a group of one) ``logits``
     is the whole masked vocabulary and this is ``repro``'s CE: a
     ``log_softmax``, then the labels' entries by a gather or, under
     ``shard_activations``, by ``repro``'s partition-friendly masked
@@ -196,7 +198,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     rank's logits is its columns of ``softmax - onehot``."""
     if tp_size(tp) == 1:
         logp = torch.log_softmax(logits, dim=-1)
-        return -_pick(logp, labels, cfg).mean()
+        return _mean(-_pick(logp, labels, cfg), count)
     width = logits.shape[-1]
     first = tp.rank * width
     cols = first + torch.arange(width, device=logits.device)
@@ -209,7 +211,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     picked = torch.where(inside, _pick(logits, local.clamp(0, width - 1), cfg),
                          torch.zeros((), dtype=logits.dtype, device=logits.device))
     label_logit = all_sum(picked, tp)
-    return (torch.log(sum_exp) + m[..., 0] - label_logit).mean()
+    return _mean(torch.log(sum_exp) + m[..., 0] - label_logit, count)
+
+
+def _mean(x: torch.Tensor, count: Optional[int]) -> torch.Tensor:
+    return x.mean() if count is None else x.sum() / count
 
 
 def _pick(x: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

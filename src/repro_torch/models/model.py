@@ -19,17 +19,28 @@ cache, runs the same call, and gets the whole logits; ``loss_fn`` takes
 its cross-entropy from the rank's vocabulary columns
 (``layers.cross_entropy``), and a backward through it gives each rank the
 gradient of its shard (``training.train_step``).
+
+``forward`` and ``loss_fn`` also take a grid (``distributed.data_parallel``)
+as ``tp``: each rank passes its 2-D shards and its rows of the global batch
+(``data_parallel.batch_rows``); the leaves are gathered over ``"data"`` where
+they are used (a stacked leaf a layer at a time, inside its remat unit), the
+logits are the rank's rows', and the loss and its statistics are the
+global batch's on every rank (each rank's cross-entropy its rows' sum over
+the global count, summed over ``(pod, data)``; the MoE load-balance
+statistics and capacity over the global batch's tokens). Serving
+(``prefill``, the decodes) runs on the ``"model"`` axis alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.tensor_parallel import ssm_local, tp_local, tp_size
+from repro_torch.distributed.tensor_parallel import all_sum, dp_size, ssm_local, tp_local, tp_size
 from repro_torch.models import transformer
 from repro_torch.models.attention import init_kv_cache_shape, paged_gqa_decode
 from repro_torch.models.layers import (cross_entropy, embed_tokens, local_logits,
@@ -303,12 +314,27 @@ def _embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
+def _gathered(params, cfg: ModelConfig, tp=None):
+    """``params`` with the leaves outside the stack made whole on a grid's
+    ``"data"`` axis (the stack's go a layer at a time, :func:`_hidden`);
+    ``params`` itself without one."""
+    if tp is None or tp.data_size == 1:
+        return params
+    from repro_torch.distributed.data_parallel import gather_tree
+    return {k: v if k == "stack" else gather_tree(v, (k,), cfg, tp) for k, v in params.items()}
+
+
 def _hidden(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     """(the final norm's output on the positions that get logits, aux): the
-    text positions only under the vision frontend."""
+    text positions only under the vision frontend. ``params`` are
+    :func:`_gathered`'s."""
     local = tp_local(cfg, tp)   # raises first for a config that does not split
+    gather = None
+    if tp is not None and tp.data_size > 1:
+        from repro_torch.distributed.data_parallel import gather_tree
+        gather = functools.partial(gather_tree, cfg=cfg, grid=tp)
     x, positions = _embed_inputs(params, batch, cfg, tp)
-    x, h, aux = transformer.stack_forward(params["stack"], x, positions, local, tp)
+    x, h, aux = transformer.stack_forward(params["stack"], x, positions, local, tp, gather)
     _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
     if cfg.frontend == "vision":
         x = x[:, batch["vision_embeds"].shape[1]:]
@@ -319,7 +345,9 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     """Full-sequence forward -> (logits (B,S,Vpad) fp32, aux), the logits
     on the text positions only under the vision frontend; ``aux["lb_loss"]``
     is the MoE load-balance loss summed over layers. Under ``tp`` the
-    whole logits, gathered as ``prefill`` gathers them, on every rank."""
+    whole logits, gathered as ``prefill`` gathers them, on every rank (of
+    the rank's rows under a grid)."""
+    params = _gathered(params, cfg, tp)
     x, aux = _hidden(params, batch, cfg, tp)
     return logits_from_hidden(_head_weight(params, cfg), x, cfg, tp), aux
 
@@ -329,24 +357,40 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, lb_coef: float = 0.
     ``lb_coef`` times the MoE load-balance loss. Returns (loss, metrics
     {"ce", "lb_loss", "loss"}). Under ``tp`` the cross-entropy comes from
     each rank's vocabulary columns, never gathered
-    (``layers.cross_entropy``); every rank returns the same values."""
+    (``layers.cross_entropy``); every rank returns the same values. Under a
+    grid ``batch`` is the rank's rows and every value is the global
+    batch's: the rank's cross-entropy is its labels' sum over the global
+    count, and the sum of those over ``(pod, data)`` (``all_sum``, whose
+    backward is the identity, so each rank back-propagates its own
+    tokens' share)."""
     labels = batch["labels"]
+    params = _gathered(params, cfg, tp)
+    x, aux = _hidden(params, batch, cfg, tp)
     if tp_size(tp) == 1:
-        logits, aux = forward(params, batch, cfg)
+        logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
     else:
-        x, aux = _hidden(params, batch, cfg, tp)
         logits = local_logits(_head_weight(params, cfg), x, tp)
     if cfg.is_autoregressive:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
-    ce = cross_entropy(logits, labels, cfg, tp)
+    n_dp = dp_size(tp)
+    ce = cross_entropy(logits, labels, cfg, tp, None if n_dp == 1 else labels.numel() * n_dp)
+    if n_dp > 1:
+        ce = all_sum(ce, tp.batch)
     total = ce + lb_coef * aux["lb_loss"]
     return total, {"ce": ce, "lb_loss": aux["lb_loss"], "loss": total}
+
+
+def _model_axis_only(tp, what: str) -> None:
+    if dp_size(tp) > 1:
+        raise ValueError(f"{what} runs on a group's \"model\" axis alone, not on a grid with "
+                         f"(pod, data) {tp.dims[:2]}: serve from a TPGroup")
 
 
 def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     """Forward + cache. Returns (last-position logits (B,Vpad) fp32, cache);
     under ``tp`` the rank's cache shard and the whole logits."""
+    _model_axis_only(tp, "prefill")
     local = tp_local(cfg, tp)   # raises first for an architecture tp does not cover
     x, positions = _embed_inputs(params, batch, cfg, tp)
     x, h, cache = transformer.stack_prefill(params["stack"], x, positions, local, tp)
@@ -358,6 +402,7 @@ def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
 def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
     """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
     Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
+    _model_axis_only(tp, "decode_step")
     local = tp_local(cfg, tp)
     x = embed_tokens(params["embed"], token, cfg, tp)
     x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, local, tp)

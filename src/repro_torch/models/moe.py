@@ -24,6 +24,12 @@ groups; under in-expert parallelism its ``moe_d_ff`` columns of every
 expert. The shared experts are column- and row-parallel. Each rank adds
 its routed and shared partials, and one float32 sum over the group per
 MoE block gives the output, as after a row-parallel product.
+
+Under a grid (``distributed.data_parallel``) a rank routes only its rows
+of the global batch: the load-balance statistics and the capacity
+dispatch count the whole batch's tokens through the grid's ``(pod,
+data)`` group (:func:`route`, :func:`_capacity_place`), so the same picks
+drop as on one device.
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, kernel_impl
-from repro_torch.distributed.tensor_parallel import (all_sum, copy_in, expert_span, partial_f32,
-                                                      tp_size)
+from repro_torch.distributed.tensor_parallel import (all_gather, all_sum, copy_in, expert_span,
+                                                      partial_f32, tp_size)
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -42,11 +48,16 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig, dp=None):
     """Returns (weights (T,k), expert_idx (T,k), aux) for flattened tokens.
 
     Top-k by a stable descending sort, so equal probabilities pick the lower
-    expert first, as ``jax.lax.top_k`` does."""
+    expert first, as ``jax.lax.top_k`` does. ``dp``: a grid's ``(pod,
+    data)`` group (``Grid.batch``), whose ranks hold the other tokens of
+    the global batch: the load-balance statistics ``f_e`` and ``p_e`` are
+    means over all of them, the ranks' sums summed by ``all_sum`` (whose
+    backward is the identity: each rank back-propagates its own tokens'
+    share, and the gradients' reduce-scatter adds the shares once)."""
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -54,8 +65,12 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     e = cfg.n_experts
-    f_e = _one_hot(idx[:, 0], e, torch.float32).mean(dim=0)  # top-1 assignment fraction
-    p_e = probs.mean(dim=0)
+    assign = _one_hot(idx[:, 0], e, torch.float32)   # top-1 assignment fraction
+    if tp_size(dp) == 1:
+        f_e, p_e = assign.mean(dim=0), probs.mean(dim=0)
+    else:
+        f_e, p_e = all_sum(torch.stack([assign.sum(dim=0), probs.sum(dim=0)]),
+                           dp).div(x.shape[0] * dp.size).unbind(0)
     aux = {"lb_loss": e * (f_e * p_e).sum(), "router_probs_mean": p_e}
     return weights, idx, aux
 
@@ -101,16 +116,37 @@ def _capacity(t: int, cfg: ModelConfig) -> int:
     return max(8, min(t, (cap + 7) // 8 * 8))
 
 
-def _capacity_dispatch(x, idx, cfg: ModelConfig, cap: int):
+def _capacity_place(idx, cfg: ModelConfig, dp=None):
+    """(cap, offset): the capacity from the token count, and where this
+    rank's picks start within each expert (None: at 0). Under a grid's
+    ``(pod, data)`` group ``dp`` the count is the global batch's, and a
+    rank's picks follow those of the lower ranks of ``dp``, whose rows come
+    first in ``repro``'s one batch-major order: the offset is their
+    per-expert counts (an all-gather of an ``E``-long vector), so the same
+    picks drop as on one device."""
+    t = idx.shape[0]
+    if tp_size(dp) == 1:
+        return _capacity(t, cfg), None
+    counts = _one_hot(idx.reshape(-1), cfg.n_experts, torch.int32).sum(dim=0, dtype=torch.int32)
+    lower = all_gather(counts, dp)[:dp.rank]
+    offset = torch.stack(lower).sum(dim=0, dtype=torch.int32) if lower else torch.zeros_like(counts)
+    return _capacity(t * dp.size, cfg), offset
+
+
+def _capacity_dispatch(x, idx, cfg: ModelConfig, cap: int, offset=None):
     """``repro``'s capacity bookkeeping: each (token, pick) takes the next
-    row of its expert in (T*k) order; picks past ``cap`` go to the dump row
-    ``e*cap``. Returns (buf (E, cap, D), slot (T*k,), keep (T*k,))."""
+    row of its expert in (T*k) order, after ``offset[e]`` rows (the picks
+    of a grid's lower ranks, :func:`_capacity_place`); picks past ``cap``
+    go to the dump row ``e*cap``. Returns (buf (E, cap, D), slot (T*k,),
+    keep (T*k,))."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     flat_e = idx.reshape(-1)                          # (T*k,) assignment -> expert
     onehot = _one_hot(flat_e, e, torch.int32)
     pos = torch.cumsum(onehot, dim=0) - onehot        # position within expert
     pos = (pos * onehot).sum(dim=-1)                  # (T*k,)
+    if offset is not None:
+        pos = pos + offset[flat_e]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, torch.full_like(flat_e, e * cap))
     x_rep = x.repeat_interleave(k, dim=0)             # (T*k, D)
@@ -152,10 +188,10 @@ def _expert_parallel(cfg: ModelConfig) -> bool:
     return m > 1 and cfg.n_experts % m == 0
 
 
-def _moe_scatter(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
+def _moe_scatter(p, x, weights, idx, cfg: ModelConfig, e0: int = 0, dp=None):
     t = x.shape[0]
-    cap = _capacity(t, cfg)
-    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    cap, offset = _capacity_place(idx, cfg, dp)
+    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap, offset)
     buf3 = buf3[e0:e0 + _local_experts(p)]   # this rank's slab (all of it on one device)
     # repro's dispatch-buffer constraints (its M1-M3 notes): under
     # moe_dispatch_constraints with expert parallelism the capacity buffer
@@ -223,14 +259,14 @@ def _moe_ragged(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
 
 
 # --- kernel twins -------------------------------------------------------------------
-def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
+def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig, e0: int = 0, dp=None):
     """Kernel twin of ``_moe_scatter``: the same capacity, slot and keep math
     (so the drop set matches token for token), with the (E, C, D) expert FFN
     (this rank's slab of it) computed by three ``moe_gmm`` launches."""
     from repro_torch.kernels.ops import moe_gmm_capacity
     t = x.shape[0]
-    cap = _capacity(t, cfg)
-    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap)
+    cap, offset = _capacity_place(idx, cfg, dp)
+    buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap, offset)
     buf3 = buf3[e0:e0 + _local_experts(p)]
     # one tile-map entry per expert: the kernel cuts its row tiles per run
     # of equal expert, so a finer map gives the same products and bits but
@@ -294,12 +330,12 @@ def _moe_gmm_dropless(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     return y_rep.reshape(t, k, d).sum(dim=1)
 
 
-def _moe_gmm_impl(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
+def _moe_gmm_impl(p, x, weights, idx, cfg: ModelConfig, e0: int = 0, dp=None):
     """Kernel-path dispatch: mirror the reference impl's drop semantics so
     temperature-0 tokens stay identical — capacity drops for ``scatter``,
     dropless for ``ragged``/``dense``."""
     if cfg.moe_impl == "scatter":
-        return _moe_gmm_capacity(p, x, weights, idx, cfg, e0)
+        return _moe_gmm_capacity(p, x, weights, idx, cfg, e0, dp)
     return _moe_gmm_dropless(p, x, weights, idx, cfg, e0)
 
 
@@ -317,22 +353,26 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, impl: Optional[str] = None,
     docstring)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    weights, idx, aux = route(p["router"], xt, cfg)
+    dp = None if tp is None else tp.batch
+    weights, idx, aux = route(p["router"], xt, cfg, dp)
     if impl is None and kernel_impl(cfg, "moe") == "kernel":
         impl = "gmm"
     name = impl or cfg.moe_impl
     if name not in _IMPLS:
         raise ValueError(f"apply_moe: unknown impl {name!r}; allowed impls: "
                          f"{tuple(sorted(_IMPLS))}")
+    # the capacity forms count the global batch's tokens under a grid
+    kw = {"dp": dp} if name in ("scatter", "gmm") and dp is not None else {}
     if tp_size(tp) == 1:
-        y = _IMPLS[name](p, xt, weights, idx, cfg)
+        y = _IMPLS[name](p, xt, weights, idx, cfg, **kw)
         if cfg.n_shared_experts:
             y = y + _shared_ffn(p["shared"], xt)
         return y.reshape(b, s, d), aux
     # the routing is whole on every rank; its tokens and combine weights
     # enter the rank's experts (and shared width) through the "copy"
     xs = copy_in(xt, tp)
-    y = _IMPLS[name](p, xs, copy_in(weights, tp), idx, cfg, expert_span(cfg, tp)[0]).float()
+    y = _IMPLS[name](p, xs, copy_in(weights, tp), idx, cfg, expert_span(cfg, tp)[0],
+                     **kw).float()
     if cfg.n_shared_experts:
         y = y + _shared_ffn(p["shared"], xs, f32=True)
     return all_sum(y, tp).to(x.dtype).reshape(b, s, d), aux

@@ -174,8 +174,12 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(cfg.remat)
 
 
+def _no_gather(tree, prefix):
+    return tree
+
+
 def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-                  tp=None):
+                  tp=None, gather=None):
     """Full-sequence forward, no cache. Returns (x, h, aux): the hidden
     state x + h as in :func:`stack_prefill`, and ``aux["lb_loss"]``, the
     MoE load-balance loss summed over the moe layers (0 without any; the
@@ -186,17 +190,24 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     mamba layers and the shared block). A unit maps (x, h) to (x, h, lb),
     so the residual delta carried to the next norm stays inside it. Under
     ``tp`` a unit's collectives sit inside it, so ``"full"`` repeats them
-    in the backward's recompute, every rank in the same order."""
-    def dense(lp, x, h):
-        return _dense_forward(lp, x, h, positions, cfg, tp)
+    in the backward's recompute, every rank in the same order.
 
-    def ssm(lp, x, h):
-        x, h, _, _ = _ssm_prefill(lp, x, h, cfg, tp)
+    ``gather(tree, path)`` (under a grid's ``"data"`` axis,
+    ``data_parallel.gather_tree``) makes a layer's shards whole on
+    ``"data"``, inside its unit, each mamba layer of a hybrid group on its
+    own; the hybrid's shared block once, before the groups."""
+    gather = gather or _no_gather
+
+    def dense(path, lp, x, h):
+        return _dense_forward(gather(lp, path), x, h, positions, cfg, tp)
+
+    def ssm(path, lp, x, h):
+        x, h, _, _ = _ssm_prefill(gather(lp, path), x, h, cfg, tp)
         return x, h, None
 
-    def group(gp, shared, x, h):
+    def group(path, gp, shared, x, h):
         for lp in _layers(gp, cfg.attn_every):
-            x, h, _, _ = _ssm_prefill(lp, x, h, cfg, tp)
+            x, h, _, _ = _ssm_prefill(gather(lp, path), x, h, cfg, tp)
         return _dense_forward(shared, x, h, positions, cfg, tp)
 
     h = None
@@ -204,15 +215,17 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     for seg in segments_for(cfg):
         p = params[seg.name]
         if seg.kind in ("dense", "moe", "ssm"):
-            unit = _remat(ssm if seg.kind == "ssm" else dense, cfg)
+            unit = _remat(functools.partial(ssm if seg.kind == "ssm" else dense,
+                                            ("stack", seg.name)), cfg)
             for lp in _layers(p, seg.n):
                 x, h, lb = unit(lp, x, h)
                 if lb is not None:
                     lbs.append(lb)
         else:  # hybrid_group
-            unit = _remat(group, cfg)
+            unit = _remat(functools.partial(group, ("stack", seg.name, "mamba")), cfg)
+            shared = gather(p["shared"], ("stack", seg.name, "shared"))
             for gp in _layers(p["mamba"], seg.n):
-                x, h, _ = unit(gp, p["shared"], x, h)
+                x, h, _ = unit(gp, shared, x, h)
     lb = (torch.stack(lbs).sum() if lbs
           else torch.zeros((), dtype=torch.float32, device=x.device))
     return x, h, {"lb_loss": lb}

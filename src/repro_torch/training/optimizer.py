@@ -76,19 +76,29 @@ def global_norm(tree, tp=None, cfg=None) -> torch.Tensor:
     whole is counted once (rank 0's), and so is a segment several ranks
     hold (a replicated KV head, a shared Mamba2 B/C group: the lowest
     holder's), whose gradient every holder holds whole once
-    ``sharding.sum_shared`` has summed it."""
-    if tp is None or tp.size == 1:
+    ``sharding.sum_shared`` has summed it.
+
+    Under a grid (``distributed.data_parallel.Grid``) each element is
+    counted once too: a piece ``"data"`` cuts by its owner, a leaf
+    ``"data"`` replicates by data rank 0, and a ``"pod"`` replica by pod
+    rank 0, each by the ``"model"`` rule above; one float32 sum over every
+    rank adds the parts up."""
+    if tp is None or tp.world.size == 1:
         total = 0.0
         for g in tree_leaves(tree):
             total = total + g.float().square().sum()
         return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
-    from repro_torch.distributed.sharding import shared_segments
+    from repro_torch.distributed.sharding import data_axis, shared_segments
     from repro_torch.distributed.tensor_parallel import all_sum
     parts = []
     for names, g in _named_leaves(tree):
         segs = shared_segments(names, cfg, tp.size, tp.rank)
         g = g.float()
-        if segs is None:
+        replica = tp.pod_rank != 0 or (tp.data_rank != 0
+                                       and data_axis(names, cfg, tp.dims) is None)
+        if replica:
+            part = g.new_zeros(())
+        elif segs is None:
             part = g.square().sum() if tp.rank == 0 else g.new_zeros(())
         else:
             axis, mine = segs
@@ -98,7 +108,7 @@ def global_norm(tree, tp=None, cfg=None) -> torch.Tensor:
                     part = part + g.narrow(axis, at, n).square().sum()
         parts.append(part)
     with torch.no_grad():
-        sums = all_sum(torch.stack(parts), tp)
+        sums = all_sum(torch.stack(parts), tp.world)
     total = 0.0
     for part in sums:
         total = total + part

@@ -15,6 +15,14 @@ group, its collectives carry the backward (``tensor_parallel``'s "copy" and
 "reduce"), a segment several ranks hold gets its gradient summed over
 exactly those ranks (``sharding.sum_shared``), and the update clips by the
 whole tree's norm (``optimizer.global_norm`` under the group).
+
+Under a grid (``distributed.data_parallel.Grid``: the ``"data"`` and
+``"pod"`` axes too) every rank passes its 2-D shards, their optimizer state
+(ZeRO: the moments cut as the parameters) and the whole global batch, of
+which it takes its rows (``data_parallel.batch_rows``); the backward
+reduce-scatters the gradient of every leaf ``"data"`` cuts
+(``data_parallel.gather_data``), and ``data_parallel.reduce_grads`` sums the
+others over ``"data"`` and every gradient over ``"pod"``.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.data_parallel import batch_rows, reduce_grads
 from repro_torch.distributed.sharding import map_with_names, sum_shared
 from repro_torch.distributed.tensor_parallel import tp_local, tp_size
 from repro_torch.models.model import loss_fn, tree_leaves, tree_map
@@ -65,6 +74,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, n_microbatches: 
     hold is summed over them once the microbatches are accumulated, and
     every rank clips by the whole tree's norm, so the shards step as the
     one-device tree's would and the metrics are the same on every rank.
+    Under a grid each rank runs its rows of each microbatch (``repro``'s
+    microbatch ``i`` is global rows ``[i B / n, (i + 1) B / n)``, split
+    over ``(pod, data)``), and the metrics are the global batch's.
 
     Raises ``ValueError`` here when ``cfg.kernel_impls`` names a kernel: the
     kernels have no backward. ``repro`` builds the step and fails at its
@@ -81,16 +93,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, n_microbatches: 
 
     def train_step(params, opt_state, batch) -> Tuple[Any, Any, Dict]:
         if n_microbatches == 1:
-            loss, metrics, grads = _grads_of(params, batch, cfg, tp)
+            loss, metrics, grads = _grads_of(params, batch_rows(batch, tp), cfg, tp)
         else:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % n_microbatches:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"{n_microbatches} microbatches")
-            size = rows // n_microbatches
             grads, loss = None, 0.0
             for i in range(n_microbatches):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb = batch_rows(batch, tp, n_microbatches, i)
                 mb_loss, metrics, mb_grads = _grads_of(params, mb, cfg, tp)
                 if grads is None:  # 0 + g is g: start from the first microbatch's
                     grads = tree_map(lambda g: g.to(torch.float32).contiguous(), mb_grads)
@@ -101,8 +108,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, n_microbatches: 
             tree_map(lambda g: g.div_(n_microbatches), grads)
             loss = loss / n_microbatches
         gnorm = None
+        grads = reduce_grads(grads, cfg, tp)
         if tp_size(tp) > 1:
             grads = map_with_names(lambda names, g: sum_shared(g, names, cfg, tp), grads)
+        if tp is not None and tp.world.size > 1:
             gnorm = global_norm(grads, tp, cfg)
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg, gnorm)
         return params, opt_state, dict(metrics, **opt_metrics, loss=loss)

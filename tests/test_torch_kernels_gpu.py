@@ -1174,3 +1174,55 @@ def _at(tree, names):
     for k in names:
         tree = tree[k]
     return tree
+
+
+def _data_pair_rank(world):
+    """One of two gloo ranks as a grid of ``(data 2, model 1)``: the
+    ``"data"`` gather of a seeded shard and its backward's reduce-scatter
+    (``data_parallel.gather_data``), and ``reduce_scatter`` called alone, on
+    the rank's device; a backend that lacks the reduce-scatter for the
+    device raises, and the rank reports the error."""
+    from repro_torch.distributed.data_parallel import gather_data, make_grid, reduce_scatter
+
+    grid = make_grid(world, 2, 1)
+    gen = torch.Generator().manual_seed(7)
+    whole = torch.randn(3, 8, 5, generator=gen)
+    weights = torch.randn(2, 3, 8, 5, generator=gen)   # a rank's weight of the gathered leaf
+    dev = world.device
+    x = whole[:, 4 * grid.data_rank:4 * grid.data_rank + 4].to(dev).requires_grad_()
+    out = {"gathered": None, "grad": None, "reduce_scatter": None, "error": None}
+    try:
+        y = gather_data(x, -2, grid)
+        out["gathered"] = y.detach().cpu()
+        (y * weights[grid.data_rank].to(dev)).sum().backward()
+        out["grad"] = x.grad.cpu()
+        out["reduce_scatter"] = reduce_scatter(weights[grid.data_rank].to(dev), -2,
+                                               grid.data).cpu()
+    except RuntimeError as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def test_data_axis_gather_and_reduce_scatter_on_the_card_equal_the_cpu(cuda):
+    """The ``"data"`` axis's pair over two gloo ranks of the card gives the
+    CPU's bits: the forward the whole leaf, the backward each rank's slice
+    of the summed gradient. The reduce-scatter of CUDA tensors under gloo
+    either runs, with the CPU's result, or raises by the designed path (the
+    backend's error, never a quiet other result)."""
+    from repro_torch.distributed.tensor_parallel import spawn_tp
+
+    card = spawn_tp(_data_pair_rank, 2, device="cuda:0", timeout=300)
+    host = spawn_tp(_data_pair_rank, 2, device="cpu", timeout=300)
+    gen = torch.Generator().manual_seed(7)
+    whole = torch.randn(3, 8, 5, generator=gen)
+    summed = torch.randn(2, 3, 8, 5, generator=gen).sum(0)
+    for rank, (c, h) in enumerate(zip(card, host)):
+        assert h["error"] is None, h["error"]
+        want = summed[:, 4 * rank:4 * rank + 4]
+        assert torch.equal(h["gathered"], whole) and torch.equal(h["grad"], want)
+        assert torch.equal(h["reduce_scatter"], want)
+        if c["error"] is not None:   # the designed path: the backend's own error
+            assert c["reduce_scatter"] is None and "gloo" in c["error"].lower(), c["error"]
+            continue
+        assert torch.equal(c["gathered"], whole)
+        assert torch.equal(c["grad"], h["grad"]) and torch.equal(c["reduce_scatter"], want)

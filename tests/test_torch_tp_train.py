@@ -31,6 +31,8 @@ module while ``repro``'s references are computed here.
   2, a resume from step 2 equal to the unbroken run bit for bit, and the
   losses the one-device loop's within the bf16 tolerance (the smoke
   config computes in bf16).
+- The four ranks as a grid of ``(data 2, model 2)``: its mesh places each
+  rank's 2-D shard (``tests/test_torch_dp_train.py`` trains on it).
 """
 import dataclasses
 import os
@@ -175,12 +177,18 @@ _RANKS = textwrap.dedent('''
             out["remat"] = {"metrics": m, "params": host(p)}
             p, _, m = steps(tp, d["resume"], d, 2, n_mb=2, key="big")
             out["microbatches"] = {"metrics": m, "params": host(p)}
-            from repro_torch.distributed.sharding import Mesh, mesh_device
-            try:
-                mesh_device(Mesh(np.asarray(tp.devices, dtype=object).reshape(2, 1),
-                                 ("data", "model"), tp=tp))
-            except NotImplementedError as e:
-                out["data_axis"] = str(e)
+        else:
+            # a grid's (data 2, model 2) mesh places each rank's 2-D shard
+            from repro_torch.distributed.data_parallel import make_grid
+            from repro_torch.distributed.elastic import reshard_in_place
+            from repro_torch.distributed.sharding import mesh_device
+            grid = make_grid(tp, 2, 2)
+            mesh = group_mesh(grid)
+            cfg = config(d["resume"])
+            whole = params_from_numpy(d["archs"][d["resume"]]["params"], cfg, "cpu")
+            out["data_axis"] = {"axes": mesh.axis_names, "sizes": mesh.axis_sizes,
+                                "device": str(mesh_device(mesh)),
+                                "params": host(reshard_in_place(whole, cfg, mesh))}
         return out
 
 
@@ -486,8 +494,28 @@ def test_microbatches_under_a_group_match_repro(setup, runs):
     assert sum(excepted.values()) <= 1, excepted
 
 
-def test_a_groups_mesh_with_a_data_axis_raises(runs):
-    """The ``"data"`` axis (FSDP) is not ported: a mesh that a group covers
-    with a ``"data"`` axis raises, naming ROADMAP's item."""
-    for r in runs[2]:
-        assert "data" in r["data_axis"] and "ROADMAP.md, section 1, item 2" in r["data_axis"]
+def test_a_grids_mesh_gives_each_rank_its_2d_shard(setup, runs):
+    """A grid's ``(data 2, model 2)`` mesh (``group_mesh`` of
+    ``data_parallel.make_grid`` over the 4 ranks) places on each rank's
+    device its 2-D ``local_shard`` of every leaf (the ``"model"`` cut, then
+    the ``"data"`` cut); a mesh over several distinct devices that no group
+    covers still raises."""
+    from repro_torch.distributed.data_parallel import grid_layout
+    from repro_torch.distributed.sharding import mesh_device
+
+    tc = setup[RESUME]["tc"]
+    whole = _leaves(setup[RESUME]["jp"])
+    cut_on_data = 0
+    for rank, r in enumerate(runs[4]):
+        got = r["data_axis"]
+        assert got["axes"] == ("data", "model") and got["sizes"] == (2, 2)
+        assert got["device"] == "cpu"
+        grid = grid_layout(1, 2, 2, rank)
+        for path, w in _leaves(got["params"]).items():
+            names = path.strip("/").split("/")
+            want = local_shard(torch.as_tensor(np.array(whole[path])), names, tc, grid).numpy()
+            np.testing.assert_array_equal(w, want, err_msg=path)
+            cut_on_data += w.size * 4 == np.size(whole[path])
+    assert cut_on_data > 0
+    with pytest.raises(NotImplementedError, match="item 3"):
+        mesh_device(Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("model",)))
