@@ -38,6 +38,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.tensor_parallel import all_sum, dp_size, ssm_local, tp_local, tp_size
@@ -402,13 +403,14 @@ def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
 def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
     """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
     Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
-    _model_axis_only(tp, "decode_step")
-    local = tp_local(cfg, tp)
-    x = embed_tokens(params["embed"], token, cfg, tp)
-    x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, local, tp)
-    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
-    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg, tp)
-    return logits[:, 0], cache
+    with spans.span("model.decode_step"):
+        _model_axis_only(tp, "decode_step")
+        local = tp_local(cfg, tp)
+        x = embed_tokens(params["embed"], token, cfg, tp)
+        x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, local, tp)
+        _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
+        logits = logits_from_hidden(_head_weight(params, cfg), x, cfg, tp)
+        return logits[:, 0], cache
 
 
 def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
@@ -424,24 +426,25 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
     the pools updated in place. The index tensors cross to the device once
     per step, before the layer loop, and nothing in the loop waits for the
     device."""
-    segs = transformer.segments_for(cfg)
-    if len(segs) != 1 or segs[0].kind != "dense":
-        raise ValueError(f"paged decode needs one dense segment; {cfg.arch_id} has "
-                         f"{[s.kind for s in segs]}")
-    dev = k_pools.device
-    tables = torch.as_tensor(tables, device=dev).to(torch.int32)
-    pos, bids, offs = (torch.as_tensor(t, device=dev).long() for t in (pos, bids, offs))
-    x = embed_tokens(params["embed"], token, cfg)
-    stack = params["stack"][segs[0].name]
-    h = None  # the residual stream is x + h, as in transformer.stack_decode
-    for i in range(segs[0].n):
-        lp = transformer._layer(stack, i)
-        x, h, *_ = transformer._dense_block(
-            lp, x, h, lambda y: paged_gqa_decode(lp["attn"], y, k_pools[i], v_pools[i], tables,
-                                                 pos, bids, offs, cfg), cfg)
-    _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
-    logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
-    return logits[:, 0], k_pools, v_pools
+    with spans.span("model.decode_step"):
+        segs = transformer.segments_for(cfg)
+        if len(segs) != 1 or segs[0].kind != "dense":
+            raise ValueError(f"paged decode needs one dense segment; {cfg.arch_id} has "
+                             f"{[s.kind for s in segs]}")
+        dev = k_pools.device
+        tables = torch.as_tensor(tables, device=dev).to(torch.int32)
+        pos, bids, offs = (torch.as_tensor(t, device=dev).long() for t in (pos, bids, offs))
+        x = embed_tokens(params["embed"], token, cfg)
+        stack = params["stack"][segs[0].name]
+        h = None  # the residual stream is x + h, as in transformer.stack_decode
+        for i in range(segs[0].n):
+            lp = transformer._layer(stack, i)
+            x, h, *_ = transformer._dense_block(
+                lp, x, h, lambda y: paged_gqa_decode(lp["attn"], y, k_pools[i], v_pools[i], tables,
+                                                     pos, bids, offs, cfg), cfg)
+        _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
+        logits = logits_from_hidden(_head_weight(params, cfg), x, cfg)
+        return logits[:, 0], k_pools, v_pools
 
 
 # --- cache construction ---------------------------------------------------------

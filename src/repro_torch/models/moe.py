@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig, kernel_impl
 from repro_torch.distributed.tensor_parallel import (all_gather, all_sum, copy_in, expert_span,
                                                       partial_f32, tp_size)
@@ -268,6 +269,7 @@ def _moe_gmm_capacity(p, x, weights, idx, cfg: ModelConfig, e0: int = 0, dp=None
     cap, offset = _capacity_place(idx, cfg, dp)
     buf3, slot, keep = _capacity_dispatch(x, idx, cfg, cap, offset)
     buf3 = buf3[e0:e0 + _local_experts(p)]
+    spans.count(rows=t * cfg.top_k, rows_launched=buf3.shape[0] * cap)
     # one tile-map entry per expert: the kernel cuts its row tiles per run
     # of equal expert, so a finer map gives the same products and bits but
     # more CTAs that walk the map (at block_t 8 under deepseek's forward,
@@ -295,6 +297,7 @@ def _moe_gmm_dropless(p, x, weights, idx, cfg: ModelConfig, e0: int = 0):
     bt = 128 if tk >= 128 else 8
     # static worst-case padded length (every group rounds up by < bt)
     t_pad = (tk + bt - 1) // bt * bt + e * bt
+    spans.count(rows=tk, rows_launched=t_pad)
     flat_e, order, inv, xs, group_sizes = _sort_by_expert(x, idx, cfg)
     sorted_e = flat_e[order]
     if e != cfg.n_experts:
@@ -351,28 +354,29 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, impl: Optional[str] = None,
     (``tensor_parallel.tp_local``, the global expert count) and ``x`` the
     same on every rank; every rank gets the whole ``y`` (see the module
     docstring)."""
-    b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    dp = None if tp is None else tp.batch
-    weights, idx, aux = route(p["router"], xt, cfg, dp)
-    if impl is None and kernel_impl(cfg, "moe") == "kernel":
-        impl = "gmm"
-    name = impl or cfg.moe_impl
-    if name not in _IMPLS:
-        raise ValueError(f"apply_moe: unknown impl {name!r}; allowed impls: "
-                         f"{tuple(sorted(_IMPLS))}")
-    # the capacity forms count the global batch's tokens under a grid
-    kw = {"dp": dp} if name in ("scatter", "gmm") and dp is not None else {}
-    if tp_size(tp) == 1:
-        y = _IMPLS[name](p, xt, weights, idx, cfg, **kw)
+    with spans.span("model.moe"):
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        dp = None if tp is None else tp.batch
+        weights, idx, aux = route(p["router"], xt, cfg, dp)
+        if impl is None and kernel_impl(cfg, "moe") == "kernel":
+            impl = "gmm"
+        name = impl or cfg.moe_impl
+        if name not in _IMPLS:
+            raise ValueError(f"apply_moe: unknown impl {name!r}; allowed impls: "
+                             f"{tuple(sorted(_IMPLS))}")
+        # the capacity forms count the global batch's tokens under a grid
+        kw = {"dp": dp} if name in ("scatter", "gmm") and dp is not None else {}
+        if tp_size(tp) == 1:
+            y = _IMPLS[name](p, xt, weights, idx, cfg, **kw)
+            if cfg.n_shared_experts:
+                y = y + _shared_ffn(p["shared"], xt)
+            return y.reshape(b, s, d), aux
+        # the routing is whole on every rank; its tokens and combine weights
+        # enter the rank's experts (and shared width) through the "copy"
+        xs = copy_in(xt, tp)
+        y = _IMPLS[name](p, xs, copy_in(weights, tp), idx, cfg, expert_span(cfg, tp)[0],
+                         **kw).float()
         if cfg.n_shared_experts:
-            y = y + _shared_ffn(p["shared"], xt)
-        return y.reshape(b, s, d), aux
-    # the routing is whole on every rank; its tokens and combine weights
-    # enter the rank's experts (and shared width) through the "copy"
-    xs = copy_in(xt, tp)
-    y = _IMPLS[name](p, xs, copy_in(weights, tp), idx, cfg, expert_span(cfg, tp)[0],
-                     **kw).float()
-    if cfg.n_shared_experts:
-        y = y + _shared_ffn(p["shared"], xs, f32=True)
-    return all_sum(y, tp).to(x.dtype).reshape(b, s, d), aux
+            y = y + _shared_ffn(p["shared"], xs, f32=True)
+        return all_sum(y, tp).to(x.dtype).reshape(b, s, d), aux

@@ -33,6 +33,7 @@ from typing import Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.tensor_parallel import broadcast_, tp_local, tp_size
@@ -216,31 +217,32 @@ class ContinuousEngine:
     def _admit(self, slot: int):
         req = self.batcher.slots[slot]
         while req is not None:
-            if req.remaining == 0:   # resumed partial that was already full
-                req.done = True
-                self.batcher.finished.append(req)
-                self.batcher.slots[slot] = None
-                self._reap()
-            else:
-                context = list(req.prompt) + list(req.generated)
-                if len(context) + req.remaining > self.max_seq:
-                    raise ValueError(
-                        f"request {req.id}: context {len(context)} + remaining "
-                        f"{req.remaining} > max_seq {self.max_seq}")
-                logits = self._context_into_slot(slot, req, context)
-                if logits is None:
-                    # mid-decode state restored (paged parked resume) or the
-                    # request requeued: no admission token from here
-                    return
-                tok = int(self._pick_row(logits)[0, 0])
-                req.generated.append(tok)
-                self.n_emitted += 1
-                self.positions[slot] = len(context)
-                self.last_tok[slot, 0] = tok
-                finished = self.batcher._finish_if_done(slot, req, tok, self.eos_id)
-                self._reap()
-                if not finished:
-                    return
+            with spans.span("engine.admit", req.id):
+                if req.remaining == 0:   # resumed partial that was already full
+                    req.done = True
+                    self.batcher.finished.append(req)
+                    self.batcher.slots[slot] = None
+                    self._reap()
+                else:
+                    context = list(req.prompt) + list(req.generated)
+                    if len(context) + req.remaining > self.max_seq:
+                        raise ValueError(
+                            f"request {req.id}: context {len(context)} + remaining "
+                            f"{req.remaining} > max_seq {self.max_seq}")
+                    logits = self._context_into_slot(slot, req, context)
+                    if logits is None:
+                        # mid-decode state restored (paged parked resume) or the
+                        # request requeued: no admission token from here
+                        return
+                    tok = int(self._pick_row(logits)[0, 0])
+                    req.generated.append(tok)
+                    self.n_emitted += 1
+                    self.positions[slot] = len(context)
+                    self.last_tok[slot, 0] = tok
+                    finished = self.batcher._finish_if_done(slot, req, tok, self.eos_id)
+                    self._reap()
+                    if not finished:
+                        return
             self.batcher._fill()
             req = self.batcher.slots[slot]
 
@@ -269,39 +271,41 @@ class ContinuousEngine:
         return False
 
     def _pick_row(self, logits: torch.Tensor) -> np.ndarray:
-        gen = self._gen if self.temperature > 0 else None
-        toks = _pick(logits, self.cfg.vocab_size, self.temperature, gen)
-        if tp_size(self.tp) > 1:
-            toks = broadcast_(toks.contiguous(), self.tp, src=0)
-        return toks.cpu().numpy()
+        with spans.span("engine.pick"):
+            gen = self._gen if self.temperature > 0 else None
+            toks = _pick(logits, self.cfg.vocab_size, self.temperature, gen)
+            if tp_size(self.tp) > 1:
+                toks = broadcast_(toks.contiguous(), self.tp, src=0)
+            return toks.cpu().numpy()
 
     def step(self) -> int:
         """One batched decode: every active slot advances one token; finished
         slots are refilled (and prefilled) without stopping the loop. Returns
         the number of tokens emitted."""
-        if not self.batcher.active():
-            return 0
-        pos = np.minimum(self.positions, self.max_seq - 1)
-        logits = self._decode_active(pos)
-        # re-read: a paged wave may have preempted a slot to reclaim memory
-        active = self.batcher.active()
-        toks = self._pick_row(logits)  # (n_slots, 1)
-        self.n_decode_steps += 1
-        self.n_slot_steps += len(active)
-        slot_of = {req.id: i for i, req in active.items()}
+        with spans.span("engine.step", self.n_decode_steps):
+            if not self.batcher.active():
+                return 0
+            pos = np.minimum(self.positions, self.max_seq - 1)
+            logits = self._decode_active(pos)
+            # re-read: a paged wave may have preempted a slot to reclaim memory
+            active = self.batcher.active()
+            toks = self._pick_row(logits)  # (n_slots, 1)
+            self.n_decode_steps += 1
+            self.n_slot_steps += len(active)
+            slot_of = {req.id: i for i, req in active.items()}
 
-        def emit(req: GenRequest) -> int:
-            i = slot_of[req.id]
-            self.positions[i] += 1
-            self.last_tok[i, 0] = toks[i, 0]
-            return int(toks[i, 0])
+            def emit(req: GenRequest) -> int:
+                i = slot_of[req.id]
+                self.positions[i] += 1
+                self.last_tok[i, 0] = toks[i, 0]
+                return int(toks[i, 0])
 
-        filled = self.batcher.step(emit, eos_id=self.eos_id)
-        self.n_emitted += len(active)
-        self._reap()
-        for slot in filled:
-            self._admit(slot)
-        return len(active)
+            filled = self.batcher.step(emit, eos_id=self.eos_id)
+            self.n_emitted += len(active)
+            self._reap()
+            for slot in filled:
+                self._admit(slot)
+            return len(active)
 
     def _decode_active(self, pos: np.ndarray) -> torch.Tensor:
         """One batched decode over every slot row; returns (n_slots, Vpad)
