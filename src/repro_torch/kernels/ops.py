@@ -124,12 +124,14 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
     return out.reshape(e, c, rhs.shape[2])
 
 
+_COUNTERS = {"flash_attention": _flash, "paged_attention": _paged, "moe_gmm": _gmm, "ssd": _ssd}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`
     (``rmsnorm`` counts all five of its forms)."""
-    return {"rmsnorm": sum(_rmsnorm.launches.values()), "flash_attention": _flash.launches,
-            "paged_attention": _paged.launches, "moe_gmm": _gmm.launches,
-            "ssd": _ssd.launches}
+    return {"rmsnorm": sum(_rmsnorm.launches.values()),
+            **{k: m.launches for k, m in _COUNTERS.items()}}
 
 
 def rmsnorm_form_counts() -> Dict[str, int]:
@@ -140,9 +142,24 @@ def rmsnorm_form_counts() -> Dict[str, int]:
     return dict(_rmsnorm.launches)
 
 
+def launch_state() -> Dict[str, int]:
+    """Every launch counter, the rmsnorm kernel's by form
+    (``rmsnorm.<form>``): what :func:`add_launches` takes the difference
+    of two readings as."""
+    return {**{f"rmsnorm.{k}": v for k, v in _rmsnorm.launches.items()},
+            **{k: m.launches for k, m in _COUNTERS.items()}}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (keys of :func:`launch_state`) to the counters: a
+    replayed CUDA graph launches what its capture counted, and runs none of
+    the Python that counts."""
+    for k, n in delta.items():
+        if k.startswith("rmsnorm."):
+            _rmsnorm.launches[k[len("rmsnorm."):]] += n
+        else:
+            _COUNTERS[k].launches += n
+
+
 def reset_launch_counts() -> None:
-    _rmsnorm.launches.update(dict.fromkeys(_rmsnorm.launches, 0))
-    _flash.launches = 0
-    _paged.launches = 0
-    _gmm.launches = 0
-    _ssd.launches = 0
+    add_launches({k: -n for k, n in launch_state().items()})

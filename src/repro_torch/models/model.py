@@ -400,17 +400,51 @@ def prefill(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None):
     return logits[:, 0], cache
 
 
+def decode_pieces(params, cache, pos, cfg: ModelConfig, tp=None):
+    """:func:`decode_step` cut at each MoE layer's feed-forward (the stack's
+    :func:`transformer.decode_pieces`, the embedding put before its first
+    piece and the final norm and head after its last): (pieces, moes), one
+    more piece than MoE layers. ``pieces[0]`` takes the (B,1) token, every
+    later piece ``(x, h)``, h the output of the MoE layer before it; a piece
+    below the last returns ``(x, y)``, y the input of its MoE layer
+    ``moes[k]``, and the last returns ``(logits (B,Vpad) fp32,)``. A stack
+    with no moe segment is one piece. :func:`run_pieces` composes them."""
+    _model_axis_only(tp, "decode_step")
+    local = tp_local(cfg, tp)
+    stack, moes = transformer.decode_pieces(params["stack"], cache, pos, local, tp)
+    last = len(stack) - 1
+
+    def piece(k, *args):
+        if k == 0:
+            x, h = embed_tokens(params["embed"], args[0], cfg, tp), None
+        else:
+            x, h = args
+        x, y = stack[k](x, h)
+        if k < last:
+            return x, y
+        _, x = transformer._add_norm(x, y, params["final_norm"], cfg)
+        return (logits_from_hidden(_head_weight(params, cfg), x, cfg, tp)[:, 0],)
+    return [functools.partial(piece, k) for k in range(last + 1)], moes
+
+
+def run_pieces(pieces, moes, token: torch.Tensor) -> torch.Tensor:
+    """The logits of :func:`decode_pieces`' pieces and MoE layers run in
+    order."""
+    out = pieces[0](token)
+    for moe, piece in zip(moes, pieces[1:]):
+        x, y = out
+        out = piece(x, moe(y))
+    return out[0]
+
+
 def decode_step(params, token: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
     """One decode step. token: (B,1); pos: scalar or (B,) per-row positions.
-    Returns (logits (B,Vpad) fp32, cache), the cache updated in place."""
+    Returns (logits (B,Vpad) fp32, cache), the cache updated in place.
+    Eager (its span counts ``graphed`` 0): the engines' CUDA graphs of the
+    same pieces are :class:`repro_torch.models.decode_graphs.DecodeGraphs`."""
     with spans.span("model.decode_step"):
-        _model_axis_only(tp, "decode_step")
-        local = tp_local(cfg, tp)
-        x = embed_tokens(params["embed"], token, cfg, tp)
-        x, h, cache = transformer.stack_decode(params["stack"], x, cache, pos, local, tp)
-        _, x = transformer._add_norm(x, h, params["final_norm"], cfg)
-        logits = logits_from_hidden(_head_weight(params, cfg), x, cfg, tp)
-        return logits[:, 0], cache
+        spans.count(graphed=0)
+        return run_pieces(*decode_pieces(params, cache, pos, cfg, tp), token), cache
 
 
 def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
@@ -427,6 +461,7 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
     per step, before the layer loop, and nothing in the loop waits for the
     device."""
     with spans.span("model.decode_step"):
+        spans.count(graphed=0)
         segs = transformer.segments_for(cfg)
         if len(segs) != 1 or segs[0].kind != "dense":
             raise ValueError(f"paged decode needs one dense segment; {cfg.arch_id} has "
@@ -436,7 +471,7 @@ def paged_decode_step(params, token: torch.Tensor, k_pools: torch.Tensor,
         pos, bids, offs = (torch.as_tensor(t, device=dev).long() for t in (pos, bids, offs))
         x = embed_tokens(params["embed"], token, cfg)
         stack = params["stack"][segs[0].name]
-        h = None  # the residual stream is x + h, as in transformer.stack_decode
+        h = None  # the residual stream is x + h, as in transformer.decode_pieces
         for i in range(segs[0].n):
             lp = transformer._layer(stack, i)
             x, h, *_ = transformer._dense_block(

@@ -100,20 +100,35 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
 # h the previous block's delta not yet added (None at the stack's start),
 # and returns its own (x, delta). The add happens in the next norm, and the
 # stack's last delta goes into the final norm.
-def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig,
-                 tp=None):
-    """A dense or moe block: ``attend`` maps the normed input to (attention
-    output, *rest). Returns (x, feed-forward delta, the MoE load-balance
-    loss or None, *rest). The feed-forward is the MLP of a dense layer, the
-    MoE of a moe layer (prefill and decode run it too, as ``repro``'s
-    bodies do); under ``tp`` the MLP and the MoE are tensor-parallel."""
+def _attn_half(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig):
+    """The attention half of a dense or moe block: ``attend`` maps the
+    normed input to (attention output, *rest). Returns (x, the
+    feed-forward's normed input, *rest)."""
     x, y = _add_norm(x, h, p["ln1"], cfg)
     a, *rest = attend(y)
     x, y = _add_norm(x, a, p["ln2"], cfg)
+    return (x, y, *rest)
+
+
+def _ff_half(p, y: torch.Tensor, cfg: ModelConfig, tp=None):
+    """The feed-forward half of a dense or moe block on its normed input:
+    (delta, the MoE load-balance loss or None). The MLP of a dense layer,
+    the MoE of a moe layer (prefill and decode run it too, as ``repro``'s
+    bodies do); under ``tp`` the MLP and the MoE are tensor-parallel."""
     if "mlp" in p:
-        return (x, apply_mlp(p["mlp"], y, cfg, tp), None, *rest)
+        return apply_mlp(p["mlp"], y, cfg, tp), None
     out, aux = moe_mod.apply_moe(p["moe"], y, cfg, tp=tp)
-    return (x, out, aux["lb_loss"], *rest)
+    return out, aux["lb_loss"]
+
+
+def _dense_block(p, x: torch.Tensor, h: Optional[torch.Tensor], attend, cfg: ModelConfig,
+                 tp=None):
+    """A dense or moe block, :func:`_attn_half` then :func:`_ff_half`.
+    Returns (x, feed-forward delta, the MoE load-balance loss or None,
+    *rest)."""
+    x, y, *rest = _attn_half(p, x, h, attend, cfg)
+    delta, lb = _ff_half(p, y, cfg, tp)
+    return (x, delta, lb, *rest)
 
 
 def _dense_prefill(p, x: torch.Tensor, h: Optional[torch.Tensor], positions: torch.Tensor,
@@ -273,23 +288,30 @@ def stack_prefill(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     return x, h, cache
 
 
-def _dense_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], c, pos, cfg: ModelConfig,
-                  tp=None):
-    """A dense or moe block at decode: (x, delta); writes the token's K/V
-    (or its latent entry under MLA) into ``c``, one layer's cache leaves,
-    in place."""
+def _decode_attend(p, c, pos, cfg: ModelConfig, tp=None):
+    """A dense or moe block's decode attention on one layer's cache leaves
+    ``c``, which it writes the token's K/V (or its latent entry under MLA)
+    into, in place."""
     if cfg.use_mla:
-        def attend(y):
-            return attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg, tp)
-    else:
-        def attend(y):
-            return attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg, tp)
-    x, delta, *_ = _dense_block(p, x, h, attend, cfg, tp)
-    return x, delta
+        return lambda y: attn_mod.mla_decode(p["attn"], y, c["c"], pos, cfg, tp)
+    return lambda y: attn_mod.gqa_decode(p["attn"], y, c["k"], c["v"], pos, cfg, tp)
 
 
-def _ssm_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], state: torch.Tensor,
-                conv: torch.Tensor, cfg: ModelConfig, tp=None):
+def _attn_decode(p, c, pos, cfg: ModelConfig, tp, x: torch.Tensor, h: Optional[torch.Tensor]):
+    """The attention half of a block at decode: (x, the feed-forward's
+    normed input)."""
+    x, y, *_ = _attn_half(p, x, h, _decode_attend(p, c, pos, cfg, tp), cfg)
+    return x, y
+
+
+def _dense_decode(p, c, pos, cfg: ModelConfig, tp, x: torch.Tensor, h: Optional[torch.Tensor]):
+    """A dense or moe block at decode: (x, delta)."""
+    x, y = _attn_decode(p, c, pos, cfg, tp, x, h)
+    return x, _ff_half(p, y, cfg, tp)[0]
+
+
+def _ssm_decode(p, state: torch.Tensor, conv: torch.Tensor, cfg: ModelConfig, tp,
+                x: torch.Tensor, h: Optional[torch.Tensor]):
     """A mamba block at decode: (x, delta). ``state`` and ``conv`` (one
     layer's rows of the cache) are overwritten in place once the step is
     computed: the new conv window is a slice of a fresh ``cat``, so nothing
@@ -301,25 +323,42 @@ def _ssm_decode(p, x: torch.Tensor, h: Optional[torch.Tensor], state: torch.Tens
     return x, delta
 
 
-def stack_decode(params, x: torch.Tensor, cache, pos, cfg: ModelConfig, tp=None):
-    """One-token decode. x: (B,1,D); pos: scalar or (B,) per-row positions.
-    Returns (x, h, cache), the hidden state x + h as in
-    :func:`stack_prefill`; the cache is updated in place (saves a copy of
-    the whole cache per token) and the same tree is returned."""
-    h = None
+def _chain(fns):
+    def run(x, h):
+        for fn in fns:
+            x, h = fn(x, h)
+        return x, h
+    return run
+
+
+def decode_pieces(params, cache, pos, cfg: ModelConfig, tp=None):
+    """The one-token decode cut at each moe layer's feed-forward: (pieces,
+    ffs), one more piece than feed-forwards. Every piece maps the residual
+    stream (x, h) to (x, y): for ``pieces[k]`` below the last, y is the
+    normed input of ``ffs[k]``, which maps it to the next piece's h; for
+    the last, y is the stack's last delta. Each works on the layers'
+    parameters and cache leaves as views, and on ``pos`` as given, so a
+    piece holds the addresses it reads and writes (the cache in place)."""
+    pieces, ffs = [[]], []
     for seg in segments_for(cfg):
         p, c = params[seg.name], cache[seg.name]
-        if seg.kind in ("dense", "moe"):
-            for i in range(seg.n):
-                x, h = _dense_decode(_layer(p, i), x, h, _layer(c, i), pos, cfg, tp)
-        elif seg.kind == "ssm":
-            for i in range(seg.n):
-                x, h = _ssm_decode(_layer(p, i), x, h, c["state"][i], c["conv"][i], cfg, tp)
-        else:  # hybrid_group
-            for i in range(seg.n):
+        for i in range(seg.n):
+            if seg.kind == "dense":
+                pieces[-1].append(functools.partial(_dense_decode, _layer(p, i), _layer(c, i),
+                                                    pos, cfg, tp))
+            elif seg.kind == "moe":
+                lp = _layer(p, i)
+                pieces[-1].append(functools.partial(_attn_decode, lp, _layer(c, i), pos, cfg, tp))
+                ffs.append(lambda y, lp=lp: _ff_half(lp, y, cfg, tp)[0])
+                pieces.append([])
+            elif seg.kind == "ssm":
+                pieces[-1].append(functools.partial(_ssm_decode, _layer(p, i), c["state"][i],
+                                                    c["conv"][i], cfg, tp))
+            else:  # hybrid_group
                 group = _layer(p["mamba"], i)
                 for j in range(cfg.attn_every):
-                    x, h = _ssm_decode(_layer(group, j), x, h, c["state"][i, j],
-                                       c["conv"][i, j], cfg, tp)
-                x, h = _dense_decode(p["shared"], x, h, _layer(c, i), pos, cfg, tp)
-    return x, h, cache
+                    pieces[-1].append(functools.partial(
+                        _ssm_decode, _layer(group, j), c["state"][i, j], c["conv"][i, j], cfg, tp))
+                pieces[-1].append(functools.partial(_dense_decode, p["shared"], _layer(c, i), pos,
+                                                    cfg, tp))
+    return [_chain(fns) for fns in pieces], ffs

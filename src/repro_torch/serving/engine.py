@@ -27,6 +27,7 @@ and takes the token rank 0 picks.
 """
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict, Hashable, List, Optional, Tuple
 
@@ -39,6 +40,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.tensor_parallel import broadcast_, tp_local, tp_size
 from repro_torch.models import model as model_mod
 from repro_torch.models import transformer
+from repro_torch.models.decode_graphs import DecodeGraphs, graphable
 from repro_torch.serving.batching import GenRequest, SlotBatcher
 from repro_torch.serving.kvcache import OutOfBlocks, PagedKVCache, gather_pool
 from repro_torch.serving.slot_state import SlotBatchState
@@ -164,6 +166,8 @@ class ContinuousEngine:
         self.cfg = cfg
         self.tp = tp
         self.device = resolve_device(device if tp is None else tp.device)
+        # the batched decode replays CUDA graphs where it can (DecodeGraphs)
+        self._graphable = graphable(cfg, self.device, tp)
         self.params = _on_device(params, cfg, self.device)
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -187,9 +191,21 @@ class ContinuousEngine:
                                           self.device, self.tp)
 
     @property
+    def params(self):
+        """The compute-dtype weights. Settable: a new tree drops the decode
+        graphs, which the next step captures again."""
+        return self._params
+
+    @params.setter
+    def params(self, tree):
+        self._params = tree
+        self._graphs = None
+
+    @property
     def cache(self):
         """The live decode-state tree. Settable, for callers that transplant
-        it wholesale."""
+        it wholesale; a new tree drops the decode graphs, as ``params``
+        does."""
         if self._slot_state is None:
             raise AttributeError(
                 "paged engine keeps decode state in the block pool (.kv), "
@@ -199,6 +215,7 @@ class ContinuousEngine:
     @cache.setter
     def cache(self, tree):
         self._slot_state.tree = tree
+        self._graphs = None
 
     @property
     def device_state(self):
@@ -309,10 +326,26 @@ class ContinuousEngine:
 
     def _decode_active(self, pos: np.ndarray) -> torch.Tensor:
         """One batched decode over every slot row; returns (n_slots, Vpad)
-        logits and advances the KV state in place."""
-        logits, _ = model_mod.decode_step(
-            self.params, torch.as_tensor(self.last_tok, device=self.device),
-            self.cache, torch.as_tensor(pos, device=self.device), self.cfg, self.tp)
+        logits and advances the KV state in place. Where the model can be
+        graphed (``decode_graphs.graphable``) the step replays the
+        :class:`DecodeGraphs` that its first step captured, and reads the
+        tokens and positions from their buffers; a capture that fails says
+        so once, and every later step runs eagerly."""
+        if self._graphs is None and self._graphable:
+            self._graphs = DecodeGraphs(self.params, self.cache, self.cfg, self.n_slots,
+                                        self.device)
+        if self._graphs is None:
+            logits, _ = model_mod.decode_step(
+                self.params, torch.as_tensor(self.last_tok, device=self.device),
+                self.cache, torch.as_tensor(pos, device=self.device), self.cfg, self.tp)
+            return logits
+        self._graphs.load(self.last_tok, pos)
+        logits = self._graphs.step()
+        if self._graphs.failed:
+            print(f"ContinuousEngine: the decode step could not be captured in CUDA graphs "
+                  f"({self._graphs.failed}); decoding eagerly from here on", file=sys.stderr)
+            self._graphable = False
+            self._graphs = None
         return logits
 
     def run(self) -> List[GenRequest]:
