@@ -5,11 +5,17 @@ The fields, their defaults, the kernel-dispatch policy, the analytic
 (``cell_is_runnable``) are the same as in ``repro`` (the tests hold them
 equal), so a configuration means the same thing on both sides. Dtypes stay strings here; the port maps
 them to torch dtypes with :func:`torch_dtype`.
+
+Three fields come last that ``repro`` does not have: DeepSeek-V2's math as
+published (YaRN ``rope_scaling`` of MLA's rotary dims, the router's top-k
+weights left as the softmax gives them, the RMSNorm of MLA's compressed
+latent). Their defaults keep ``repro``'s math, and every preset keeps the
+defaults.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -21,6 +27,10 @@ def _round_up(x: int, m: int) -> int:
 # Dispatch sites that can swap a reference path for a hand-written kernel.
 KERNEL_SITES: Tuple[str, ...] = ("attention", "ssm", "moe", "rmsnorm")
 KERNEL_IMPL_CHOICES: Tuple[str, ...] = ("reference", "kernel")
+
+# the keys of a YaRN rope_scaling group, as DeepSeek-V2's config.json states it
+YARN_KEYS: Tuple[str, ...] = ("beta_fast", "beta_slow", "factor", "mscale", "mscale_all_dim",
+                              "original_max_position_embeddings", "type")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -104,6 +114,14 @@ class ModelConfig:
     # sorted tuple of pairs so the config stays hashable.
     kernel_impls: Tuple[Tuple[str, str], ...] = ()
 
+    # DeepSeek-V2 as published (not in repro; the defaults keep its math).
+    # YaRN scaling of MLA's rotary embedding, the keys of config.json's
+    # rope_scaling as a sorted tuple of pairs (a mapping is normalised, as
+    # kernel_impls is); () for none.
+    rope_scaling: Tuple[Tuple[str, Any], ...] = ()
+    norm_topk_prob: bool = True     # renormalise the router's top-k weights to sum to 1
+    mla_latent_norm: bool = False   # RMSNorm of MLA's compressed latent (kv_a_layernorm)
+
     def __post_init__(self):
         impls = self.kernel_impls
         if isinstance(impls, Mapping):
@@ -125,6 +143,20 @@ class ModelConfig:
                     f"{self.arch_id!r} (family={self.family!r}); supported "
                     f"kernel sites: {tuple(sorted(supported_kernel_sites(self)))}")
         object.__setattr__(self, "kernel_impls", impls)
+        scaling = self.rope_scaling
+        scaling = tuple(sorted(scaling.items() if isinstance(scaling, Mapping)
+                               else (tuple(p) for p in scaling)))
+        if scaling:
+            keys = dict(scaling)
+            if not self.use_mla:
+                raise ValueError(f"rope_scaling: only MLA's rotary dims scale; arch "
+                                 f"{self.arch_id!r} has use_mla False")
+            if tuple(sorted(keys)) != YARN_KEYS or keys["type"] != "yarn":
+                raise ValueError(f"rope_scaling: a yarn group of the keys {YARN_KEYS}; "
+                                 f"got {keys}")
+        object.__setattr__(self, "rope_scaling", scaling)
+        if self.mla_latent_norm and not self.use_mla:
+            raise ValueError(f"mla_latent_norm: arch {self.arch_id!r} has no MLA latent")
 
     # --- derived -----------------------------------------------------------
     @property
@@ -178,6 +210,11 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid") or self.sliding_window is not None
 
     @property
+    def yarn(self) -> Dict[str, Any]:
+        """``rope_scaling`` as a dict; {} without scaling."""
+        return dict(self.rope_scaling)
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
@@ -201,6 +238,7 @@ class ModelConfig:
             per_attn += d * (self.kv_lora_rank + self.qk_rope_dim)  # down
             per_attn += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
             per_attn += self.n_heads * self.v_head_dim * d  # wo
+            per_attn += self.kv_lora_rank if self.mla_latent_norm else 0
         else:
             hd, kv = self.head_dim, self.n_kv_heads
             per_attn += d * self.n_heads * hd + 2 * d * kv * hd + self.n_heads * hd * d

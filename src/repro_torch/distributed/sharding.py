@@ -27,9 +27,10 @@ the cache's KV heads; MLA's ``wq``/``w_uk``/``w_uv`` columns and ``wo``
 rows of its heads; a routed expert leaf's run of whole experts where the
 experts divide over the ranks (``repro``'s ``_EXPERT_RULES_EP``), else its
 slice of every expert's ``moe_d_ff`` (``_EXPERT_RULES_TP``); a shared
-expert's slice of its width. Norm scales, the router, MLA's ``w_dkv`` and
-``w_krope`` and its latent cache stay whole. A Mamba2 leaf is cut by its
-SSM heads, piecewise (:func:`tp_segments`): ``in_proj``'s fused
+expert's slice of its width. Norm scales, the router, MLA's ``w_dkv``,
+``w_krope``, the latent's norm ``kv_norm`` and its latent cache stay
+whole. A Mamba2 leaf is cut by its SSM heads, piecewise
+(:func:`tp_segments`): ``in_proj``'s fused
 ``[z | x | B | C | dt]`` columns become the rank's ``z``, ``x``, B and C
 groups and ``dt`` in that order, the conv's ``[x | B | C]`` channels
 likewise, ``A_log``/``dt_bias``/``D_skip`` and ``norm_w`` by heads,
@@ -417,7 +418,8 @@ _TP_SPLITS: Dict[str, Tuple[str, int]] = {
 }
 # MLA's heads: the query's heads x (nope + rope) columns, the up-projections'
 # heads x nope / heads x v_head columns, wo's heads x v_head rows. w_dkv,
-# w_krope and the latent cache "c" stay whole on every rank.
+# w_krope, the latent's norm kv_norm and the latent cache "c" stay whole on
+# every rank.
 _TP_MLA_SPLITS: Dict[str, Tuple[str, int]] = {
     "wq": ("mla_q", -1), "w_uk": ("mla_uk", -1), "w_uv": ("mla_uv", -1), "wo": ("mla_o", -2)}
 # the feed-forward leaves of a routed or shared expert: the axis of moe_d_ff
@@ -441,7 +443,8 @@ def tp_split(names: Sequence[str], cfg, size: int,
     axis (``"shared_ff"``); MLA's ``wq``, ``w_uk``, ``w_uv`` and ``wo``
     by heads; a Mamba2 leaf by SSM heads (``"ssm_*"``, piecewise where
     the axis fuses components, :func:`tp_segments`). The router, the
-    norms, ``w_dkv``, ``w_krope`` and MLA's latent cache stay whole."""
+    norms (MLA's ``kv_norm`` too), ``w_dkv``, ``w_krope`` and MLA's latent
+    cache stay whole."""
     key = names[-1]
     if cache:
         return _TP_CACHE_SPLITS.get(key)

@@ -31,6 +31,14 @@ the path of ``forward`` and ``loss_fn``) runs the same split; the input of
 the rank's projections, and MLA's latent and rope'd key before its
 head-split products, pass ``tensor_parallel.copy_in``, so a backward sums
 the ranks' gradients of them.
+
+MLA also runs DeepSeek-V2 as published, which ``repro`` does not: under
+``rope_scaling`` its rotary dims take YaRN's frequencies and amplitude and
+its softmax scale YaRN's temperature (:func:`mla_softmax_scale`), and under
+``mla_latent_norm`` the compressed latent is RMS-normed before it is cached
+and up-projected (the latent cache holds the normed entry, which the
+absorbed decode reads as the decompressed prefill does). The norm's weight
+is whole on every rank, as ``w_dkv`` is. Both off is ``repro``'s math.
 """
 from __future__ import annotations
 
@@ -40,9 +48,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig, kernel_impl
 from repro_torch.distributed.tensor_parallel import copy_in, row_parallel
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm, yarn_mscale
 
 NEG_INF = -1e9  # large-negative instead of -inf: keeps softmax NaN-free
 
@@ -370,16 +379,31 @@ def _mla_q(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta, cfg.yarn)
 
 
 def _mla_latent(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """(c_kv (B,S,r), k_rope (B,S,rope)): the compressed KV and the shared
-    rope'd key of every position."""
+    """(c_kv (B,S,r), k_rope (B,S,rope)): the compressed KV (RMS-normed
+    under ``mla_latent_norm``, as the cache holds it) and the shared rope'd
+    key of every position."""
     dt = x.dtype
     c_kv = x @ p["w_dkv"].to(dt)
+    if cfg.mla_latent_norm:
+        c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps, cfg)
     k_rope = x @ p["w_krope"].to(dt)
-    return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                            cfg.yarn)[:, :, 0]
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(qk_nope_dim + qk_rope_dim)^-0.5, times YaRN's temperature
+    ``yarn_mscale(factor, mscale_all_dim)`` squared where ``rope_scaling``
+    sets ``mscale_all_dim``, as the published ``modeling_deepseek.py``."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    yarn = cfg.yarn
+    if yarn and yarn["mscale_all_dim"]:
+        scale *= yarn_mscale(yarn["factor"], yarn["mscale_all_dim"]) ** 2
+    return scale
 
 
 def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
@@ -392,7 +416,7 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=
     c, kr = copy_in(c_kv, tp), copy_in(k_rope, tp)
     k_nope = (c @ p["w_uk"].to(dt)).reshape(b, s, cfg.n_heads, cfg.qk_nope_dim)
     v = (c @ p["w_uv"].to(dt)).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
-    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scale = mla_softmax_scale(cfg)
     q_nope = _shard(cfg, q_nope, BATCH_AXES, None, "model", None)
     k_nope = _shard(cfg, k_nope, BATCH_AXES, None, "model", None)
     v = _shard(cfg, v, BATCH_AXES, None, "model", None)
@@ -414,9 +438,14 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Full-sequence MLA that also returns the latent cache entries
-    (B,S,r+rope): c_kv ++ rope'd k_rope."""
-    out, c_kv, k_rope = _mla_full(p, x, positions, cfg, tp)
-    return out, torch.cat([c_kv, k_rope], dim=-1)
+    (B,S,r+rope): c_kv ++ rope'd k_rope. Its span ``model.mla_prefill``
+    counts the ``tokens`` (B*S) and the ``score_bytes`` of the float32
+    scores it materialises (B*H*S*S*4, H the rank's heads)."""
+    b, s = x.shape[0], x.shape[1]
+    with spans.span("model.mla_prefill"):
+        spans.count(tokens=b * s, score_bytes=b * cfg.n_heads * s * s * 4)
+        out, c_kv, k_rope = _mla_full(p, x, positions, cfg, tp)
+        return out, torch.cat([c_kv, k_rope], dim=-1)
 
 
 def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig, tp=None):
@@ -443,7 +472,7 @@ def mla_decode(p, x: torch.Tensor, c_cache: torch.Tensor, pos, cfg: ModelConfig,
     cache_rope = c_cache[..., r:].to(dt)                      # (B,S,rope)
     w_uk = p["w_uk"].to(dt).reshape(r, cfg.n_heads, cfg.qk_nope_dim)
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)      # (B,1,H,r)
-    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scale = mla_softmax_scale(cfg)
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, cache_c)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, cache_rope)).float() * scale
     scores = _shard(cfg, scores, BATCH_AXES, None, None, "model")

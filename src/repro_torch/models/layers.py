@@ -1,6 +1,8 @@
 """Shared building blocks: RMSNorm with its residual-add and gated Mamba2
 forms, LayerNorm, the SwiGLU and gelu MLPs, rotary embeddings, token
-embedding and the vocabulary head — the port of ``repro.models.layers``.
+embedding and the vocabulary head — the port of ``repro.models.layers``;
+the rotary embedding also takes DeepSeek-V2's YaRN scaling, which ``repro``
+lacks.
 
 Params are nested dicts of tensors with the same keys and shapes as in
 ``repro``; every function takes and returns tensors, with the same dtype
@@ -19,7 +21,8 @@ that every rank holds alike enters the split work through
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,18 +128,58 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
 
 
 # --- rotary embeddings ------------------------------------------------------
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention temperature for a context stretched by ``factor``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rope_freqs(head_dim: int, theta: float, device=None,
+               yarn: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies. With ``yarn`` (``ModelConfig.yarn``)
+    YaRN's, as the published ``modeling_deepseek.py`` sets them: the
+    frequencies that turn fewer than ``beta_slow`` times over
+    ``original_max_position_embeddings`` are divided by ``factor``, those
+    that turn more than ``beta_fast`` times are kept, and a linear ramp
+    blends the dims between."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+    inv = 1.0 / (theta ** exponent)
+    if not yarn:
+        return inv
+    factor, orig = yarn["factor"], yarn["original_max_position_embeddings"]
+
+    def dim_of(turns: float) -> float:
+        return head_dim * math.log(orig / (turns * 2 * math.pi)) / (2 * math.log(theta))
+    low = max(math.floor(dim_of(yarn["beta_fast"])), 0)
+    high = min(math.ceil(dim_of(yarn["beta_slow"])), head_dim - 1)
+    if high == low:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return inv / factor * ramp + inv * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, Dh); positions: (B, S) int. Split-half convention."""
+def rope_amplitude(yarn: Optional[Dict[str, Any]] = None) -> float:
+    """The amplitude of cos and sin: YaRN's ``mscale`` temperature over its
+    ``mscale_all_dim`` one, 1.0 without ``yarn``."""
+    if not yarn:
+        return 1.0
+    return (yarn_mscale(yarn["factor"], yarn["mscale"])
+            / yarn_mscale(yarn["factor"], yarn["mscale_all_dim"]))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int. Split-half convention. With
+    ``yarn`` the frequencies and amplitude of :func:`rope_freqs` and
+    :func:`rope_amplitude`."""
     dh = x.shape[-1]
-    inv = rope_freqs(dh, theta, x.device)
+    inv = rope_freqs(dh, theta, x.device, yarn)
     ang = positions[..., None].float() * inv  # (B,S,dh/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    amp = rope_amplitude(yarn)
+    if amp != 1.0:
+        cos, sin = cos * amp, sin * amp
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

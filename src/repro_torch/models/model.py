@@ -98,8 +98,11 @@ def _norm_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
 
 
 def _mla_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
-    """``repro.models.attention.init_attention``'s MLA leaves."""
+    """``repro.models.attention.init_attention``'s MLA leaves, and under
+    ``mla_latent_norm`` the latent's norm weight ``kv_norm`` (r,), which
+    ``repro`` does not have."""
     d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    norm = {"kv_norm": ParamSpec(lead + (r,), "ones")} if cfg.mla_latent_norm else {}
     return {
         "wq": _normal(lead + (d, cfg.q_dim), d ** -0.5),
         "w_dkv": _normal(lead + (d, r), d ** -0.5),
@@ -107,6 +110,7 @@ def _mla_specs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Any]:
         "w_uk": _normal(lead + (r, h * cfg.qk_nope_dim), r ** -0.5),
         "w_uv": _normal(lead + (r, h * cfg.v_head_dim), r ** -0.5),
         "wo": _normal(lead + (h * cfg.v_head_dim, d), (h * cfg.v_head_dim) ** -0.5),
+        **norm,
     }
 
 

@@ -53,7 +53,9 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig, dp=None):
     """Returns (weights (T,k), expert_idx (T,k), aux) for flattened tokens.
 
     Top-k by a stable descending sort, so equal probabilities pick the lower
-    expert first, as ``jax.lax.top_k`` does. ``dp``: a grid's ``(pod,
+    expert first, as ``jax.lax.top_k`` does. The top-k weights are
+    renormalised to sum to one, as in ``repro``, unless ``norm_topk_prob``
+    is off (DeepSeek-V2 as published keeps the softmax's weights). ``dp``: a grid's ``(pod,
     data)`` group (``Grid.batch``), whose ranks hold the other tokens of
     the global batch: the load-balance statistics ``f_e`` and ``p_e`` are
     means over all of them, the ranks' sums summed by ``all_sum`` (whose
@@ -63,7 +65,8 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig, dp=None):
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
-    weights = weights / weights.sum(dim=-1, keepdim=True)
+    if cfg.norm_topk_prob:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     e = cfg.n_experts
     assign = _one_hot(idx[:, 0], e, torch.float32)   # top-1 assignment fraction

@@ -4,11 +4,13 @@ of those pieces (``repro_torch.models.decode_graphs``).
 On the CPU: the pieces run in order give the bits of the decode before the
 cut (one block at a time, its MoE inside), on the mixtral smoke preset with
 per-row positions, a dense GQA preset, mixtral's ring at window 16 past its
-wrap, and deepseek's MLA; which configs, devices and groups can be graphed;
-an eager step's span. On the card (``-m gpu``; this file imports no JAX):
-the graphed engine against the eager one, step for step, bit for bit, on
-every text decoder that can be graphed; a new cache; a capture that fails; the
-engines that stay eager.
+wrap, and deepseek's MLA, also with DeepSeek-V2's published settings (YaRN,
+un-renormalised top-k, the latent norm); which configs, devices and groups
+can be graphed; an eager step's span. On the card (``-m gpu``; this file
+imports no JAX): the graphed engine against the eager one, step for step,
+bit for bit, on every text decoder that can be graphed and on deepseek with
+the published settings (whose MLA prefill spans stay in the admissions); a
+new cache; a capture that fails; the engines that stay eager.
 
     python -m pytest -m gpu tests/test_torch_decode_graph.py
 """
@@ -61,12 +63,20 @@ def _presplit_decode(params, token, cache, pos, cfg):
     return logits_from_hidden(tmodel._head_weight(params, cfg), x, cfg)[:, 0]
 
 
+# DeepSeek-V2-Lite's published math (config.json's rope_scaling, norm_topk_prob
+# false, the latent's RMSNorm), which the deepseek preset leaves off
+PUBLISHED_DEEPSEEK = {
+    "rope_scaling": {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707},
+    "norm_topk_prob": False, "mla_latent_norm": True}
+
 # (arch, config overrides, cache length, the rows' positions)
 PIECE_CASES = {
     "mixtral-per-row": ("mixtral-8x22b", {}, 16, [0, 5, 11, 15]),
     "dense-gqa": ("qwen2.5-3b", {}, 24, [3, 0, 17, 23]),
     "ring-window16": ("mixtral-8x22b", {"sliding_window": 16}, 48, [15, 16, 29, 47]),
     "mla": ("deepseek-v2-lite-16b", {}, 20, [1, 19, 7, 12]),
+    "mla-published": ("deepseek-v2-lite-16b", PUBLISHED_DEEPSEEK, 20, [1, 19, 7, 12]),
 }
 
 
@@ -212,15 +222,16 @@ GRAPHED_ARCHS = ["deepseek-v2-lite-16b", "internlm2-1.8b", "mixtral-8x22b", "qwe
                  "qwen2.5-3b", "stablelm-12b"]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("arch", GRAPHED_ARCHS)
-def test_graphed_engine_matches_eager_bit_for_bit(cuda, arch):
-    cfg = _config(arch, dtype="bfloat16")
+def _graphed_matches_eager(cfg):
+    """Drives an eager engine and a graphed one over the same requests and
+    holds every step's logits and caches, the streams and the launch
+    counts equal; returns the graphed run's span records."""
     params = _params(cfg, "cuda")
     want = _drive(_engine(cfg, params, graphed=False))
     spans.clear()
     got = _drive(_engine(cfg, params, graphed=True))
-    flags = [r.counts["graphed"] for r in spans.records() if r.name == "model.decode_step"]
+    recs = spans.records()
+    flags = [r.counts["graphed"] for r in recs if r.name == "model.decode_step"]
     assert flags == [0] + [1] * 39
     assert len(got[0]) == len(want[0]) == 40
     for step, (g, w) in enumerate(zip(got[0], want[0])):
@@ -228,6 +239,24 @@ def test_graphed_engine_matches_eager_bit_for_bit(cuda, arch):
             assert torch.equal(a, b), f"step {step}"
     assert got[1] == want[1] and len(got[1]) >= 6          # temperature-0 streams
     assert got[2] == want[2] and got[3] == want[3]          # launch counts
+    return recs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPHED_ARCHS)
+def test_graphed_engine_matches_eager_bit_for_bit(cuda, arch):
+    _graphed_matches_eager(_config(arch, dtype="bfloat16"))
+
+
+@pytest.mark.gpu
+def test_graphed_engine_matches_eager_with_deepseeks_published_settings(cuda):
+    cfg = _config("deepseek-v2-lite-16b", dtype="bfloat16", **PUBLISHED_DEEPSEEK)
+    recs = _graphed_matches_eager(cfg)
+    by_seq = {r.seq: r for r in recs}
+    layers = [r for r in recs if r.name == "model.mla_prefill"]
+    admits = [r for r in recs if r.name == "engine.admit"]
+    assert len(layers) == cfg.n_layers * len(admits) > 0
+    assert {by_seq[r.parent].name for r in layers} == {"engine.admit"}
 
 
 @pytest.mark.gpu
