@@ -264,6 +264,16 @@ TILES_TOL = (1e-2, 2 ** -7)
 # sum Q*N products of order 10 in another order (both compute in fp32 from
 # the same inputs, bf16 ones included)
 SSD_TOL = (2e-3, 1e-3)
+# the MLA prefill kernel against the same math in float32 (its bf16 inputs
+# upcast): the plain bf16 path also rounds the summed scores to bf16, the
+# kernel keeps them fp32, so the kernel must come at least as close to the
+# float32 result as the plain path does (PERF.md: 8e-3 to 1e-2 against
+# 2.6e-2 to 3.7e-2 on outputs up to about 3), and within this
+MLA_TRUTH_ATOL = 2e-2
+# DeepSeek-V2-Lite's published rope_scaling (its config.json): YaRN's
+# temperature enters the MLA softmax scale
+DEEPSEEK_YARN = {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                 "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707}
 # float32 prefill logits, auto (kernels) vs reference, full width: both sides
 # sum in another order (FMA flash kernel vs materialised softmax, block
 # reduction vs torch's mean), compounded over 36 residual layers; expected
@@ -1079,6 +1089,84 @@ def flash_kernel_phase(gen: torch.Generator) -> dict:
     return results["flash_attention"]
 
 
+def mla_prefill_bound(b, h, s):
+    """(bound ms, 'bytes' | 'operations') of causal MLA prefill attention:
+    QK depth 192 and V width 128 over the causal pairs, against q (192 a
+    head), k_nope, v and out (128 a head each) and the shared k_rope (64)
+    read or written once, bf16."""
+    flops = 2 * b * h * attention_pairs(s) * (192 + 128)
+    bytes_ = 2 * b * s * (h * (192 + 3 * 128) + 64)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mla_prefill_kernel_phase(gen: torch.Generator) -> dict:
+    """The MLA prefill kernel on inputs laid out as the prefill makes them
+    (q_nope and q_rope views of one projection, k_rope a view of the
+    latent's row), YaRN's softmax scale: against the plain bf16 version and
+    the same math in float32 at 16 heads and a TP-2 rank's 8, a repeated
+    call's bits; then timed at the median and longest extract16 prompts and
+    the rank shape beside the plain version and SDPA (the yardstick only:
+    the port never calls it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import mla_prefill_attention_op
+    from repro_torch.kernels.ref import mla_prefill_attention_ref
+    from repro_torch.models.attention import mla_softmax_scale
+
+    scale = mla_softmax_scale(dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                                                  rope_scaling=DEEPSEEK_YARN))
+
+    def inputs(b, s, h):
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+        q_nope, q_rope = rnd(b, s, h, 192).split([128, 64], dim=-1)
+        return q_nope, q_rope, rnd(b, s, h, 128), rnd(b, s, 512 + 64)[..., 512:], rnd(b, s, h, 128)
+
+    out = {"err": 0.0}
+    for s in (1, 65, 2048, 4097):
+        for h in (16, 8):
+            ins = inputs(1, s, h)
+            name = f"mla_prefill_attention (b=1,s={s},h={h}) bf16"
+            got = mla_prefill_attention_op(*ins, scale=scale)
+            check_repeat(name, lambda: mla_prefill_attention_op(*ins, scale=scale))
+            plain = mla_prefill_attention_ref(*ins, scale=scale)
+            truth = mla_prefill_attention_ref(*(x.float() for x in ins), scale=scale)
+            err = check_close(name, got, plain, TOL[torch.bfloat16])
+            e_k, e_p = ((x.float() - truth).abs().max().item() for x in (got, plain))
+            if e_k > max(e_p, 1e-6) or e_k > MLA_TRUTH_ATOL:
+                raise AssertionError(f"{name}: {e_k:.3e} from float32, the plain version "
+                                     f"{e_p:.3e} (limit {MLA_TRUTH_ATOL})")
+            print(f"check {name}: max abs err {err:.3e} against the plain version (atol="
+                  f"{TOL[torch.bfloat16][0]} rtol={TOL[torch.bfloat16][1]}); against float32 "
+                  f"{e_k:.3e}, the plain version's {e_p:.3e}")
+            out["err"] = max(out["err"], err)
+    timed = {}
+    for label, (b, s, h) in (("mla_prefill_attention 8192", (1, 8192, 16)),
+                             ("mla_prefill_attention tp rank", (1, 4096, 8)),
+                             ("mla_prefill_attention", (1, 4096, 16))):
+        ins = inputs(b, s, h)
+        q_nope, q_rope, k_nope, k_rope, v = ins
+        q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, 64)], dim=-1).transpose(1, 2)
+        vt = v.transpose(1, 2)
+        bound, by = mla_prefill_bound(b, h, s)
+        t = time_three(lambda: mla_prefill_attention_op(*ins, scale=scale),
+                       lambda: mla_prefill_attention_ref(*ins, scale=scale),
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q, k, vt, is_causal=True, scale=scale))
+        t.update(bound_ms=bound, bound_by=by,
+                 shape=f"q ({b},{s},{h},128+64) causal bf16, YaRN scale; library: SDPA, "
+                       f"k_rope expanded to every head")
+        report(label, t)
+        timed[label] = {f: t[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "shape")}
+        del ins, q, k, vt
+        torch.cuda.empty_cache()
+    out.update(t)
+    out["shapes"] = timed
+    return out
+
+
 def profile_decode(engine, prompts, gen_request, steps: int = 4) -> dict:
     """Where a decode step's time goes, on ``n_slots`` fresh requests (see
     :func:`profile_steps`)."""
@@ -1099,7 +1187,8 @@ HAND_WRITTEN = {"rmsnorm": ("rmsnorm_kernel",),
                 "paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
                 "moe_gmm": ("moe_gmm_kernel", "gmm_narrow_kernel", "gmm_wgmma_kernel"),
                 "ssd": ("ssd_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-                        "ssd_chunk_scan_kernel")}
+                        "ssd_chunk_scan_kernel"),
+                "mla_prefill": ("mla_prefill_kernel",)}
 
 
 def profile_steps(engine, steps: int) -> dict:
@@ -1306,7 +1395,8 @@ def paged_phase(cfg, params, seed: int):
     per_pass = 2 * cfg.n_layers + 1
     expect = {"rmsnorm": per_pass * (n_prefills + n_waves + n_extend),
               "flash_attention": cfg.n_layers * n_prefills,
-              "paged_attention": cfg.n_layers * (n_waves + n_extend), "moe_gmm": 0, "ssd": 0}
+              "paged_attention": cfg.n_layers * (n_waves + n_extend), "moe_gmm": 0, "ssd": 0,
+              "mla_prefill": 0}
     st = engine.kv_stats()
     print(f"paged: {n_prefills} prefill, {n_extend} extend waves, {n_waves} decode waves, "
           f"launches {counts}, expected {expect}")
@@ -1535,14 +1625,14 @@ def platform_phase(cfg, params, seed: int) -> dict:
         passes = calls["prefill"] + waves
         return ({"rmsnorm": (2 * eng.cfg.n_layers + 1) * passes,
                  "flash_attention": eng.cfg.n_layers * calls["prefill"],
-                 "paged_attention": 0, "moe_gmm": 0, "ssd": 0}, passes)
+                 "paged_attention": 0, "moe_gmm": 0, "ssd": 0, "mla_prefill": 0}, passes)
 
     def paged_expect(eng, calls, waves):
         passes = calls["prefill"] + calls["paged_wave"]
         return ({"rmsnorm": (2 * eng.cfg.n_layers + 1) * passes,
                  "flash_attention": eng.cfg.n_layers * calls["prefill"],
                  "paged_attention": eng.cfg.n_layers * calls["paged_wave"],
-                 "moe_gmm": 0, "ssd": 0}, passes)
+                 "moe_gmm": 0, "ssd": 0, "mla_prefill": 0}, passes)
 
     out, t0 = {}, time.perf_counter()
     engine = ContinuousEngine(cfg, params, n_slots=4, max_seq=256, device="cuda")
@@ -2375,10 +2465,10 @@ def tp_expect(cfg, prefills: int, passes) -> dict:
     mixer's gated norm in two passes on more than one rank), moe_gmm 3 a
     moe layer a pass, flash once a GQA layer an admission (none under MLA),
     ssd once a mamba layer an admission (a decode step runs the state
-    update in PyTorch)."""
+    update in PyTorch), mla_prefill once an MLA layer an admission."""
     return dict(forward_counts(cfg, passes),
                 flash_attention=0 if cfg.use_mla else cfg.n_attn_layers * prefills,
-                ssd=cfg.n_ssm_layers * prefills)
+                ssd=cfg.n_ssm_layers * prefills, mla_prefill=mla_kernel_layers(cfg) * prefills)
 
 
 def tp_one_rank(tag: str, cfg, seed: int, prompts) -> tuple:
@@ -3199,14 +3289,26 @@ def forward_counts(cfg, passes=1) -> dict:
     ``auto``: one rmsnorm a norm (none for the gelu encoder's LayerNorms;
     two for a Mamba2 mixer's gated norm on more than one rank), flash once
     a GQA attention layer (MLA has no flash twin), three moe_gmm a moe
-    layer, ssd once a mamba layer."""
+    layer, ssd once a mamba layer; no mla_prefill (a forward's MLA is the
+    einsum; a serving path adds :func:`mla_kernel_layers` an admission)."""
     by = _by_ranks(passes)
     passes = sum(by.values())
     moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
     return {"rmsnorm": 0 if cfg.act == "gelu" else sum(expected_norm_forms(cfg, by).values()),
             "flash_attention": (0 if cfg.use_mla else cfg.n_attn_layers) * passes,
             "paged_attention": 0, "moe_gmm": 3 * moe_layers * passes,
-            "ssd": cfg.n_ssm_layers * passes}
+            "ssd": cfg.n_ssm_layers * passes, "mla_prefill": 0}
+
+
+def mla_kernel_layers(cfg) -> int:
+    """The mla_prefill kernel's launches in one admission: once an MLA layer
+    where the prefill's attention core fits it (bf16 on the card at
+    DeepSeek-V2's head widths, ``attention._mla_kernel_fits``), else none."""
+    from repro_torch.kernels import mla_prefill as kern
+    fits = (cfg.use_mla and cfg.dtype == "bfloat16"
+            and (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim)
+            == (kern.NOPE_DIM, kern.ROPE_DIM, kern.V_DIM))
+    return cfg.n_layers if fits else 0
 
 
 def check_counts(tag: str, cfg, counts: dict, forms: dict, expect: dict, passes) -> dict:
@@ -3330,7 +3432,8 @@ def serving_summary(tag: str, run: dict, n_req: int, new_tok: int, init_peak: in
 def mla_phase(seed: int):
     """Full-width, full-depth deepseek-v2-lite-16b (bf16 weights from
     ``seed``) served through ContinuousEngine under ``kernel_impls="auto"``:
-    MLA attention in plain PyTorch over the latent cache, every norm on
+    each admission's MLA attention on the mla_prefill kernel, the absorbed
+    decode in plain PyTorch over the latent cache, every norm on
     rmsnorm, every MoE layer's experts on moe_gmm (the capacity path). 8
     requests of (512, 32), 4 slots, a drain after 4 steps and a resume;
     then ``ServingEngine.score`` on the same weights."""
@@ -3375,8 +3478,9 @@ def mla_phase(seed: int):
           f"{run['steps']} decode steps")
     if run["prefills"] != n_req + run["resumed"]:
         raise AssertionError(f"mla: {run['prefills']} prefills, expected {n_req + run['resumed']}")
-    counts = check_counts("mla", cfg, run["counts"], run["forms"], forward_counts(cfg, passes),
-                          passes)
+    counts = check_counts("mla", cfg, run["counts"], run["forms"],
+                          dict(forward_counts(cfg, passes),
+                               mla_prefill=mla_kernel_layers(cfg) * run["prefills"]), passes)
     serving = serving_summary("mla", run, n_req, new_tok, init_peak)
     serving["latent_cache_bytes"] = cache_bytes
     serving.update(profile_decode(engine, prompts, GenRequest))
@@ -5134,7 +5238,8 @@ def main(argv=None) -> int:
     print(f"dynamic shared memory: paged_split_kernel<bf16, 128, G 8> "
           f"{paged_lib.paged_attention_smem_bytes(128, 8, build.DTYPE_CODES[torch.bfloat16])} "
           f"bytes; gmm_wgmma_kernel {gmm_lib.moe_gmm_smem_bytes(192)} bytes; "
-          f"gmm_narrow_kernel {gmm_lib.moe_gmm_smem_bytes(8)} bytes")
+          f"gmm_narrow_kernel {gmm_lib.moe_gmm_smem_bytes(8)} bytes; mla_prefill_kernel "
+          f"{build.library('mla_prefill').mla_prefill_smem_bytes()} bytes")
 
     # each kernel phase draws from a generator of its own, so that a check
     # added to one phase leaves the other phases' inputs as they were
@@ -5157,6 +5262,7 @@ def main(argv=None) -> int:
     kern["paged_attention"] = phase("paged kernel", paged_kernel_phase, gen(1))
     kern["moe_gmm"] = phase("moe_gmm kernel", moe_kernel_phase, gen(2))
     kern["ssd"] = phase("ssd kernel", ssd_kernel_phase, gen(3))
+    kern["mla_prefill"] = phase("mla_prefill kernel", mla_prefill_kernel_phase, gen(6))
     counts, serving, cfg, params = phase("dense", slice_phase, args.seed)
     paged_counts, paged_serving = phase("paged", paged_phase, cfg, params, args.seed)
     serving.update(paged_serving)
@@ -5216,8 +5322,8 @@ def main(argv=None) -> int:
     print("launches by path: " + "; ".join(f"{k} {v}" for k, v in paths.items()))
     counts = {name: sum(c["rmsnorm_forms"].get(form, 0) for c in paths.values())
               for name, form in {**RMS_FORMS, **RMS_TP_FORMS}.items()}
-    for name in ("flash_attention", "paged_attention", "moe_gmm", "ssd"):
-        counts[name] = sum(c[name] for c in paths.values())
+    for name in ("flash_attention", "paged_attention", "moe_gmm", "ssd", "mla_prefill"):
+        counts[name] = sum(c.get(name, 0) for c in paths.values())
 
     rms_source = ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25")
     sources = {**dict.fromkeys({**RMS_FORMS, **RMS_TP_FORMS}, rms_source),
@@ -5227,7 +5333,9 @@ def main(argv=None) -> int:
                                    "src/repro/kernels/paged_attention.py:67"),
                "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                            "src/repro/kernels/moe_gmm.py:34"),
-               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:66")}
+               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:66"),
+               "mla_prefill": ("src/repro_torch/kernels/csrc/mla_prefill.cu",
+                               "none: repro leaves MLA's attention products to XLA")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
@@ -5238,7 +5346,7 @@ def main(argv=None) -> int:
              "unfused_ms": kern[name]["unfused_ms"]} if "unfused_ms" in kern[name] else {}),
          "shape": kern[name]["shape"]}
         for name in (*RMS_FORMS, *RMS_TP_FORMS, "flash_attention", "paged_attention", "moe_gmm",
-                     "ssd")]}
+                     "ssd", "mla_prefill")]}
     if not all(k["launches"] > 0 for k in line["kernels"]):
         raise AssertionError(f"a kernel of the path was not launched: {line}")
     print(json.dumps({"serving": serving, "card": smi}))

@@ -15,6 +15,8 @@ _EXPORTS = {
     "gated_rmsnorm_op": "repro_torch.kernels.ops",
     "gated_rmsnorm_ref": "repro_torch.kernels.ref",
     "launch_counts": "repro_torch.kernels.ops",
+    "mla_prefill_attention_op": "repro_torch.kernels.ops",
+    "mla_prefill_attention_ref": "repro_torch.kernels.ref",
     "moe_gmm_capacity": "repro_torch.kernels.ops",
     "moe_gmm_op": "repro_torch.kernels.ops",
     "moe_gmm_ref": "repro_torch.kernels.ref",

@@ -47,6 +47,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "moe_gmm_launch": [_P] * 4 + [_I] * 7 + [_P],
         "moe_gmm_smem_bytes": [_I],
     },
+    "mla_prefill": {
+        "mla_prefill_launch": [_P] * 6 + [_I] * 3 + [_L] * 17 + [_F, _P],
+        "mla_prefill_smem_bytes": [],
+    },
     "ssd": {
         "ssd_launch": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],
         "ssd_smem_bytes": [_I, _I, _I, _I],

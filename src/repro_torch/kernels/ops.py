@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mla_prefill as _mla
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -70,6 +71,13 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
+def mla_prefill_attention_op(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                             k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor, *,
+                             scale: float) -> torch.Tensor:
+    _refuse_grad("mla_prefill_attention_op", q_nope, q_rope, k_nope, k_rope, v)
+    return _mla.mla_prefill_attention(q_nope, q_rope, k_nope, k_rope, v, scale=scale)
+
+
 def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                        block_tables, context_lens, *,
                        scale: Optional[float] = None) -> torch.Tensor:
@@ -124,7 +132,8 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
     return out.reshape(e, c, rhs.shape[2])
 
 
-_COUNTERS = {"flash_attention": _flash, "paged_attention": _paged, "moe_gmm": _gmm, "ssd": _ssd}
+_COUNTERS = {"flash_attention": _flash, "paged_attention": _paged, "moe_gmm": _gmm, "ssd": _ssd,
+             "mla_prefill": _mla}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -77,6 +77,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def mla_prefill_attention_ref(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                              k_nope: torch.Tensor, k_rope: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """Causal MLA attention in its decompressed form, as
+    ``models/attention.py``'s einsum path computes it: the two score
+    products summed in the inputs' dtype, then float32 scores times
+    ``scale``, keys after the query masked to ``NEG_INF`` by index, the
+    softmax rounded to the inputs' dtype before the value product.
+    q_nope, k_nope: (B,S,H,Dn); q_rope: (B,S,H,Dr); k_rope: (B,S,Dr), one
+    key every head shares; v: (B,S,H,Dv). Returns (B,S,H,Dv)."""
+    s = q_nope.shape[1]
+    scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)).float() * scale
+    pos = torch.arange(s, device=q_nope.device)
+    scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
 def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool = True, window: Optional[int] = None,
                               scale: Optional[float] = None) -> torch.Tensor:

@@ -11,8 +11,15 @@ flash that never materialises the S^2 scores), then ``shard_activations``
 Dense-cache decode attention is the plain einsum over the cache, as in
 ``repro``; paged decode (:func:`paged_gqa_decode`) always goes through the
 paged-attention kernel, as in ``repro``. MLA has no kernel in ``repro``
-(``supported_kernel_sites`` leaves its attention site out), so its products
-stay plain PyTorch here too. Under ``shard_activations`` every site calls
+(``supported_kernel_sites`` leaves its attention site out), so no
+``kernel_impls`` site chooses one here either: the forward's MLA
+(:func:`mla_attention`, which training differentiates) and every MLA path
+off the card stay the einsum, while :func:`mla_prefill` on the card in
+bfloat16 at DeepSeek-V2's head widths, with nothing for autograd to
+record, always takes the hand-written ``mla_prefill_attention`` kernel
+(the scores stay out of device memory), as paged decode always takes its
+kernel. The absorbed MLA decode stays plain PyTorch. Under
+``shard_activations`` every site calls
 :func:`repro_torch.distributed.sharding.maybe_shard` with ``repro``'s axes.
 
 Under a tensor-parallel group ``tp`` the GQA paths take the rank's config
@@ -406,9 +413,27 @@ def mla_softmax_scale(cfg: ModelConfig) -> float:
     return scale
 
 
-def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
+def _mla_kernel_fits(ins) -> bool:
+    """Whether the ``mla_prefill_attention`` kernel takes these (q_nope,
+    q_rope, k_nope, k_rope, v): all bfloat16 on the card at the widths it is
+    built for, and nothing for autograd to record (the kernel has no
+    backward)."""
+    from repro_torch.kernels import mla_prefill as kern
+    q_nope, q_rope, _, _, v = ins
+    return (all(t.is_cuda and t.dtype == torch.bfloat16 for t in ins)
+            and (q_nope.shape[-1], q_rope.shape[-1], v.shape[-1])
+            == (kern.NOPE_DIM, kern.ROPE_DIM, kern.V_DIM)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in ins)))
+
+
+def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None,
+              kernel: bool = False):
     """Full-sequence MLA, decompressed formulation: (out (B,S,D), c_kv,
-    k_rope). Always causal, as in ``repro``."""
+    k_rope, whether the attention kernel ran). Always causal, as in
+    ``repro``. With ``kernel`` the attention core goes to
+    ``mla_prefill_attention_op`` (scores never in device memory, causal by
+    index) where :func:`_mla_kernel_fits`; everywhere else it is the
+    einsum."""
     b, s, _ = x.shape
     dt = x.dtype
     q_nope, q_rope = _mla_q(p, copy_in(x, tp), positions, cfg)
@@ -420,6 +445,12 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=
     q_nope = _shard(cfg, q_nope, BATCH_AXES, None, "model", None)
     k_nope = _shard(cfg, k_nope, BATCH_AXES, None, "model", None)
     v = _shard(cfg, v, BATCH_AXES, None, "model", None)
+    ins = (q_nope, q_rope, k_nope, kr, v)
+    if kernel and _mla_kernel_fits(ins):
+        from repro_torch.kernels.ops import mla_prefill_attention_op
+        out = mla_prefill_attention_op(*ins, scale=scale).reshape(
+            b, s, cfg.n_heads * cfg.v_head_dim)
+        return row_parallel(out, p["wo"].to(dt), tp), c_kv, k_rope, True
     scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, kr)).float() * scale
     scores = _shard(cfg, scores, BATCH_AXES, "model", None, None)
@@ -427,24 +458,34 @@ def _mla_full(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bhqs,bshd->bqhd", w, v).reshape(b, s, cfg.n_heads * cfg.v_head_dim)
-    return row_parallel(out, p["wo"].to(dt), tp), c_kv, k_rope
+    return row_parallel(out, p["wo"].to(dt), tp), c_kv, k_rope, False
 
 
 def mla_attention(p, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, tp=None) -> torch.Tensor:
-    """Full-sequence MLA (forward / scoring). x: (B,S,D)."""
+    """Full-sequence MLA (forward / scoring, the path training
+    differentiates): the einsum core under every policy. x: (B,S,D)."""
     return _mla_full(p, x, positions, cfg, tp)[0]
 
 
 def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, tp=None):
     """Full-sequence MLA that also returns the latent cache entries
-    (B,S,r+rope): c_kv ++ rope'd k_rope. Its span ``model.mla_prefill``
-    counts the ``tokens`` (B*S) and the ``score_bytes`` of the float32
-    scores it materialises (B*H*S*S*4, H the rank's heads)."""
+    (B,S,r+rope): c_kv ++ rope'd k_rope. Where :func:`_mla_kernel_fits`
+    (on the card in bfloat16 at DeepSeek-V2's head widths, nothing for
+    autograd to record), the attention core is the
+    ``mla_prefill_attention`` kernel (``positions`` must then be each row's
+    ``arange(S)``, as ``model._embed_inputs`` makes them: the kernel masks by
+    index); otherwise the einsum. Its span ``model.mla_prefill`` counts the
+    ``tokens`` (B*S) and the ``score_bytes`` of the float32 scores it
+    materialises (B*H*S*S*4 on the einsum, H the rank's heads; 0 where the
+    kernel ran, which also counts ``kernel`` 1)."""
     b, s = x.shape[0], x.shape[1]
     with spans.span("model.mla_prefill"):
-        spans.count(tokens=b * s, score_bytes=b * cfg.n_heads * s * s * 4)
-        out, c_kv, k_rope = _mla_full(p, x, positions, cfg, tp)
+        out, c_kv, k_rope, kernel = _mla_full(p, x, positions, cfg, tp, kernel=True)
+        if kernel:
+            spans.count(tokens=b * s, score_bytes=0, kernel=1)
+        else:
+            spans.count(tokens=b * s, score_bytes=b * cfg.n_heads * s * s * 4)
         return out, torch.cat([c_kv, k_rope], dim=-1)
 
 
