@@ -208,10 +208,9 @@ Run from the root of a checkout on a machine with one CUDA card. It
    training phase it times flash at 32k beside ``chunked_mha`` (its plain
    twin: the plain version's scores do not fit) and SDPA, holding the
    kernel against ``chunked_mha`` at float32 row block by row block
-   (relative L2 within ``FLASH_32K_REL_L2``), runs the four model-side
-   twins on the card (serving matrix ``--assert-equal``, paged KV
-   ``--assert-slot-ratio 2``, quickstart, elastic demo; each a path of
-   its own in the launch sums), and, after every timed phase, runs the
+   (relative L2 within ``FLASH_32K_REL_L2``), runs the two example twins
+   on the card (quickstart, elastic demo; each a path of its own in the
+   launch sums), and, after every timed phase, runs the
    dry run of the 40 cells on ``meta`` (32 ok, 8 skipped; qwen2.5-3b's
    parameter bytes on a 1 x 1 mesh equal to what the dense phase's
    parameters took on the card);
@@ -4858,7 +4857,7 @@ def training_phase(seed: int):
     return guard_counts, out
 
 
-# --- long prompts, the dry run and the model-side twins ---------------------------------------
+# --- long prompts, the dry run and the example twins ----------------------------------------
 LONG_PROMPT = 32_768   # prefill_32k's sequence (repro's SHAPES), one prompt
 # the chunked leg's profile runs on a cut of this many layers (every layer
 # does the same work at the same shapes): its whole-depth run launches about
@@ -5122,63 +5121,28 @@ def dryrun_phase(param_bytes_on_card: int) -> dict:
                       for r in recs}}
 
 
-def twins_phase(seed: int) -> tuple:
-    """The model-side benchmark and example twins on the card at their
-    smoke configs, each writing under a temporary directory: the serving
-    matrix (every arch, f32, ``--assert-equal``), paged KV
-    (``--assert-slot-ratio 2``, the paged kernel leg), the quickstart and
-    the elastic demo. Each twin's launches are read with the counts at 0
-    just before it."""
-    from repro_torch.benchmarks import paged_kv, serving_matrix
+def twins_phase() -> tuple:
+    """The example twins on the card at their smoke configs: the quickstart
+    and the elastic demo. Each twin's launches are read with the counts at
+    0 just before it."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts, rmsnorm_form_counts
     from repro_torch.launch import elastic_faas_demo, quickstart
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_twins_")
-    runs = {"serving_matrix": (serving_matrix.main, ["--assert-equal", "--out",
-                                                     f"{tmp}/BENCH_torch_serving_matrix.json"]),
-            "paged_kv": (paged_kv.main, ["--assert-slot-ratio", "2", "--out",
-                                         f"{tmp}/BENCH_torch_paged_kv.json"]),
-            "quickstart": (quickstart.main, []),
-            "elastic_faas_demo": (elastic_faas_demo.main, [])}
     counts, out = {}, {}
-    try:
-        for name, (main, argv) in runs.items():
-            reset_launch_counts()
-            t = time.perf_counter()
-            try:
-                res = main(argv)
-            except SystemExit as e:   # a twin's failed assertion
-                raise AssertionError(f"twin {name} exited {e.code}") from e
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            counts[name] = dict(launch_counts(), rmsnorm_forms=rmsnorm_form_counts())
-            out[name] = {"wall_s": wall, "launches": counts[name]}
-            print(f"twin {name}: wall {wall:.2f} s, launches {counts[name]}")
-            if name == "serving_matrix":
-                d = res["serving_matrix"]
-                out[name]["tok_s"] = {a: [(p["reference"]["tok_s"], p["kernel"]["tok_s"])
-                                          for p in rec["points"]]
-                                      for a, rec in d["archs"].items()}
-                if not d["all_tokens_equal"] or d["n_archs"] != 5:
-                    raise AssertionError(f"serving matrix: {d['n_archs']} archs, tokens equal "
-                                         f"{d['all_tokens_equal']}")
-            elif name == "paged_kv":
-                d = res["paged_kv"]
-                out[name].update(slot_ratio=d["slot_ratio"],
-                                 kernel_token_agreement=d["kernel_token_agreement"],
-                                 share_hit_rate=d["paged"]["kv"]["share_hit_rate"])
-                if d["kernel_launches"]["paged_attention"] == 0:
-                    raise AssertionError("paged_kv: the kernel leg launched no paged attention")
-            elif not all(np.isfinite(x) for x in res.values() if isinstance(x, float)):
-                raise AssertionError(f"twin {name}: {res}")
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for name, kernel in (("serving_matrix", "moe_gmm"), ("serving_matrix", "ssd"),
-                         ("serving_matrix", "flash_attention"), ("paged_kv", "paged_attention")):
-        if counts[name][kernel] == 0:
-            raise AssertionError(f"twin {name} launched no {kernel}")
+    for name, main in (("quickstart", quickstart.main),
+                       ("elastic_faas_demo", elastic_faas_demo.main)):
+        reset_launch_counts()
+        t = time.perf_counter()
+        res = main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts[name] = dict(launch_counts(), rmsnorm_forms=rmsnorm_form_counts())
+        out[name] = {"wall_s": wall, "launches": counts[name]}
+        print(f"twin {name}: wall {wall:.2f} s, launches {counts[name]}")
+        if not all(np.isfinite(x) for x in res.values() if isinstance(x, float)):
+            raise AssertionError(f"twin {name}: {res}")
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts, out
 
 
@@ -5295,7 +5259,7 @@ def main(argv=None) -> int:
     serving.update(stablelm_serving)
     guard_counts, serving["training"] = phase("training", training_phase, args.seed)
     serving["flash_32k"] = phase("flash 32k", flash_32k_phase, gen(5))
-    twin_counts, serving["twins"] = phase("twins", twins_phase, args.seed)
+    twin_counts, serving["twins"] = phase("twins", twins_phase)
     serving["dryrun"] = phase("dryrun", dryrun_phase, serving["param_bytes_on_card"])
     walls["total"] = time.perf_counter() - t0
     serving["phase_wall_s"] = walls

@@ -11,7 +11,6 @@ unbroken gang and ``repro``'s replica on one device, token for token and
 across the packages and mesh shapes. The port has no tensor parallelism
 across cards: a mesh over two distinct devices raises.
 """
-import json
 import os
 import subprocess
 import sys
@@ -431,26 +430,3 @@ def test_device_none_raises_without_cuda(qwen, monkeypatch):
         ElasticReplica(tc, tp, 2)
     rep = ElasticReplica(tc, tp, 3, n_slots=1, device="cpu")
     assert (rep.n_members, rep.mesh_size) == (3, 1)
-
-
-# --- the benchmark twin -----------------------------------------------------------------------
-def test_elastic_serving_benchmark_cli_on_cpu(tmp_path):
-    out = tmp_path / "bench.json"
-    r = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.elastic_serving",
-                        "--device", "cpu", "--smoke", "--out", str(out)],
-                       capture_output=True, text=True, timeout=300,
-                       env={**os.environ, "PYTHONPATH": str(SRC)})
-    assert r.returncode == 0, r.stderr
-    detail = json.loads(out.read_text())
-    for size in ("3b", "13b"):
-        assert detail[f"{size}_migrate"]["goodput_s"] > detail[f"{size}_lose"]["goodput_s"]
-    leg = detail["torch_migration"]
-    assert leg["device"] == {"type": "cpu", "name": "cpu"}
-    for mode in ("migrate", "replay"):
-        assert leg[mode]["tokens_equal"] is True and leg[mode]["n_migrations"] == 1
-    r = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.elastic_serving",
-                        "--device", "cpu", "--smoke", "--out",
-                        str(tmp_path / "BENCH_elastic_serving.json")],
-                       capture_output=True, text=True, timeout=300,
-                       env={**os.environ, "PYTHONPATH": str(SRC)})
-    assert r.returncode == 2 and "reference" in r.stderr

@@ -955,6 +955,49 @@ def test_elastic_replica_shrinks_mid_stream_on_card(cuda):
     assert all(len(t) == 8 for t in golden.values())
 
 
+# the kernel each decoder family's auto leg must launch, besides rmsnorm
+AUTO_KERNEL = {"qwen2.5-3b": "flash_attention", "mixtral-8x22b": "moe_gmm",
+               "deepseek-v2-lite-16b": "moe_gmm", "mamba2-2.7b": "ssd", "zamba2-2.7b": "ssd"}
+
+
+@pytest.mark.parametrize("arch", list(AUTO_KERNEL))
+def test_auto_and_reference_serve_the_same_tokens_on_card(cuda, arch):
+    """The card twin of ``test_torch_serving.py``'s test of that name: at
+    float32 and temperature 0, ``ContinuousEngine`` on the card serves the
+    same tokens under ``kernel_impls="auto"`` as under ``"reference"`` (4
+    requests of 12 tokens, 8 new, on 2 slots, one fresh engine a leg); the
+    auto leg launches the family's kernel and rmsnorm, the reference leg
+    no kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12).tolist() for _ in range(4)]
+    legs, launches = {}, {}
+    for impls in ("auto", "reference"):
+        engine = ContinuousEngine(with_kernel_impls(cfg, impls), params, n_slots=2, max_seq=28,
+                                  device=cuda)
+        for i, p in enumerate(prompts):
+            engine.add(GenRequest(id=i, prompt=p, max_new=8))
+        before = ops.launch_counts()
+        legs[impls] = {r.id: list(r.generated) for r in engine.run()}
+        torch.cuda.synchronize()
+        launches[impls] = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert legs["auto"] == legs["reference"]
+    assert sorted(legs["auto"]) == [0, 1, 2, 3]
+    assert all(len(t) == 8 for t in legs["auto"].values())
+    assert launches["auto"][AUTO_KERNEL[arch]] > 0 and launches["auto"]["rmsnorm"] > 0, launches
+    assert not any(launches["reference"].values()), launches
+
+
 def _smoke_tp_rank(tp, prompts):
     """One of two gloo ranks on the card (``spawn_tp``): a smoke
     ``ElasticReplica`` over the group at float32 under ``auto``, unbroken and

@@ -6,8 +6,8 @@ twins of ``tests/test_dryrun.py`` on the meta-device dry run (its input
 specs, skip matrix and FLOP scaling; in place of the HLO collective parser,
 which has no torch twin, a record's empty ``coll`` and even partition),
 full-size ``run_cell`` on ``meta`` for a decode, a prefill and a train cell
-with the depth probes equal to the full-depth count, the CLI, and the four
-model-side benchmark and example twins at ``--device cpu --smoke``.
+with the depth probes equal to the full-depth count, the CLI, and the two
+example twins (quickstart, elastic demo) at ``--device cpu --smoke``.
 """
 import json
 
@@ -257,7 +257,7 @@ def test_dryrun_cli(tmp_path):
         D.main(["--out", str(tmp_path / "dryrun.json")])
 
 
-# --- the model-side benchmark and example twins ---------------------------------------------
+# --- the example twins ---------------------------------------------------------------------
 @pytest.fixture
 def one_thread():
     """The twins run thousands of tiny ops on smoke models: with the other
@@ -267,31 +267,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def test_serving_matrix_twin(tmp_path, one_thread):
-    from repro_torch.benchmarks import serving_matrix
-    d = serving_matrix.main(["--device", "cpu", "--smoke", "--assert-equal",
-                             "--out", str(tmp_path / "BENCH_torch_serving_matrix_smoke.json")])
-    d = d["serving_matrix"]
-    assert d["all_tokens_equal"] and d["n_archs"] == 3
-    assert d["archs"]["mamba2-2.7b"]["kernel_sites"] == ("rmsnorm", "ssm")
-    for arch, rec in d["archs"].items():
-        for p in rec["points"]:   # on the CPU the plain versions launch nothing
-            assert not any(p["reference"]["launches"].values()), arch
-            assert not any(p["kernel"]["launches"].values()), arch
-    with pytest.raises(SystemExit):
-        serving_matrix.main(["--device", "cpu", "--out", "results/BENCH_serving_matrix.json"])
-
-
-def test_paged_kv_twin(tmp_path, one_thread):
-    from repro_torch.benchmarks import paged_kv
-    d = paged_kv.main(["--device", "cpu", "--smoke", "--requests", "8",
-                       "--assert-slot-ratio", "2",
-                       "--out", str(tmp_path / "BENCH_torch_paged_kv_smoke.json")])["paged_kv"]
-    assert d["outputs_match"] and d["resume_outputs_match"] and d["slot_ratio"] >= 2
-    assert d["kernel_token_agreement"] == 1.0
-    assert d["kernel_launches"]["paged_attention"] == 0   # the plain version on the CPU
 
 
 def test_quickstart_twin(one_thread):
@@ -309,10 +284,8 @@ def test_elastic_faas_demo_twin(one_thread):
 
 
 def test_twins_need_cuda_unless_asked_for_cpu(monkeypatch):
-    from repro_torch.benchmarks import paged_kv, serving_matrix
     from repro_torch.launch import elastic_faas_demo, quickstart
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (serving_matrix.main, paged_kv.main, quickstart.main, elastic_faas_demo.main):
+    for main in (quickstart.main, elastic_faas_demo.main):
         with pytest.raises(RuntimeError, match='device="cpu"'):
-            main(["--smoke", "--out", "unused.json"] if main in (serving_matrix.main,
-                                                                  paged_kv.main) else [])
+            main([])

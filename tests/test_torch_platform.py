@@ -15,7 +15,6 @@ counters too.
 import ast
 import dataclasses
 import itertools
-import json
 import os
 import subprocess
 import sys
@@ -391,7 +390,7 @@ def test_platform_with_real_decodes_equals_repro(qwen, layout, fresh_ids):
     assert all(len(s) == 8 for runs in tx.streams.values() for s in runs)
 
 
-# --- the twin CLIs -----------------------------------------------------------------------
+# --- the twin CLI ------------------------------------------------------------------------
 def _cli(*args):
     return subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
                           env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=300)
@@ -402,16 +401,3 @@ def test_harvest_serving_cli_on_cpu():
     assert r.returncode == 0, r.stderr
     assert "2 simulated minutes" in r.stdout and "on cpu" in r.stdout
     assert "batched decode" in r.stdout
-
-
-def test_serving_batching_cli_on_cpu(tmp_path):
-    out = tmp_path / "bench.json"
-    r = _cli("repro_torch.benchmarks.serving_batching", "--device", "cpu", "--smoke",
-             "--out", str(out))
-    assert r.returncode == 0, r.stderr
-    detail = json.loads(out.read_text())["serving_batching"]
-    assert detail["outputs_match"] is True
-    assert detail["device"] == {"type": "cpu", "name": "cpu"}
-    r = _cli("repro_torch.benchmarks.serving_batching", "--device", "cpu", "--smoke",
-             "--out", str(tmp_path / "BENCH_serving_batching.json"))
-    assert r.returncode == 2 and "reference" in r.stderr

@@ -3,11 +3,14 @@
 Temperature-0 token streams at float32 on the qwen2.5-3b smoke config must
 equal the JAX ``ContinuousEngine``/``ServingEngine`` streams: batched ==
 sequential, drain/resume == uninterrupted, and early EOS (the eos picked by
-its first occurrence in the stream). The rules: the port imports no JAX and
+its first occurrence in the stream). On one decoder of each family the
+engine serves the same tokens under ``kernel_impls="auto"`` as under
+``"reference"``. The rules: the port imports no JAX and
 no ``repro`` module, an entry point not given ``device="cpu"`` raises
 without CUDA, and the CLI serves on the CPU.
 """
 import ast
+import dataclasses
 import os
 import signal
 import subprocess
@@ -21,6 +24,8 @@ import torch
 from _torch_parity import configs, params
 from repro.serving.engine import ContinuousEngine as JaxContinuousEngine
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.configs import get_config, with_kernel_impls
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.models import model as tmodel
 from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import ContinuousEngine, PagedContinuousEngine, ServingEngine
@@ -147,6 +152,32 @@ def test_kv_stats_and_grown_cache_match_jax(setup):
     np.testing.assert_allclose(seq.score(toks), want, atol=5e-5, rtol=5e-4)
 
 
+# one decoder of each family: gqa, moe+swa, mla+moe, ssm, hybrid
+DECODER_ARCHS = ("qwen2.5-3b", "mixtral-8x22b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
+def test_auto_and_reference_serve_the_same_tokens(arch):
+    """At float32 and temperature 0, ``ContinuousEngine`` serves the same
+    tokens under ``kernel_impls="auto"`` as under ``"reference"``: 4
+    requests of 12 tokens, 8 new, on 2 slots, one fresh engine a leg. On
+    the CPU ``auto`` runs the kernels' plain versions; the card twin is in
+    ``test_torch_kernels_gpu.py``."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12).tolist() for _ in range(4)]
+    before = launch_counts()
+    legs = {impls: _serve(ContinuousEngine(with_kernel_impls(cfg, impls), params, n_slots=2,
+                                           max_seq=28, device="cpu"), prompts, max_new=8)
+            for impls in ("auto", "reference")}
+    assert launch_counts() == before   # the plain versions launch nothing
+    assert legs["auto"] == legs["reference"]
+    assert sorted(legs["auto"]) == [0, 1, 2, 3]
+    assert all(len(t) == 8 for t in legs["auto"].values())
+
+
 # --- the port's rules -------------------------------------------------------------
 def test_port_imports_no_jax_and_no_repro():
     """Import every module of the port in a fresh interpreter: neither JAX
@@ -182,7 +213,6 @@ def test_no_jax_or_repro_import_in_port_sources():
 def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
     _, tc, _, tp = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch.benchmarks import elastic_serving, serving_batching
     from repro_torch.distributed.elastic_serving import ElasticReplica
     from repro_torch.platform.elastic import build_sharded_serving
     from repro_torch.launch import harvest_serving, serve
@@ -203,8 +233,6 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
         lambda: build_batched_serving(None, kv_layout="paged"),
         lambda: build_serving(None),
         lambda: harvest_serving.main(["--minutes", "1"]),
-        lambda: serving_batching.bench_serving(n_requests=1),
-        lambda: elastic_serving.torch_migration_cell(),
         lambda: ElasticReplica(tc, tp, 2),
         lambda: build_sharded_serving(None),
     ]
