@@ -13,7 +13,8 @@ Run from the root of a checkout on a machine with one CUDA card. It
    160, flash not causal at hubert-xlarge's head_dim 80 and at one tensor-
    parallel rank's shape of qwen2.5-3b, 8 query heads on one KV head,
    ``moe_gmm`` at
-   deepseek-v2-lite-16b's 64 experts of 1408) and times kernel, plain
+   deepseek-v2-lite-16b's 64 experts of 1408, also at a 4096-token
+   admission's dropless buffer) and times kernel, plain
    version and a library yardstick (CUDA events); the rmsnorm kernel's three forms (plain, residual add, Mamba2
    gate) at rows 1 to 777 of every width the configs norm, the residual
    form's outputs bit for bit against ``torch.add`` and the plain kernel,
@@ -283,11 +284,16 @@ SLICE_TOL = (1e-3, 1e-3)
 # this script read them on an H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table): paged attention and the grouped matmul before their split-KV and
 # tensor-core designs; flash attention (fp32 FMAs) and ssd (one CTA per
-# (batch, head), fp32 FMAs) before their tensor-core designs
+# (batch, head), fp32 FMAs) before their tensor-core designs; the grouped
+# matmul's wide tile at a 4096-token admission before its TMA-fed design
+# (192-row tiles staged by cp.async), timed on the same construction with
+# other routing draws
 PREVIOUS_MS = {"paged_attention": 0.52284, "moe_gmm decode": 1.65361,
                "moe_gmm prefill": 10.13531, "flash_attention": 0.17507,
                "flash_attention head_dim 80": 0.21983, "ssd mamba2": 0.54182,
-               "ssd zamba2": 0.36733, "rmsnorm": 0.00192, "rmsnorm prefill": 0.00335}
+               "ssd zamba2": 0.36733, "rmsnorm": 0.00192, "rmsnorm prefill": 0.00335,
+               "moe_gmm deepseek s4096 admission w_gate/w_up": 0.96090,
+               "moe_gmm deepseek s4096 admission w_down": 1.10433}
 # the rmsnorm kernel's forms by the name of their wrapper (kernels/rmsnorm.py)
 RMS_FORMS = {"rmsnorm": "plain", "add_rmsnorm": "residual", "gated_rmsnorm": "gated"}
 # the gated norm split over ranks (a row's channels on several ranks): its
@@ -564,14 +570,17 @@ def paged_bound(lens, h, kv, d, bs, dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def gmm_bound(lhs, rhs, te):
+def gmm_bound(lhs, rhs, te, rows=None, used=None):
     """(bound ms, 'bytes' | 'operations') for one grouped matmul on these
     inputs: lhs, the rhs experts the tiles use and out moved once, te read;
-    2*T*D*F operations."""
+    2*T*D*F operations. ``rows`` and ``used`` count only the rows that carry
+    a token and the experts that received rows (a dropless buffer's padding
+    rows and slack tiles carry none), as ``harvest_bench``'s bound does."""
     t, d = lhs.shape
     f = rhs.shape[2]
     elt = lhs.element_size()
-    used = int(torch.unique(te).numel())
+    used = int(torch.unique(te).numel()) if used is None else used
+    t = t if rows is None else rows
     bytes_ = t * d * elt + used * d * f * elt + t * f * elt + te.numel() * 4
     flops = 2 * t * d * f
     t_ops, t_bytes = flops / PEAK_FLOPS[lhs.dtype], bytes_ / PEAK_BYTES_PER_S
@@ -601,10 +610,10 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
     # an expert, which gives the same bits), w_gate/w_up and w_down shapes,
     # then small float32 cases
     d_model, d_ff, e_full = 6144, 16384, 8
-    # deepseek-v2-lite-16b: 64 experts, moe_d_ff 1408 (not a multiple of the
-    # 256-column CTA tile); cap 8 at the 4-slot decode wave, 64 at a
-    # 512-token prefill, 120 at a forward of (2, 512) (checked at block_t 8
-    # under the 192-row tile, and at the path's 120)
+    # deepseek-v2-lite-16b: 64 experts, moe_d_ff 1408 (not a multiple of
+    # 256 columns); cap 8 at the 4-slot decode wave, 64 at a 512-token
+    # prefill, 120 at a forward of (2, 512) (checked at block_t 8 under the
+    # 128-row tile, and at the path's 120)
     ds_d, ds_f, ds_e = 2048, 1408, 64
     cases = [(64, d_model, d_ff, e_full, 8, torch.bfloat16, "decode w_gate/w_up"),
              (64, d_ff, d_model, e_full, 8, torch.bfloat16, "decode w_down"),
@@ -679,6 +688,44 @@ def moe_kernel_phase(gen: torch.Generator) -> dict:
                         f"block_t {bt} bf16, {row_tile(t, e)}-row tiles; plain timed "
                         f"eager (it waits for the device); library: torch.bmm over the "
                         f"(E, C, D) capacity buffer")
+        report(f"moe_gmm {label}", tm)
+        res[label] = tm
+        del lhs, rhs, buf
+
+    # deepseek's median extract16 admission, s = 4096 tokens of top-6 over
+    # 64 experts, as models/moe.py's dropless path lays it out: 24,576 picks
+    # in groups padded to 128 rows, t 32,768 launched (the slack tiles on
+    # the last expert); bound on the rows that carry a token
+    for d, f, label in ((ds_d, ds_f, "deepseek s4096 admission w_gate/w_up"),
+                        (ds_f, ds_d, "deepseek s4096 admission w_down")):
+        s_tok, k, bt = 4096, 6, 128
+        picks = torch.rand(s_tok, ds_e, device=dev, generator=gen).topk(k, dim=1).indices
+        sizes = torch.bincount(picks.reshape(-1), minlength=ds_e).to(torch.int32)
+        t = (s_tok * k + bt - 1) // bt * bt + ds_e * bt
+        _, offs = pad_group_sizes(sizes, bt)
+        lhs = torch.zeros(t, d, device=dev, dtype=torch.bfloat16)
+        for n, o in zip(sizes.tolist(), offs[:-1].tolist()):
+            lhs[o:o + n] = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+        rhs = (torch.randn(ds_e, d, f, device=dev, generator=gen) * d ** -0.5).to(torch.bfloat16)
+        te = (torch.searchsorted(offs, torch.arange(t // bt, device=dev, dtype=torch.int32) * bt,
+                                 right=True) - 1).clamp(0, ds_e - 1).to(torch.int32)
+        buf = lhs.view(ds_e, t // ds_e, d)
+        name = f"moe_gmm {label} lhs ({t},{d}) rhs ({ds_e},{d},{f}) block_t {bt}"
+        err = check_close(name, moe_gmm_op(lhs, rhs, te, block_t=bt),
+                          moe_gmm_tiles_ref(lhs, rhs, te, bt), TOL[torch.bfloat16])
+        print(f"check {name}: max abs err {err:.3e}, {row_tile(t, ds_e)}-row tiles")
+        res["err"] = max(res["err"], err)
+        check_repeat(f"moe_gmm {label}", lambda: moe_gmm_op(lhs, rhs, te, block_t=bt))
+        rows, used = int(sizes.sum()), int((sizes > 0).sum())
+        bound, by = gmm_bound(lhs, rhs, te, rows=rows, used=used)
+        tm = time_three(lambda: moe_gmm_op(lhs, rhs, te, block_t=bt),
+                        lambda: moe_gmm_tiles_ref(lhs, rhs, te, bt),
+                        lambda: torch.bmm(buf, rhs), plain_graph=False)
+        tm.update(bound_ms=bound, bound_by=by,
+                  shape=f"{label}: lhs ({t},{d}) rhs ({ds_e},{d},{f}) block_t {bt} bf16, "
+                        f"{rows} rows carry a token over {used} experts (the bound's), "
+                        f"{row_tile(t, ds_e)}-row tiles; plain timed eager; library: "
+                        f"torch.bmm over the buffer as ({ds_e}, {t // ds_e}, {d})")
         report(f"moe_gmm {label}", tm)
         res[label] = tm
         del lhs, rhs, buf
@@ -5201,7 +5248,7 @@ def main(argv=None) -> int:
     paged_lib, gmm_lib = build.library("paged_attention"), build.library("moe_gmm")
     print(f"dynamic shared memory: paged_split_kernel<bf16, 128, G 8> "
           f"{paged_lib.paged_attention_smem_bytes(128, 8, build.DTYPE_CODES[torch.bfloat16])} "
-          f"bytes; gmm_wgmma_kernel {gmm_lib.moe_gmm_smem_bytes(192)} bytes; "
+          f"bytes; gmm_wgmma_kernel {gmm_lib.moe_gmm_smem_bytes(128)} bytes; "
           f"gmm_narrow_kernel {gmm_lib.moe_gmm_smem_bytes(8)} bytes; mla_prefill_kernel "
           f"{build.library('mla_prefill').mla_prefill_smem_bytes()} bytes")
 

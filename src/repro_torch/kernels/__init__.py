@@ -18,6 +18,7 @@ _EXPORTS = {
     "mla_prefill_attention_op": "repro_torch.kernels.ops",
     "mla_prefill_attention_ref": "repro_torch.kernels.ref",
     "moe_gmm_capacity": "repro_torch.kernels.ops",
+    "moe_gmm_form_counts": "repro_torch.kernels.ops",
     "moe_gmm_op": "repro_torch.kernels.ops",
     "moe_gmm_ref": "repro_torch.kernels.ref",
     "moe_gmm_schedule_ref": "repro_torch.kernels.ref",

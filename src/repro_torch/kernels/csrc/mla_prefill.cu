@@ -49,10 +49,10 @@
 // strides (dims D, H, S, B innermost first): every base address and stride
 // a multiple of 16 bytes, which the wrapper ensures. A barrier wait that
 // outlasts about two seconds traps rather than hanging the card.
-#include <cuda.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -73,7 +73,6 @@ constexpr int kVOffset = 3 * kBlockK;
 constexpr int kStageBytes = kVOffset + 2 * kBlockK;
 constexpr int kBarOffset = kQBytes + kStages * kStageBytes;  // full[4], empty[4], q
 constexpr size_t kSmem = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + room to align to 1 KB
-constexpr long long kWaitCycles = 1ll << 32;                      // about 2 s
 
 struct Maps {  // TMA tensor maps of the operands
   CUtensorMap qn, qr, kn, kr, v;
@@ -85,78 +84,6 @@ struct Args {
   float scale_log2;  // scale * log2(e)
   long long o_b, o_s, o_h;
 };
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed; trap after
-// kWaitCycles, so a fault in the ring ends the kernel with an error.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > kWaitCycles) __trap();
-  }
-}
-
-// TMA: the box at coordinates (c0, ...) innermost first into shared memory
-// at `dst`, its bytes counted on the mbarrier `bar`
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes across wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 64, fp32) (+)= a (64 x 16, K-major, smem) * b (16 x 64, K-major
 // smem: [keys][depth]); `accumulate` 0 overwrites d
@@ -287,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                smem_desc(k_addr + blk * kBlockK + off, 0, 1024), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // online softmax on the accumulators: register 4 n + v holds row
@@ -336,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kk = 0; kk < kKeys / 16; ++kk)
       wgmma_pv(o_acc, pa[kk], smem_desc(v_addr + 2048 * kk, kBlockK, 1024));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(o_acc);
     mbar_arrive(empty + 8 * st);  // this thread's reads of the stage are done
   }
@@ -359,56 +286,6 @@ __global__ void __launch_bounds__(kThreads, 1)
           __floats2bfloat162_rn(o_acc[4 * n + 2 * r] * inv, o_acc[4 * n + 2 * r + 1] * inv);
   }
 }
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (no link
-// against libcuda); null where it is missing.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 operand of `rank` dims (innermost first: width, then the rest),
-// `strides` in elements for dims 1.., boxes of 64 columns x `rows` of dim
-// `row_dim`; a dim of size 1 gets a stride from the dims inside it.
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank,
-                const long long* dims, const long long* strides, int row_dim, int rows) {
-  cuuint64_t gdim[4], gstride[3];
-  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
-  long long inner = 2 * dims[0];  // bytes of the dims inside
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    box[i] = i == 0 ? 64 : i == row_dim ? rows : 1;
-    if (i > 0) {
-      gstride[i - 1] = static_cast<cuuint64_t>(dims[i] == 1 ? inner : 2 * strides[i - 1]);
-      inner = static_cast<long long>(gstride[i - 1]) * dims[i];
-    }
-  }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// a failed encode: its CUresult offset past the runtime's error codes
-constexpr int kEncodeError = 10000;
-
 
 }  // namespace
 

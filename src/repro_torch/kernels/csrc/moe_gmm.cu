@@ -16,41 +16,65 @@
 // 258 GFLOP (0.26 ms at 989 TFLOP/s): bytes again, by less, so the products
 // must run on the tensor cores and each rhs byte must leave HBM about once.
 //
-// Design, bf16: products on the tensor cores with fp32 accumulators, from
-// bf16 tiles that 16-byte cp.async copies stage in a ring of 4 shared-memory
-// stages. Each CTA reads the tile_expert entries it needs itself. The
+// Design, bf16: products on the tensor cores with fp32 accumulators. The
 // wrapper picks one of two row tiles from T and E:
-// - wide (gmm_wgmma_kernel; prefill, T >= 32 E): a CTA owns 192 rows x 128
-//   columns, three warpgroups of 64 rows, each issuing wgmma.m64n128k16
-//   from shared memory (lhs K-major, rhs N-major, both in the 128-byte
-//   swizzle, written so by the copies; fence.proxy.async before the
-//   products). Row tiles are cut per run of equal expert, from the run's
-//   first row (a CTA scans tile_expert to find its tile), so a tile spans
-//   several row tiles of one expert and never two: each of mixtral's
-//   160-row runs is one tile, so one CTA streams each 128-column slab of an
-//   expert's weights and rhs leaves HBM once. A warpgroup whose rows are
-//   all past the run's end takes no products.
+// - wide (gmm_wgmma_kernel; prefill, T >= 32 E): at a long admission
+//   (deepseek at s = 4096: t 32,768 launched rows, D and F 1408-2048) a
+//   call is bound by operations, not bytes, so the tensor cores must not
+//   wait. A persistent kernel, one CTA an SM, whose CTAs walk output tiles
+//   of 128 rows x 256 columns, with warps in two roles. One producer warp
+//   keeps TMA loads in flight into a ring of 192 KB (4 stages of depth
+//   64), each stage
+//   guarded by a "full" mbarrier (its bytes have landed) and an "empty"
+//   one (every consumer warp is done with it): lhs as a 2-D tensor map
+//   over (T, D), rhs as a 3-D map over (E, D, F) in boxes of 64 columns,
+//   both in the 128-byte swizzle that wgmma reads; TMA zero-fills the D,
+//   F and T edges (no padding copy), and boxes wholly past F are not
+//   loaded. Two consumer warpgroups of 64 rows each issue a stage's four
+//   wgmma.m64n256k16 back to back, commit them and wait with
+//   wgmma.wait_group 1, so one stage's products overlap the next stage's
+//   arrival, then release the stage before; no block-wide barrier after
+//   the start. A tile's fp32 accumulators go out as bf16 through a
+//   swizzled buffer of shared memory and TMA stores, which drain while the
+//   consumers start the next tile's products (the producer is already
+//   loading its stages); a warpgroup whose rows cross a run's end stores
+//   its elements itself. Storing from registers straight to device memory
+//   took a fifth of the time at deepseek's shapes (PERF.md). Row tiles are
+//   cut per run of equal (clamped) expert, from
+//   the run's first row, and never span two experts: the dropless path's
+//   runs are whole multiples of block_t 128, so each is cut into whole
+//   tiles; each warp finds the runs by walking tile_expert forward 32
+//   entries at a time. Rows past a run's end are loaded but never stored;
+//   a warpgroup whose rows all lie past it takes no products. The tiles'
+//   order (row tile slow, column slab fast) keeps the CTAs at work at one
+//   time on a few neighbouring row tiles, so lhs and each expert's
+//   weights leave HBM about once. Shapes TMA cannot describe (D or F not
+//   a multiple of 8, a base not 16-byte aligned) go to the narrow tile,
+//   which takes any shape.
 // - narrow (gmm_narrow_kernel; decode, 8 rows an expert): a CTA owns 8 rows
 //   x 128 columns and computes out^T = rhs^T lhs^T with mma.sync.m16n8k16,
 //   the 8 rows as the mma's n = 8 side (no padded rows), fed by ldmatrix
-//   from rows padded by 16 bytes (no bank read twice); each thread's copy
-//   addresses are set up once per run. Each CTA streams its expert's
-//   128-column slab once, 64 rows deep a stage, 52 KB in flight. It walks
-//   the runs of equal expert among its 8 rows, one pass per run with the
-//   other rows' lhs zero-filled, so any block_t is right. Every CTA walks
-//   all of D: mixtral's decode w_down shape (D 16384) already makes 384
-//   CTAs, and splitting D over CTAs measured slower there.
-// The F, D and T edges are masked in the kernel (zero-filled copies; no
-// padding copy of rhs). Where D or F is not a multiple of 8 (rows not
-// 16-byte aligned) both operands are staged by scalar loads instead. No
-// atomics: repeated calls give the same bits.
+//   from rows padded by 16 bytes (no bank read twice), staged by 16-byte
+//   cp.async copies in a ring of 4 stages; each thread's copy addresses
+//   are set up once per run. Each CTA streams its expert's 128-column slab
+//   once, 64 rows deep a stage, 52 KB in flight. It walks the runs of
+//   equal expert among its 8 rows, one pass per run with the other rows'
+//   lhs zero-filled, so any block_t is right. Every CTA walks all of D:
+//   mixtral's decode w_down shape (D 16384) already makes 384 CTAs, and
+//   splitting D over CTAs measured slower there. The F, D and T edges are
+//   masked (zero-filled copies); where D or F is not a multiple of 8 (rows
+//   not 16-byte aligned) both operands are staged by scalar loads instead.
+// No atomics and no split of D: repeated calls give the same bits.
 //
 // Design, float32: fp32 FMAs on the CUDA cores, no TF32 (a CTA owns a
 // BM x 256 tile, BM the largest of 64/32/16/8 dividing block_t,
 // double-buffered fp32 chunks of 16).
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -446,213 +470,317 @@ __global__ void __launch_bounds__(kNThreads) gmm_narrow_kernel(GmmArgs g) {
 
 
 // ---------------------------------------------------------------------------
-// wide: wgmma (sm_90a), 3 warpgroups of 64 rows x 128 columns
+// wide: persistent, warp-specialised, TMA-fed wgmma (sm_90a)
 // ---------------------------------------------------------------------------
-// A stage holds lhs 192 rows x 64 depth (K-major) and rhs 64 depth x 128
-// columns (N-major, two atoms of 64 columns), both in the 128-byte swizzle:
-// the 16-byte chunk c of a 128-byte row r sits at chunk c ^ (r % 8), and
-// atoms of 8 such rows (1 KB) start on 1 KB boundaries. 40 KB a stage, 4
-// stages: one CTA an SM.
-constexpr int kGWarpgroups = 3, kGM = 64 * kGWarpgroups, kGN = 128, kGK = 64, kGStages = 4;
-constexpr int kGThreads = 128 * kGWarpgroups;
-constexpr size_t kGStage = (kGM * kGK + kGK * kGN) * sizeof(bf16);
-constexpr size_t kGSmem = kGStages * kGStage + 1024;  // + room to align to 1 KB
+// A tile is 128 rows (two consumer warpgroups of 64) x 256 columns. A stage
+// holds lhs 128 rows x 64 depth (K-major, one TMA box) and rhs 64 depth x
+// 256 columns (N-major, four boxes of 64 columns), both in the
+// 128-byte swizzle that TMA writes and wgmma reads: the 16-byte chunk c of
+// a 128-byte row r sits at chunk c ^ (r % 8), each box on a 1 KB boundary.
+constexpr int kWM = 128, kWN = 256, kWK = 64;
+constexpr int kWConsumers = 256;             // two warpgroups
+constexpr int kWThreads = kWConsumers + 32;  // and the producer warp
+constexpr int kWABytes = kWM * kWK * 2;      // the lhs box of a stage, 16 KB
+constexpr int kWBBox = kWK * 64 * 2;         // one rhs box, 8 KB
+constexpr int kWStage = kWABytes + (kWN / 64) * kWBBox;  // 48 KB
+constexpr int kWStages = 4;
+constexpr int kWRing = kWStages * kWStage;  // 192 KB
+// a consumer warpgroup's output buffer: 64 rows x 128 columns of bf16 as
+// two boxes of 64 x 64 in the 128-byte swizzle, stored by TMA
+constexpr int kWOutBox = 64 * 64 * 2, kWOut = 2 * kWOutBox;
+// + both warpgroups' output buffers, the full and empty barriers, and room
+// to align to 1 KB
+constexpr size_t kWideSmem = kWRing + 2 * kWOut + 16 * kWStages + 1024;
 
-// Shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
+struct WideMaps {  // TMA tensor maps: lhs (T, D), rhs (E, D, F), out (T, F)
+  CUtensorMap lhs, rhs, out;
+};
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// make this thread's generic-proxy shared-memory writes (cp.async, st.shared)
-// visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-// d (64 x N, fp32) += a (64 x 16, K-major) * b (16 x N, N-major), bf16
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+// d (64 x 256, fp32) (+)= a (64 x 16, K-major) * b (16 x 256, N-major),
+// bf16; `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "n"(1));
-}
-// keep the compiler from moving accumulator reads or writes across wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// One stage of the wide tile: lhs rows [m0, row_end) x depth [k0, k0 + 64)
-// and rhs_e depth [k0, k0 + 64) x columns [n0, n0 + 128) into the swizzled
-// layout, zeros past the edges; cp.async where both operands have 16-byte
-// rows, scalar loads otherwise.
-__device__ __forceinline__ void wg_stage(unsigned char* st, const GmmArgs& g, const bf16* rhs_e,
-                                         int m0, int row_end, int k0, int n0) {
-  constexpr int BM = kGM, BN = kGN, THREADS = kGThreads;
-  bf16* a_s = reinterpret_cast<bf16*>(st);
-  bf16* b_s = reinterpret_cast<bf16*>(st + BM * kGK * sizeof(bf16));
-  const bool vec = g.lhs_vec && g.rhs_vec;
-  const int k_end = g.d;
-  const bf16 zero = __float2bfloat16(0.f);
-#pragma unroll
-  for (int j = 0; j < (BM * kGK / 8 + THREADS - 1) / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS, r = i / 8, c = i % 8;
-    if (i >= BM * kGK / 8) break;
-    const int row = m0 + r, k = k0 + 8 * c;
-    bf16* dst = a_s + r * kGK + 8 * (c ^ (r & 7));
-    const bf16* src = g.lhs + static_cast<size_t>(row) * g.d + k;
-    const bool in = row < row_end;
-    if (vec) {
-      const bool ok = in && k < k_end;
-      cp_async16(dst, ok ? src : g.lhs, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int v = 0; v < 8; ++v) dst[v] = (in && k + v < k_end) ? src[v] : zero;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < (kGK * BN / 8 + THREADS - 1) / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS, kr = i / (BN / 8), cc = i % (BN / 8);
-    if (i >= kGK * BN / 8) break;
-    const int atom = cc / 8, c = cc % 8;
-    const int k = k0 + kr, col = n0 + 8 * cc;
-    bf16* dst = b_s + atom * (kGK * 64) + kr * 64 + 8 * (c ^ (kr & 7));
-    const bf16* src = rhs_e + static_cast<size_t>(k) * g.f + col;
-    if (vec) {
-      const int n = k < k_end ? max(0, min(8, g.f - col)) : 0;
-      cp_async16(dst, n ? src : g.rhs, 2 * n);
-    } else {
-#pragma unroll
-      for (int v = 0; v < 8; ++v) dst[v] = (k < k_end && col + v < g.f) ? src[v] : zero;
-    }
-  }
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-__global__ void __launch_bounds__(kGThreads) gmm_wgmma_kernel(GmmArgs g) {
-  constexpr int BM = kGM, STAGES = kGStages;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int n0 = blockIdx.y * kGN;
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+// The runs of equal (clamped) expert in tile_expert, walked forward by one
+// warp, each run cut into row tiles of kWM from its own first row. Every
+// lane holds the same state; the lanes read 32 entries of the map at once.
+struct RunWalk {
+  int tile = 0;   // the run's first map entry
+  int end = 0;    // one past its last
+  int e = 0;      // its expert
+  int first = 0;  // the index of its first row tile
+  int parts = 0;  // its row tiles
 
-  // this CTA's row tile: the blockIdx.x-th of the runs' tiles, each run of
-  // equal expert cut into tiles of BM rows from its own first row
-  int m0 = -1, row_end = 0, e = 0;
-  for (int tile = 0, x = blockIdx.x, n_tiles = g.t / g.block_t; tile < n_tiles;) {
-    e = clamp_expert(g.tile_expert[tile], g.e);
-    int end = tile + 1;
-    while (end < n_tiles && clamp_expert(g.tile_expert[end], g.e) == e) ++end;
-    const int rows = (end - tile) * g.block_t, parts = (rows + BM - 1) / BM;
-    if (x < parts) {
-      m0 = tile * g.block_t + x * BM;
-      row_end = min(m0 + BM, end * g.block_t);
-      break;
-    }
-    x -= parts;
-    tile = end;
-  }
-  if (m0 < 0) return;  // the grid is sized for the most tiles any map can need
-  const bf16* rhs_e = g.rhs + static_cast<size_t>(e) * g.d * g.f;
-  const bool active = m0 + wg * 64 < row_end;  // this warpgroup's rows hold the run
-
-  float acc[kGN / 2];
-#pragma unroll
-  for (int i = 0; i < kGN / 2; ++i) acc[i] = 0.f;
-
-  // the ring: stages are filled STAGES - 1 ahead of the one multiplied
-  const int nk = (g.d + kGK - 1) / kGK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) wg_stage(smem + s * kGStage, g, rhs_e, m0, row_end, s * kGK, n0);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
-    fence_proxy_async();          // ... visible to wgmma's reads
-    __syncthreads();              // ... everyone's; stage kt - 1's products are done
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk) wg_stage(smem + (nxt % STAGES) * kGStage, g, rhs_e, m0, row_end, nxt * kGK, n0);
-    cp_async_commit();
-    if (active) {
-      // A: this warpgroup's 64 rows (8-row atoms 1 KB apart; depth steps of
-      // 16 are 32 bytes into the swizzled row); B: atoms of 64 columns 8 KB
-      // apart, of 8 depth rows 1 KB apart (depth steps of 16 are 2 KB)
-      const unsigned a_addr = smem_u32(smem + (kt % STAGES) * kGStage) + wg * 64 * kGK * 2;
-      const unsigned b_addr = smem_u32(smem + (kt % STAGES) * kGStage) + BM * kGK * 2;
-      fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kGK / 16; ++kk)
-        wgmma_n128(acc, smem_desc(a_addr + 32 * kk, 0, 1024),
-                   smem_desc(b_addr + 2048 * kk, kGK * 128, 1024));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_acc(acc);
-    }
-  }
-  cp_async_wait<0>();
-  if (!active) return;
-
-  // accumulator: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8);
-  // register 4 j (+ 1) is column 8 j + 2 (lane % 4) (+ 1), 4 j + 2 (+ 1) the
-  // same columns 8 rows down
-  const int warp = t / 32, lane = t % 32;
-#pragma unroll
-  for (int j = 0; j < kGN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
-      const int col = n0 + 8 * j + (lane & 3) * 2;
-      if (row >= row_end || col >= g.f) continue;
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (g.out_vec2 && col + 1 < g.f) {
-        *reinterpret_cast<__nv_bfloat162*>(g.out + static_cast<size_t>(row) * g.f + col) =
-            __floats2bfloat162_rn(v0, v1);
-      } else {
-        put(g, row, col, v0);
-        if (col + 1 < g.f) put(g, row, col + 1, v1);
+  // the run that starts at `tile`
+  __device__ __forceinline__ void load(const GmmArgs& g, int n_bt) {
+    e = clamp_expert(__ldg(g.tile_expert + tile), g.e);
+    end = n_bt;
+    for (int base = tile + 1; base < n_bt; base += 32) {
+      const int i = base + threadIdx.x % 32;
+      const unsigned other = __ballot_sync(
+          0xffffffffu, i < n_bt && clamp_expert(__ldg(g.tile_expert + i), g.e) != e);
+      if (other) {
+        end = base + __ffs(other) - 1;
+        break;
       }
     }
+    parts = ((end - tile) * g.block_t + kWM - 1) / kWM;
+  }
+  // Moves on to the run that holds row tile `mt` (this run or a later one);
+  // false past the last run.
+  __device__ __forceinline__ bool seek(const GmmArgs& g, int n_bt, int mt) {
+    while (mt >= first + parts) {
+      if (end >= n_bt) return false;
+      first += parts;
+      tile = end;
+      load(g, n_bt);
+    }
+    return true;
+  }
+  __device__ __forceinline__ int row0(const GmmArgs& g, int mt) const {
+    return tile * g.block_t + (mt - first) * kWM;
+  }
+};
+
+// One CTA an SM walks the tiles idx = blockIdx.x, + gridDim.x, ...: row tile
+// idx / n_slabs, column slab idx % n_slabs, so the CTAs at work at one time
+// hold a few neighbouring row tiles across all their slabs: each lhs tile
+// and each expert's weights leave HBM about once, the other reads hit L2.
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ WideMaps maps, const GmmArgs g) {
+  constexpr int S = kWStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const unsigned ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned out_s = ring + kWRing, full = out_s + 2 * kWOut, empty = full + 8 * S;
+  const int n_bt = g.t / g.block_t, n_slabs = (g.f + kWN - 1) / kWN;
+  const int nk = (g.d + kWK - 1) / kWK;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kWConsumers / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  RunWalk walk;
+  walk.load(g, n_bt);
+  int it = 0;  // stages through the ring so far, over all of this CTA's tiles
+
+  if (threadIdx.x >= kWConsumers) {  // the producer warp: lane 0 issues every copy
+    for (int idx = blockIdx.x;; idx += gridDim.x) {
+      const int mt = idx / n_slabs, n0 = (idx % n_slabs) * kWN;
+      if (!walk.seek(g, n_bt, mt)) break;
+      const int m0 = walk.row0(g, mt);
+      const int boxes = min(kWN / 64, (g.f - n0 + 63) / 64);  // boxes past F stay unread
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int st = it % S;
+        if (it >= S) mbar_wait(empty + 8 * st, (it / S + 1) & 1);
+        if (lane == 0) {
+          const unsigned dst = ring + st * kWStage, bar = full + 8 * st;
+          mbar_expect_tx(bar, kWABytes + boxes * kWBBox);
+          tma_load(dst, &maps.lhs, bar, kt * kWK, m0);
+          for (int j = 0; j < boxes; ++j)
+            tma_load(dst + kWABytes + j * kWBBox, &maps.rhs, bar, n0 + 64 * j, kt * kWK, walk.e);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes rows [64 wg, 64 wg + 64) of each tile
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  float acc[kWN / 2];  // each tile's first products overwrite it
+#pragma unroll
+  for (int i = 0; i < kWN / 2; ++i) acc[i] = 0.f;
+  for (int idx = blockIdx.x;; idx += gridDim.x) {
+    const int mt = idx / n_slabs, n0 = (idx % n_slabs) * kWN;
+    if (!walk.seek(g, n_bt, mt)) break;
+    const int m0 = walk.row0(g, mt), row_end = min(m0 + kWM, walk.end * g.block_t);
+    const bool active = m0 + 64 * wg < row_end;  // this warpgroup's rows hold part of the run
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % S;
+      mbar_wait(full + 8 * st, (it / S) & 1);
+      if (!active) {
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+        continue;
+      }
+      // A: this warpgroup's 64 rows (8-row atoms 1 KB apart; depth steps of
+      // 16 are 32 bytes into the swizzled row); B: boxes of 64 columns 8 KB
+      // apart, of 8 depth rows 1 KB apart (depth steps of 16 are 2 KB)
+      const unsigned a_addr = ring + st * kWStage + wg * 64 * 128;
+      const unsigned b_addr = ring + st * kWStage + kWABytes;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk)
+        wgmma_tile(acc, smem_desc(a_addr + 32 * kk, 0, 1024),
+                   smem_desc(b_addr + 2048 * kk, kWBBox, 1024), kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the products of the stage before are done ...
+      fence_regs(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));  // ... so it is free
+    }
+    if (!active) continue;
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+
+    // accumulator: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8);
+    // register 4 j (+ 1) is column 8 j + 2 (lane % 4) (+ 1), 4 j + 2 (+ 1)
+    // the same columns 8 rows down. The producer is already loading the
+    // next tile's stages.
+    if (m0 + 64 * wg + 64 <= row_end) {
+      // all 64 rows hold the run: 128 columns at a time into this
+      // warpgroup's buffer (16-byte chunk c of row r at chunk c ^ (r % 8),
+      // so the quads' stores hit 8 distinct chunks), then TMA stores them
+      // (clipped at F) while the consumers go on to the next tile
+      const unsigned buf = out_s + wg * kWOut;
+      const bool issuer = threadIdx.x % 128 == 0;
+#pragma unroll
+      for (int r = 0; r < kWN / 128; ++r) {
+        if (issuer) bulk_wait_read<0>();  // the last stores have read the buffer
+        warpgroup_sync(wg);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = warp * 16 + (lane >> 2) + 8 * h;
+            const unsigned addr = buf + (j >> 3) * kWOutBox + row * 128 +
+                                  (((j & 7) ^ (row & 7)) << 4) + 4 * (lane & 3);
+            const int i = 4 * (16 * r + j) + 2 * h;
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                         "r"(pack_bf16x2(acc[i], acc[i + 1]))
+                         : "memory");
+          }
+        fence_proxy_async();
+        warpgroup_sync(wg);
+        if (issuer) {
+          for (int b = 0; b < 2; ++b)
+            if (n0 + 128 * r + 64 * b < g.f)
+              tma_store(&maps.out, buf + b * kWOutBox, n0 + 128 * r + 64 * b, m0 + 64 * wg);
+          bulk_commit();
+        }
+      }
+      continue;
+    }
+    // rows past the run's end belong to another tile: element stores
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+        const int col = n0 + 8 * j + (lane & 3) * 2;
+        if (row >= row_end || col >= g.f) continue;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (g.out_vec2 && col + 1 < g.f) {
+          *reinterpret_cast<__nv_bfloat162*>(g.out + static_cast<size_t>(row) * g.f + col) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          put(g, row, col, v0);
+          if (col + 1 < g.f) put(g, row, col + 1, v1);
+        }
+      }
+  }
+  if (threadIdx.x % 128 == 0) bulk_wait<0>();  // this warpgroup's stores are done
+}
+
+// The SMs of the current device (the persistent grid), read once a device.
+int sm_count() {
+  static int count[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < kMaxDevices && count[dev] > 0) return count[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = std::max(n, 1);
+  if (dev < kMaxDevices) count[dev] = n;
+  return n;
+}
+
+// The wide tile, where TMA can describe both operands (rows of 16-byte
+// multiples, 16-byte aligned bases; the wrapper sends other shapes to the
+// narrow tile).
+int launch_wide(const GmmArgs& g, cudaStream_t s) {
+  if (!(g.lhs_vec && g.rhs_vec) || g.d <= 0 || !aligned16(g.out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  WideMaps maps;
+  const long long lhs_dims[2] = {g.d, g.t}, lhs_str[1] = {g.d};
+  const long long rhs_dims[3] = {g.f, g.d, g.e};
+  const long long rhs_str[2] = {g.f, static_cast<long long>(g.d) * g.f};
+  const long long out_dims[2] = {g.f, g.t}, out_str[1] = {g.f};
+  CUresult r = encode(fn, &maps.lhs, g.lhs, 2, lhs_dims, lhs_str, 1, kWM);
+  if (r == CUDA_SUCCESS) r = encode(fn, &maps.rhs, g.rhs, 3, rhs_dims, rhs_str, 1, kWK);
+  if (r == CUDA_SUCCESS) r = encode(fn, &maps.out, g.out, 2, out_dims, out_str, 1, 64);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  static bool smem_set[kMaxDevices];
+  const cudaError_t err = allow_dynamic_smem(gmm_wgmma_kernel, kWideSmem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // row tiles cut per run: at most one per map entry when block_t <= kWM,
+  // else ceil(T / kWM) + one a run
+  const long long n_bt = g.t / g.block_t;
+  const long long rows = g.block_t <= kWM ? n_bt : (g.t + kWM - 1) / kWM + n_bt;
+  const long long tiles = rows * ((g.f + kWN - 1) / kWN);
+  const int grid = static_cast<int>(std::min<long long>(sm_count(), tiles));
+  gmm_wgmma_kernel<<<grid, kWThreads, kWideSmem, s>>>(maps, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the bf16 kernel of this row tile; each kernel is allowed its
 // dynamic shared memory once per device, not on every call.
 int launch_tc(const GmmArgs& g, int tile_rows, cudaStream_t s) {
-  static bool narrow_smem[kMaxDevices], wide_smem[kMaxDevices];
-  cudaError_t err;
-  if (tile_rows == kNM) {
-    err = allow_dynamic_smem(gmm_narrow_kernel, kNarrowSmem, narrow_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // fixed 8-row tiles
-    const dim3 grid((g.t + kNM - 1) / kNM, (g.f + kNN - 1) / kNN);
-    gmm_narrow_kernel<<<grid, kNThreads, kNarrowSmem, s>>>(g);
-  } else if (tile_rows == kGM) {
-    err = allow_dynamic_smem(gmm_wgmma_kernel, kGSmem, wide_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // tiles cut per run: at most one per row tile of block_t rows when
-    // block_t <= kGM, else ceil(T / kGM) + one a run
-    const int n_bt = g.t / g.block_t;
-    const int n_rows = g.block_t <= kGM ? n_bt : (g.t + kGM - 1) / kGM + n_bt;
-    gmm_wgmma_kernel<<<dim3(n_rows, (g.f + kGN - 1) / kGN), kGThreads, kGSmem, s>>>(g);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  static bool narrow_smem[kMaxDevices];
+  if (tile_rows == kWM) return launch_wide(g, s);
+  if (tile_rows != kNM) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_dynamic_smem(gmm_narrow_kernel, kNarrowSmem, narrow_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // fixed 8-row tiles
+  const dim3 grid((g.t + kNM - 1) / kNM, (g.f + kNN - 1) / kNN);
+  gmm_narrow_kernel<<<grid, kNThreads, kNarrowSmem, s>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,15 +789,17 @@ int launch_tc(const GmmArgs& g, int tile_rows, cudaStream_t s) {
 // Dynamic shared memory of the bf16 kernel for this row tile, in bytes (0
 // for a tile it does not take).
 extern "C" int moe_gmm_smem_bytes(int tile_rows) {
-  return tile_rows == kGM ? static_cast<int>(kGSmem)
+  return tile_rows == kWM ? static_cast<int>(kWideSmem)
          : tile_rows == kNM ? static_cast<int>(kNarrowSmem)
                             : 0;
 }
 
 // lhs (t, d), rhs (e, d, f), out (t, f) contiguous in `dtype`; tile_expert
-// (t / block_t,) int32; t % block_t == 0. bf16 only: tile_rows 192 (wide)
-// or 8 (narrow). Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments it does not take.
+// (t / block_t,) int32; t % block_t == 0. bf16 only: tile_rows 128 (wide;
+// D and F multiples of 8, lhs and rhs 16-byte aligned) or 8 (narrow).
+// Returns cudaGetLastError(), cudaErrorInvalidValue for arguments it does
+// not take, or kEncodeError + the CUresult of cuTensorMapEncodeTiled where
+// a tensor map cannot be encoded.
 extern "C" int moe_gmm_launch(const void* lhs, const void* rhs, const void* tile_expert,
                               void* out, int t, int d, int f, int e, int block_t, int tile_rows,
                               int dtype, void* stream) {

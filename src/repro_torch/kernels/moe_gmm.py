@@ -4,12 +4,13 @@
 Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py`` (``moe_gmm`` /
 ``_gmm_kernel``): rows of ``lhs`` sorted by expert in whole row tiles of
 ``block_t`` rows, row tile i multiplied by ``rhs[tile_expert[i]]``. On the
-H100 the serving path's calls are bound by bytes (the expert weights are
-read once a call); each CTA reads its own tile's expert id. At bf16 the
-products run on the tensor cores in one of two row tiles
-(:func:`row_tile`; ``ref.moe_gmm_schedule_ref`` is the same partition in
-plain PyTorch); at float32 on the CUDA cores. See the source for the
-design.
+H100 a decode wave's calls are bound by bytes (the expert weights are read
+once a call), a long admission's by operations; each CTA reads its own
+tiles' expert ids. At bf16 the products run on the tensor cores in one of
+two row tiles (:func:`row_tile`; ``ref.moe_gmm_schedule_ref`` is the same
+partition in plain PyTorch): the wide tile a persistent, TMA-fed
+``wgmma`` kernel, the narrow one ``mma.sync`` fed by ``cp.async``; at
+float32 on the CUDA cores. See the source for the design.
 
 A CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.moe_gmm_tiles_ref`; a CUDA tensor launches
@@ -22,16 +23,28 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_gmm_tiles_ref
 
-# kernel launches since the last reset (CUDA tensors only)
-launches = 0
+# kernel launches since the last reset (CUDA tensors only), by form: the
+# bf16 row tiles ``wide`` and ``narrow``, and ``float32``
+launches = {"narrow": 0, "wide": 0, "float32": 0}
+
+WIDE, NARROW = 128, 8
 
 
 def row_tile(t: int, e: int) -> int:
-    """Rows of the bf16 kernel's tile, from the shapes alone: 192 (wide)
+    """Rows of the bf16 kernel's tile, from the shapes alone: 128 (wide)
     where the experts average at least 32 rows (a prefill), else 8
     (narrow: a decode wave, each expert's rows streaming its weights
     once)."""
-    return 192 if t >= 32 * e else 8
+    return WIDE if t >= 32 * e else NARROW
+
+
+def tma_ready(lhs: torch.Tensor, rhs: torch.Tensor) -> bool:
+    """Whether TMA can describe both operands, as the wide tile loads them:
+    rows of whole 16 bytes (D and F multiples of 8) from 16-byte aligned
+    bases. The narrow tile takes every other shape."""
+    d, f = lhs.shape[1], rhs.shape[2]
+    return (d > 0 and d % 8 == 0 and f % 8 == 0 and lhs.data_ptr() % 16 == 0
+            and rhs.data_ptr() % 16 == 0)
 
 
 def moe_gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert, *,
@@ -73,11 +86,13 @@ def moe_gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert, *,
 def _launch(lhs: torch.Tensor, rhs: torch.Tensor, te: torch.Tensor, block_t: int,
             tile_rows: int) -> torch.Tensor:
     """The kernel on checked CUDA inputs (``te`` contiguous int32 on the
-    card), bf16 in row tiles of ``tile_rows`` (8 or 192; float32 takes its
-    own tile). The card-only tests call it to drive each row tile."""
-    global launches
+    card), bf16 in row tiles of ``tile_rows`` (8 or 128, the wide tile only
+    where :func:`tma_ready`, else the narrow one; float32 takes its own
+    tile). The card-only tests call it to drive each row tile."""
     t, d = lhs.shape
     e, _, f = rhs.shape
+    if tile_rows == WIDE and not tma_ready(lhs, rhs):
+        tile_rows = NARROW
     out = torch.empty((t, f), dtype=lhs.dtype, device=lhs.device)
     lib = build.library("moe_gmm")
     err = lib.moe_gmm_launch(
@@ -85,5 +100,6 @@ def _launch(lhs: torch.Tensor, rhs: torch.Tensor, te: torch.Tensor, block_t: int
         tile_rows, build.DTYPE_CODES[lhs.dtype],
         torch.cuda.current_stream(lhs.device).cuda_stream)
     build.check(err, "moe_gmm_launch")
-    launches += 1
+    launches["float32" if lhs.dtype == torch.float32 else
+             "wide" if tile_rows == WIDE else "narrow"] += 1
     return out

@@ -132,14 +132,15 @@ def moe_gmm_capacity(buf: torch.Tensor, rhs: torch.Tensor, *,
     return out.reshape(e, c, rhs.shape[2])
 
 
-_COUNTERS = {"flash_attention": _flash, "paged_attention": _paged, "moe_gmm": _gmm, "ssd": _ssd,
+_COUNTERS = {"flash_attention": _flash, "paged_attention": _paged, "ssd": _ssd,
              "mla_prefill": _mla}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`
-    (``rmsnorm`` counts all five of its forms)."""
+    (``rmsnorm`` counts all five of its forms, ``moe_gmm`` all three)."""
     return {"rmsnorm": sum(_rmsnorm.launches.values()),
+            "moe_gmm": sum(_gmm.launches.values()),
             **{k: m.launches for k, m in _COUNTERS.items()}}
 
 
@@ -151,11 +152,19 @@ def rmsnorm_form_counts() -> Dict[str, int]:
     return dict(_rmsnorm.launches)
 
 
+def moe_gmm_form_counts() -> Dict[str, int]:
+    """The moe_gmm kernel's launches by form (the bf16 row tiles ``wide``
+    and ``narrow``, and ``float32``) since the last
+    :func:`reset_launch_counts`; they sum to its count there."""
+    return dict(_gmm.launches)
+
+
 def launch_state() -> Dict[str, int]:
-    """Every launch counter, the rmsnorm kernel's by form
-    (``rmsnorm.<form>``): what :func:`add_launches` takes the difference
-    of two readings as."""
+    """Every launch counter, the rmsnorm and moe_gmm kernels' also by form
+    (``rmsnorm.<form>``, ``moe_gmm.<form>``): what :func:`add_launches`
+    takes the difference of two readings as."""
     return {**{f"rmsnorm.{k}": v for k, v in _rmsnorm.launches.items()},
+            **{f"moe_gmm.{k}": v for k, v in _gmm.launches.items()},
             **{k: m.launches for k, m in _COUNTERS.items()}}
 
 
@@ -166,6 +175,8 @@ def add_launches(delta: Dict[str, int]) -> None:
     for k, n in delta.items():
         if k.startswith("rmsnorm."):
             _rmsnorm.launches[k[len("rmsnorm."):]] += n
+        elif k.startswith("moe_gmm."):
+            _gmm.launches[k[len("moe_gmm."):]] += n
         else:
             _COUNTERS[k].launches += n
 

@@ -151,11 +151,11 @@ def test_an_eager_step_counts_graphed_0_and_holds_its_moe_layers():
 
 def test_launch_state_round_trip():
     before = ops.launch_state()
-    ops.add_launches({"rmsnorm.residual": 3, "moe_gmm": 2})
+    ops.add_launches({"rmsnorm.residual": 3, "moe_gmm.wide": 2})
     counts = ops.launch_counts()
-    ops.add_launches({"rmsnorm.residual": -3, "moe_gmm": -2})
+    ops.add_launches({"rmsnorm.residual": -3, "moe_gmm.wide": -2})
     assert ops.launch_state() == before
-    assert counts["moe_gmm"] == before["moe_gmm"] + 2
+    assert counts["moe_gmm"] == sum(v for k, v in before.items() if k.startswith("moe_gmm.")) + 2
     assert counts["rmsnorm"] == sum(v for k, v in before.items() if k.startswith("rmsnorm.")) + 3
 
 

@@ -536,7 +536,7 @@ def test_moe_gmm_kernel_ragged_groups_and_capacity_helper(cuda):
     torch.testing.assert_close(got, torch.bmm(buf, rhs), **F32_TOL)
 
 
-@pytest.mark.parametrize("tile_rows", [8, 192])
+@pytest.mark.parametrize("tile_rows", [8, 128])
 @pytest.mark.parametrize("t,d,f,e,block_t", [
     (64, 96, 64, 4, 8),         # the w_down decode shape at mixtral-smoke width (d_ff 96)
     (256, 64, 96, 4, 32),       # runs of block_t 32 that cross 8-row tiles
@@ -545,7 +545,8 @@ def test_moe_gmm_kernel_ragged_groups_and_capacity_helper(cuda):
 def test_moe_gmm_bf16_row_tiles_match_plain_on_card(cuda, t, d, f, e, block_t, tile_rows):
     """Each bf16 row tile (narrow, wide), driven through the private
     launch, against the plain version and the plain mirror of the same
-    partition; repeated calls give the same bits."""
+    partition; repeated calls give the same bits. F 52 has rows TMA cannot
+    describe, so the wide tile's call runs the narrow one."""
     lhs, rhs, te = _gmm_case(cuda, t, d, f, e, block_t, torch.bfloat16)
     out = gmm_kernel._launch(lhs, rhs, te, block_t, tile_rows)
     again = gmm_kernel._launch(lhs, rhs, te, block_t, tile_rows)
@@ -558,11 +559,11 @@ def test_moe_gmm_bf16_row_tiles_match_plain_on_card(cuda, t, d, f, e, block_t, t
 
 
 def test_moe_gmm_runs_that_cross_the_row_tiles(cuda):
-    """Runs of 96 rows (the wide tiles are cut per run; a warpgroup past a
-    run's end idles), and block_t 12, where every other narrow 8-row tile
-    spans two experts; in bf16 (each row tile through the private launch)
-    and f32; repeated calls give the same bits."""
-    cases = [(32, [0, 0, 0, 1, 1, 1, 2, 2], torch.bfloat16, 192),
+    """Runs of 96 rows (the wide tiles are cut per run; the second
+    warpgroup holds 32 of a run's rows), and block_t 12, where every other
+    narrow 8-row tile spans two experts; in bf16 (each row tile through the
+    private launch) and f32; repeated calls give the same bits."""
+    cases = [(32, [0, 0, 0, 1, 1, 1, 2, 2], torch.bfloat16, 128),
              (32, [0, 0, 0, 1, 1, 1, 2, 2], torch.float32, None),
              (12, [0, 1, 1, 2, 2, 2, 0, 0, 1, 2], torch.bfloat16, 8),
              (12, [0, 1, 1, 2, 2, 2, 0, 0, 1, 2], torch.float32, None)]
@@ -584,9 +585,9 @@ def test_moe_gmm_runs_that_cross_the_row_tiles(cuda):
 @pytest.mark.parametrize("t,d,f,block_t,tile_rows", [
     (512, 2048, 1408, 8, 8),      # decode, 4 slots: cap 8, w_gate/w_up, the narrow tile
     (512, 1408, 2048, 8, 8),      # decode w_down
-    (4096, 2048, 1408, 64, 192),  # a 512-token prefill: cap 64, the wide tile
-    (7680, 2048, 1408, 8, 192),   # forward at B 2, S 512: cap 120, block_t 8 under the wide tile
-    (7680, 1408, 2048, 8, 192),   # its w_down
+    (4096, 2048, 1408, 64, 128),  # a 512-token prefill: cap 64, the wide tile
+    (7680, 2048, 1408, 8, 128),   # forward at B 2, S 512: cap 120, block_t 8 under the wide tile
+    (7680, 1408, 2048, 8, 128),   # its w_down
 ])
 def test_moe_gmm_deepseek_shapes_on_card(cuda, t, d, f, block_t, tile_rows):
     """deepseek-v2-lite-16b's capacity buffers (64 experts, moe_d_ff 1408,
@@ -614,12 +615,12 @@ def test_moe_gmm_deepseek_shapes_on_card(cuda, t, d, f, block_t, tile_rows):
     (32, 8, 2048, 1408, 8),      # deepseek, 32 of 64 experts a rank: a decode wave
     (32, 8, 1408, 2048, 8),      # its w_down
     (32, 16, 2048, 1408, 8),     # a 128-token admission: cap 16, still the narrow tile
-    (32, 64, 2048, 1408, 192),   # a 512-token admission: cap 64, the wide tile
+    (32, 64, 2048, 1408, 128),   # a 512-token admission: cap 64, the wide tile
     (4, 8, 6144, 16384, 8),      # mixtral, 4 of 8 experts a rank: a decode wave
-    (4, 40, 6144, 16384, 192),   # a 128-token admission: cap 40, the wide tile
+    (4, 40, 6144, 16384, 128),   # a 128-token admission: cap 40, the wide tile
     (8, 8, 6144, 8192, 8),       # in-expert: every expert's half of 16384, a decode wave
-    (8, 40, 6144, 8192, 192),    # and a 128-token admission
-    (8, 40, 8192, 6144, 192),    # its w_down
+    (8, 40, 6144, 8192, 128),    # and a 128-token admission
+    (8, 40, 8192, 6144, 128),    # its w_down
 ])
 def test_moe_gmm_per_rank_shapes_on_card(cuda, e, cap, d, f, tile_rows):
     """The capacity buffers one rank of a tensor-parallel gang multiplies:
@@ -668,6 +669,156 @@ def test_moe_gmm_repeat_gives_the_same_bits(cuda, dtype):
     torch.cuda.synchronize()
     for o in outs[1:]:
         torch.testing.assert_close(o, outs[0], atol=0, rtol=0)
+
+
+def _dropless_case(cuda, s, k, d, f, e, sizes, seed=0):
+    """The dropless MoE path's buffer for s tokens of top-k routing with
+    these group sizes (summing to s * k), as ``models/moe.py`` lays it out:
+    each group padded to a multiple of 128 with zero rows, the static worst
+    case of s * k rounded up plus one 128-row tile an expert, the slack
+    tiles on the last expert."""
+    bt = 128
+    tk = s * k
+    assert sum(sizes) == tk
+    t_pad = (tk + bt - 1) // bt * bt + e * bt
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    sizes_t = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    _, offs = ops.pad_group_sizes(sizes_t, bt)
+    lhs = torch.zeros(t_pad, d, device=cuda, dtype=torch.bfloat16)
+    for n, o in zip(sizes, offs[:-1].tolist()):
+        lhs[o:o + n] = torch.randn(n, d, device=cuda, generator=g).to(torch.bfloat16)
+    rhs = (torch.randn(e, d, f, device=cuda, generator=g) * d ** -0.5).to(torch.bfloat16)
+    starts = torch.arange(t_pad // bt, dtype=torch.int32, device=cuda) * bt
+    te = (torch.searchsorted(offs, starts, right=True) - 1).clamp(0, e - 1).to(torch.int32)
+    return lhs, rhs, te
+
+
+def _skewed_sizes(tk, e, seed):
+    """Group sizes of tk picks over e experts: expert 0 gets none, expert 1
+    over 1,000, the rest drawn at random."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(e, generator=g)
+    p[0] = 0
+    sizes = torch.bincount(torch.multinomial(p, tk - 1100, replacement=True, generator=g),
+                           minlength=e)
+    sizes[1] += 1100
+    return sizes.tolist()
+
+
+@pytest.mark.parametrize("s", [2048, 4096, 8192])
+@pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])
+def test_moe_gmm_wide_tile_at_extract16_admissions_on_card(cuda, s, d, f):
+    """DeepSeek-V2-Lite's dropless admissions (64 experts, top-6; w_gate /
+    w_up 2048 -> 1408, an N edge of 11 x 128, and w_down 1408 -> 2048) at
+    prompts of 2048, 4096 and 8192 tokens, with one expert empty and one
+    over 1,000 rows: the wide tile against the plain version and the plain
+    mirror of its partition, counted as a wide launch; a repeated call
+    gives the same bits."""
+    e, k = 64, 6
+    lhs, rhs, te = _dropless_case(cuda, s, k, d, f, e, _skewed_sizes(s * k, e, s), seed=s)
+    assert gmm_kernel.row_tile(lhs.shape[0], e) == 128
+    before = ops.moe_gmm_form_counts()
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=128)
+    again = ops.moe_gmm_op(lhs, rhs, te, block_t=128)
+    torch.cuda.synchronize()
+    after = ops.moe_gmm_form_counts()
+    assert {k_: after[k_] - before[k_] for k_ in after} == {"narrow": 0, "wide": 2, "float32": 0}
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, 128).float(),
+                               **BF16_TOL)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_schedule_ref(
+        lhs, rhs, te, 128, tile_rows=128).float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("s", [64, 512, 1024])
+@pytest.mark.parametrize("d,f", [(6144, 16384), (16384, 6144)])
+def test_moe_gmm_wide_tile_at_chat32_admissions_on_card(cuda, s, d, f):
+    """Mixtral's dropless admissions (8 experts, top-2, 6144 <-> 16384) at
+    prompts of 64, 512 and 1024 tokens: 1,152 to 3,072 launched rows, runs
+    of 128 k rows; the wide tile against the plain version; a repeated call
+    gives the same bits."""
+    e, k = 8, 2
+    g = torch.Generator().manual_seed(s)
+    sizes = torch.bincount(torch.randint(0, e, (s * k,), generator=g), minlength=e).tolist()
+    lhs, rhs, te = _dropless_case(cuda, s, k, d, f, e, sizes, seed=s)
+    assert gmm_kernel.row_tile(lhs.shape[0], e) == 128
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=128)
+    again = ops.moe_gmm_op(lhs, rhs, te, block_t=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, 128).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("cap", [40, 64, 120])
+def test_moe_gmm_wide_tile_at_capacity_runs_on_card(cuda, cap):
+    """The capacity path's block_t = cap (runs of 40, 64 and 120 rows, not
+    multiples of the 128-row tile; one run a tile, 40 of them on the first
+    warpgroup alone), deepseek's widths: the wide tile against the plain
+    version and the mirror of its partition; a repeated call gives the
+    same bits."""
+    e, d, f = 64, 2048, 1408
+    t = e * cap
+    assert gmm_kernel.row_tile(t, e) == 128
+    g = torch.Generator(device=cuda).manual_seed(cap)
+    buf = torch.randn(e, cap, d, device=cuda, generator=g).to(torch.bfloat16)
+    rhs = (torch.randn(e, d, f, device=cuda, generator=g) * d ** -0.5).to(torch.bfloat16)
+    out = ops.moe_gmm_capacity(buf, rhs, block_t=cap)
+    again = ops.moe_gmm_capacity(buf, rhs, block_t=cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+    te = torch.arange(e, device=cuda, dtype=torch.int32)
+    lhs = buf.reshape(t, d)
+    torch.testing.assert_close(out.reshape(t, f).float(), ref.moe_gmm_schedule_ref(
+        lhs, rhs, te, cap, tile_rows=128).float(), **BF16_TOL)
+    torch.testing.assert_close(out.float(), torch.bmm(buf.float(), rhs.float()), **BF16_TOL)
+
+
+@pytest.mark.parametrize("d,f,wide", [
+    (72, 136, True),     # D past one stage; F 136: a third box of 8 columns, the fourth unread
+    (200, 200, True),    # F 200: a partial box in the last slab
+    (2048, 1416, True),  # F 1416 = 11 x 128 + 8
+    (2044, 1408, False),  # D not a multiple of 8: rows TMA cannot describe, the narrow tile
+    (2048, 1412, False),  # F not a multiple of 8
+])
+def test_moe_gmm_wide_tile_edges_on_card(cuda, d, f, wide):
+    """The wide tile's D and F edges (zero-filled by TMA, boxes past F not
+    loaded), and shapes TMA cannot describe, which the narrow tile takes:
+    against the plain version, counted under the form that ran; a repeated
+    call gives the same bits."""
+    t, e, bt = 1280, 4, 128
+    lhs, rhs, te = _gmm_case(cuda, t, d, f, e, bt, torch.bfloat16)
+    rhs = (rhs.float() * d ** -0.5).to(torch.bfloat16)
+    assert gmm_kernel.row_tile(t, e) == 128
+    before = ops.moe_gmm_form_counts()
+    out = ops.moe_gmm_op(lhs, rhs, te, block_t=bt)
+    again = ops.moe_gmm_op(lhs, rhs, te, block_t=bt)
+    torch.cuda.synchronize()
+    after = ops.moe_gmm_form_counts()
+    form = "wide" if wide else "narrow"
+    assert after[form] - before[form] == 2
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, bt).float(),
+                               **BF16_TOL)
+
+
+def test_moe_gmm_wide_tile_takes_an_unaligned_base_on_card(cuda):
+    """An lhs that starts 8 bytes into its storage (a base TMA cannot take)
+    runs on the narrow tile, counted so, with the narrow tile's bits on an
+    aligned copy."""
+    t, d, f, e, bt = 1280, 256, 384, 4, 128
+    lhs, rhs, te = _gmm_case(cuda, t, d, f, e, bt, torch.bfloat16)
+    wide = torch.empty(t * d + 4, device=cuda, dtype=torch.bfloat16)
+    shifted = wide[4:].view(t, d)
+    shifted.copy_(lhs)
+    assert shifted.data_ptr() % 16 == 8 and shifted.is_contiguous()
+    before = ops.moe_gmm_form_counts()["narrow"]
+    out = ops.moe_gmm_op(shifted, rhs, te, block_t=bt)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm_form_counts()["narrow"] == before + 1
+    torch.testing.assert_close(out, gmm_kernel._launch(lhs, rhs, te, bt, 8), atol=0, rtol=0)
+    torch.testing.assert_close(out.float(), ref.moe_gmm_tiles_ref(lhs, rhs, te, bt).float(),
+                               **BF16_TOL)
 
 
 def test_moe_gmm_kernel_raises_on_what_it_does_not_take(cuda):
@@ -1269,3 +1420,43 @@ def test_data_axis_gather_and_reduce_scatter_on_the_card_equal_the_cpu(cuda):
             continue
         assert torch.equal(c["gathered"], whole)
         assert torch.equal(c["grad"], h["grad"]) and torch.equal(c["reduce_scatter"], want)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_admissions_take_the_wide_tile_and_decode_the_narrow_one_on_card(cuda, arch):
+    """``moe_gmm_form_counts()`` by phase of ``ContinuousEngine`` at bf16:
+    each admission of a 64-token prompt (t * k >= 128 picks: the dropless
+    buffer at block_t 128, at least 128 rows an expert) launches the wide
+    tile alone, three launches a MoE layer; each decode step of 4 slots
+    (block_t 8) the narrow tile alone."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, with_kernel_impls
+    from repro_torch.models import model as M
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = with_kernel_impls(dataclasses.replace(get_config(arch, smoke=True),
+                                                dtype="bfloat16"), "auto")
+    params = M.cast_params(M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda),
+                           cfg)
+    engine = ContinuousEngine(cfg, params, n_slots=4, max_seq=128, device=cuda)
+    rng = np.random.default_rng(0)
+
+    def forms(fn):
+        before, n0 = ops.moe_gmm_form_counts(), ops.launch_counts()["moe_gmm"]
+        fn()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["moe_gmm"] - n0
+        assert n > 0 and n % 3 == 0
+        return n, {k: v - before[k] for k, v in ops.moe_gmm_form_counts().items()}
+
+    for i in range(4):
+        req = GenRequest(id=i, prompt=rng.integers(0, cfg.vocab_size, 64).tolist(), max_new=8)
+        n, delta = forms(lambda: engine.add(req))
+        assert delta == {"wide": n, "narrow": 0, "float32": 0}
+    for _ in range(4):
+        n, delta = forms(engine.step)
+        assert delta == {"wide": 0, "narrow": n, "float32": 0}

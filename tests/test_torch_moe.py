@@ -120,6 +120,47 @@ def test_tile_experts_for_capacity_and_moe_gmm_capacity_match_jax():
         ops.moe_gmm_capacity(torch.from_numpy(_x(4, 20, 16)), torch.from_numpy(rhs), block_t=8)
 
 
+def test_moe_gmm_form_counts_sum_to_its_launches_and_name_the_tile(monkeypatch):
+    """``moe_gmm_form_counts()`` counts each launch under the form that ran,
+    and the forms sum to ``launch_counts()["moe_gmm"]``: the wide bf16 tile
+    where the experts average 32 rows or more (an admission), the narrow one
+    below (a decode wave) and wherever TMA cannot describe an operand (D or
+    F not a multiple of 8), float32 its own. Driven through the wrapper's
+    launch with the library replaced by a recorder, as no card is here."""
+    from repro_torch.kernels import moe_gmm as gmm_kernel
+    tiles = []
+
+    class Library:
+        @staticmethod
+        def moe_gmm_launch(*args):
+            tiles.append(args[9])
+            return 0
+
+    monkeypatch.setattr(gmm_kernel.build, "library", lambda name: Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0}))
+
+    def launch(t, d, f, e, block_t, dtype=torch.bfloat16):
+        lhs, rhs = torch.zeros(t, d, dtype=dtype), torch.zeros(e, d, f, dtype=dtype)
+        te = torch.zeros(t // block_t, dtype=torch.int32)
+        gmm_kernel._launch(lhs, rhs, te, block_t, gmm_kernel.row_tile(t, e))
+
+    before, total = ops.moe_gmm_form_counts(), ops.launch_counts()["moe_gmm"]
+    launch(1280, 64, 96, 8, 128)      # mixtral-smoke admission, 160 rows an expert: wide
+    launch(2048, 64, 48, 64, 128)     # 32 rows an expert: wide
+    launch(128, 64, 96, 8, 8)         # a decode wave: narrow
+    launch(2016, 64, 48, 64, 8)       # 31.5 rows an expert: narrow
+    launch(1280, 64, 52, 8, 128)      # F 52: rows TMA cannot describe, narrow
+    launch(1280, 60, 96, 8, 128)      # D 60: the same
+    launch(1280, 64, 96, 8, 128, torch.float32)
+    after = ops.moe_gmm_form_counts()
+    assert {k: after[k] - before[k] for k in after} == {"wide": 2, "narrow": 4, "float32": 1}
+    assert sum(after.values()) - sum(before.values()) == ops.launch_counts()["moe_gmm"] - total
+    assert tiles == [128, 128, 8, 8, 8, 8, 128]
+    state = ops.launch_state()
+    assert {k: state[f"moe_gmm.{k}"] for k in after} == after
+
+
 # --- routing and the MoE layer ------------------------------------------------------------
 def _moe_params(jc, n_shared=0, seed=3):
     """One layer's MoE parameters from ``repro.models.moe.init_moe``, on both sides."""

@@ -6,7 +6,7 @@ on the CPU.
 takes each split's fp32 partial ``(m, l, acc)`` and merges them in split
 order, as ``csrc/paged_attention.cu`` does; ``ref.moe_gmm_schedule_ref``
 takes the bf16 ``moe_gmm`` kernel's row tiles (fixed 8-row tiles walking
-runs, or 192-row tiles cut per run), as ``csrc/moe_gmm.cu`` does;
+runs, or 128-row tiles cut per run), as ``csrc/moe_gmm.cu`` does;
 ``ref.flash_attention_tiles_ref`` walks the bf16 flash kernel's 64-row q
 tiles over their even and odd 64-key tiles in two online softmaxes that
 merge at the end, P rounded to q's dtype before P V;
@@ -143,12 +143,14 @@ GMM_SCHEDULE_CASES = [
     # (t, d, f, e, block_t, block_f of the Pallas call)
     (64, 96, 64, 4, 8, 64),         # the decode-wave w_down shape at smoke width
     (39, 40, 52, 3, 13, 52),        # block_t 13: runs cross 8-row tiles; odd F
-    (320, 64, 96, 3, 32, 32),       # runs of block_t 32: wide tiles shorter than 192
-    (640, 128, 80, 3, 128, 80),     # block_t 128 (dropless tiles): runs above 192 rows
+    (320, 64, 96, 3, 32, 32),       # runs of block_t 32: wide tiles shorter than 128
+    (640, 128, 80, 3, 128, 80),     # block_t 128 (dropless tiles): runs of 128 k rows
+    (1152, 64, 136, 4, 128, 136),   # runs of 128 k rows over 4 experts; F past 128 by 8
+    (400, 72, 48, 3, 40, 48),       # block_t 40 (a capacity): runs not multiples of 128
 ]
 
 
-@pytest.mark.parametrize("tile_rows", [8, 192])
+@pytest.mark.parametrize("tile_rows", [8, 128])
 @pytest.mark.parametrize("t,d,f,e,bt,bf", GMM_SCHEDULE_CASES)
 def test_moe_gmm_schedule_mirror_matches_pallas_and_ref(t, d, f, e, bt, bf, tile_rows):
     lhs, rhs, te = _gmm_case(t, d, f, e, bt)
@@ -161,7 +163,7 @@ def test_moe_gmm_schedule_mirror_matches_pallas_and_ref(t, d, f, e, bt, bf, tile
     close(got.numpy(), ref.moe_gmm_tiles_ref(tl, tr, tte, bt).numpy(), F32_TOL)
 
 
-@pytest.mark.parametrize("tile_rows", [8, 192])
+@pytest.mark.parametrize("tile_rows", [8, 128])
 def test_moe_gmm_schedule_mirror_clamps_and_takes_any_map(tile_rows):
     """Expert ids out of range are clamped, and an unsorted map (runs that
     come back) is right in both row tiles."""
@@ -174,9 +176,10 @@ def test_moe_gmm_schedule_mirror_clamps_and_takes_any_map(tile_rows):
 
 @pytest.mark.parametrize("t,e,want", [
     (64, 8, 8),       # mixtral decode wave (w_gate/w_up and w_down): 8 rows an expert
-    (1280, 8, 192),   # 512-token prefill: one wide tile a 160-row run
+    (1280, 8, 128),   # 512-token prefill: two wide tiles a 160-row run
     (255, 8, 8),      # just under 32 rows an expert
-    (256, 8, 192),
+    (256, 8, 128),
+    (32768, 64, 128),  # deepseek's 4096-token admission: 512 launched rows an expert
     (64, 4, 8),       # smoke width
 ])
 def test_moe_gmm_row_tile_rule(t, e, want):
